@@ -1,0 +1,88 @@
+"""The port stands alone: no JAX, nothing of the reference package, and the
+card by default — a default-device entry point raises without CUDA."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.api import Session
+from repro_torch.engine.datagen import tpch_catalog
+from repro_torch.engine.executor import Executor
+from repro_torch.kernels.block_agg import block_agg
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = pathlib.Path(repro_torch.__file__).resolve().parent
+
+# `import repro` / `from repro.x` / `from repro import`, but not repro_torch
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_)|from\s+repro\b(?!_))",
+    re.MULTILINE)
+
+
+def test_importing_the_port_loads_no_jax_and_no_reference():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
+        "             or n.startswith('jaxlib') or n == 'repro' or n.startswith('repro.'))\n"
+        "print('LOADED', len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
+        "print('BAD', bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    loaded = int(out.stdout.split("LOADED ")[1].split()[0])
+    assert loaded >= 20  # every module of the package was imported
+
+
+def test_no_source_imports_jax_or_the_reference():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert (ROOT / "chip_smoke.py").exists()
+    offenders = [str(f) for f in files if _FORBIDDEN.search(f.read_text())]
+    assert offenders == []
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cat = tpch_catalog(2000, 32, device="cpu")
+    for make in (lambda: Session(cat), lambda: Executor(cat),
+                 lambda: tpch_catalog(2000, 32)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    # asked for, the CPU runs
+    h = Session(cat, device="cpu").sql("SELECT COUNT(*) AS n FROM lineitem")
+    assert h.status == "done" and h.scalar("n") == 2000
+
+
+def test_tables_must_sit_on_the_session_device():
+    cat = tpch_catalog(2000, 32, device="cpu")
+    meta = {"lineitem": cat["lineitem"]}
+    s = Session(meta, device="cpu")
+    assert s.tables() == ["lineitem"]
+    other = tpch_catalog(2000, 32, device="cpu")["orders"]
+    other = other.__class__(name="orders",
+                            columns={c: v.to("meta") for c, v in other.columns.items()},
+                            block_rows=32, num_rows=other.num_rows,
+                            valid=other.valid.to("meta"),
+                            block_id=other.block_id.to("meta"))
+    with pytest.raises(ValueError):
+        s.register_table("orders", other)
+
+
+def test_wrappers_never_take_the_plain_version_off_the_cpu():
+    """Only a CPU tensor reaches the plain version; a tensor on any other
+    non-CUDA device is refused, not silently computed."""
+    v = torch.zeros(64, device="meta")
+    m = torch.zeros(64, dtype=torch.bool, device="meta")
+    ids = torch.zeros(2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        block_agg(v, m, 32, ids)
