@@ -12,12 +12,12 @@ Phases, each printing its own lines:
 3. kernels — each hand-written kernel against its plain PyTorch version on
              the card (block_rows 32 / 100 / 256; empty blocks, padding ids,
              an int32 filter column, rows on a bound): counts exact, sums
-             within rtol 1e-5, two launches bitwise equal.  Then each kernel
-             is timed with CUDA events at the main path's shapes (SF10
-             lineitem columns, n_phys = 937 and 65,536, L2 flushed before
-             every launch) beside its plain version and its bytes bound.
+             within rtol 1e-5, two launches bitwise equal.  The batched
+             kernels run B = 3 lanes (own ids and bounds per lane) and each
+             lane must also be bitwise a solo launch on that lane's ids and
+             bounds.
 4. main    — the port's main path at TPC-H SF10 lineitem cardinality
-             (60M rows, block_rows 32, 1.875M blocks, ~2.6 GB on the card):
+             (60M rows, block_rows 32, 1.875M blocks, ~2.2 GB on the card):
              Session.sql for the quickstart Q6 query and a filterless
              SUM/COUNT query, each with and without ERROR 5% CONFIDENCE 95%.
              The launch counters are zeroed just before and read just after;
@@ -26,10 +26,39 @@ Phases, each printing its own lines:
              (or carry a fallback).  The exact Q6 answer is checked against
              an f64 numpy sum of the same data.  Prints the pilot, rate-solve,
              final and exact wall times (median of 5 warm runs), the scanned
-             fraction, and the exact/approx wall ratio.
+             fraction, and the exact/approx wall ratio.  The session's result
+             cache is off (seeds derive from query content, so every warm
+             re-run would otherwise be a cache hit and time nothing).
+             Every solo kernel call of that first run is recorded (its
+             inputs, first call per shape) and replayed: the kernel against
+             its plain version (counts exact, sums rtol 1e-5), then timed
+             with CUDA events, L2 flushed before every launch, beside its
+             plain version and its bytes bound computed from those inputs;
+             and once more at n_phys = 65,536 as a scaling point.
 5. devices — at 200k rows a CUDA session and a ``device="cpu"`` session of
-             the port, equal seeds: equal pilot draws, final block ids and
-             fallback; rates within rtol 1e-6; answers within rtol 1e-5.
+             the port, equal seeds, result cache off: equal pilot draws,
+             final block ids and fallback; rates within rtol 1e-6; answers
+             within rtol 1e-5.
+6. drain   — the serving path, run right after phase 4 on its SF10
+             catalog: a herd of 8 constant-varied Q6 windows and SUM/COUNT
+             at ERROR 5/6/7/8 %,
+             Session.submit then one drain() on the default config (worker
+             threads, shared pilots, batched finals, result cache).  Counters
+             zeroed just before, read just after: both batched kernels must
+             have launched; 9 pilot stages; every answer bitwise equal to an
+             equal-seed serial session's Session.sql on the card, and within
+             5% of the exact answer (or carrying a fallback); a second drain
+             serves all 12 from the result cache with no kernel launch.
+             Every batched kernel call of the first drain is recorded and
+             replayed as in phase 4: against its plain version, each lane
+             bitwise a solo launch on that lane's ids and bounds, timed
+             beside B solo launches, its plain version and its bytes bound;
+             and once more at B = 8 lanes of n_phys = 512 and of 65,536.  Then the
+             herd's wall four ways, in turns, 5 times each, cache off: the
+             default drain (group worker threads), the same with a 4-thread
+             pilot pool, the drain inline (no worker threads), and the
+             serial Session.sql loop; and the device idle share of one drain
+             under torch.profiler.
 
 Then one JSON line of per-kernel numbers, the ``nvidia-smi`` line again, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -37,6 +66,7 @@ script exits non-zero; so it does, printing no result, when there is no CUDA
 device or no ``src/repro_torch`` beside it.
 """
 
+import dataclasses
 import json
 import os
 import statistics
@@ -50,13 +80,23 @@ SRC = os.path.join(ROOT, "src")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
 SF10_ROWS = 60_000_000           # TPC-H SF10 lineitem cardinality
 BLOCK_ROWS = 32
-TIMED_N_PHYS = (937, 65_536)     # the SF10 pilot's real blocks; a large final
+SCALE_N_PHYS = 65_536            # a large final: the kernels' scaling point
+SCALE_BATCH = 8                  # lanes of the batched scaling points
+SCALE_BATCH_N_PHYS = (512, SCALE_N_PHYS)  # a herd-sized final bucket; a large one
 WARM_RUNS = 5
 
 Q6 = ("SELECT SUM(l_extendedprice * l_discount) AS revenue FROM lineitem "
       "WHERE l_shipdate BETWEEN 100 AND 1500 AND l_discount BETWEEN 0.02 AND 0.08")
 SUM_COUNT = "SELECT SUM(l_extendedprice) AS s, COUNT(*) AS n FROM lineitem"
 GUARANTEE = " ERROR 5% CONFIDENCE 95%"
+# phase 6: a dashboard herd — constant-varied Q6 windows and SUM/COUNT at
+# several error targets
+HERD = ([f"SELECT SUM(l_extendedprice * l_discount) AS revenue FROM lineitem "
+         f"WHERE l_shipdate BETWEEN {100 + 50 * i} AND {1500 + 30 * i} AND "
+         f"l_discount BETWEEN 0.02 AND 0.08" + GUARANTEE for i in range(8)]
+        + [SUM_COUNT + f" ERROR {e}% CONFIDENCE 95%" for e in (5, 6, 7, 8)])
+HERD_PILOTS = 9                  # 8 Q6 constants + 1 shared SUM/COUNT pilot
+REPS = 5                         # timed repetitions of each drain mode
 
 
 def check(cond, msg):
@@ -117,6 +157,16 @@ def compare(torch, name, got, want, count_cols):
     return float(torch.nan_to_num(diff, nan=0.0).max())
 
 
+def lane_ids(np, rng, num_blocks, n_phys, batch, pad=0):
+    """(batch, n_phys) int32: per lane sorted distinct ids, the last ``pad``
+    entries zero (the padding of pad_block_ids)."""
+    rows = []
+    for _ in range(batch):
+        ids = np.sort(rng.choice(num_blocks, n_phys - pad, replace=False))
+        rows.append(np.concatenate([ids, np.zeros(pad, ids.dtype)]))
+    return np.asarray(rows, np.int32)
+
+
 def time_cold(torch, fn, iters=30):
     """Median device ms of ``fn`` with the 50 MB L2 flushed before every
     launch (a sampled scan finds its blocks cold), each launch timed by CUDA
@@ -159,6 +209,104 @@ def device_busy_ms(torch, fn):
     return (busy / 1e3 if busy > 0 else None), wall
 
 
+# position of the ids argument in each wrapper's signature
+IDS_AT = {"filtered_agg": 7, "filtered_agg_batched": 7,
+          "block_agg": 3, "block_agg_batched": 3}
+
+
+class CallRecorder:
+    """Stands in for the kernel wrappers in the physical layer's namespace
+    (install it before the session that compiles the calls) and, while a
+    wrapper's name is in ``active``, keeps every ids shape it was called at
+    and the inputs of its first call at each shape: the main path's own
+    kernel inputs, replayed by ``time_kernel``.  Every call passes through
+    to the wrapper, whose launch counter counts it as before."""
+
+    def __init__(self, module, wrappers):
+        self.active = set()
+        self.shapes = {fn.__name__: [] for fn in wrappers}
+        self.calls = {fn.__name__: {} for fn in wrappers}
+        for fn in wrappers:
+            setattr(module, fn.__name__, self._wrap(fn))
+
+    def _wrap(self, fn):
+        name = fn.__name__
+
+        def recorded(*args):
+            if name in self.active:
+                shape = tuple(args[IDS_AT[name]].shape)
+                self.shapes[name].append(shape)
+                self.calls[name].setdefault(shape, args)
+            return fn(*args)
+
+        return recorded
+
+
+def moved_bytes(np, name, args, out):
+    """Bytes a wrapper call must move: each distinct column it reads, once
+    per distinct sampled row (padding ids repeat block 0), plus the ids, the
+    bounds and the output."""
+    at = IDS_AT[name]
+    ids, block_rows = args[at], args[at - 1]
+    cols = {c.data_ptr(): c.element_size() for c in args[:at - 1] if c is not None}
+    rows = np.unique(ids.cpu().numpy()).size * block_rows
+    small = [ids, *args[at + 1:], out]
+    return rows * sum(cols.values()) + sum(t.numel() * t.element_size() for t in small)
+
+
+def time_kernel(torch, np, name, fn, ref, solo, args, smi):
+    """Hold one kernel call against its plain version (and, batched, each
+    lane against a solo launch, bitwise), then time the kernel, its plain
+    version and (batched) B solo launches with L2 flushed.  Returns the
+    row of the ``kernels`` line for these inputs."""
+    at = IDS_AT[name]
+    ids = args[at]
+    shape = "x".join(str(d) for d in ids.shape)
+    got = fn(*args)
+    check(bitwise_equal(torch, got, fn(*args)), f"{name} {shape}: launches differ bitwise")
+    k = got.shape[-1]
+    err = compare(torch, f"{name} {shape}", got.reshape(-1, k),
+                  ref(*args).reshape(-1, k), 1)
+    row = {}
+    if solo is not None:
+        lanes = [(*args[:at], ids[b].contiguous(),
+                  *(a[b].contiguous() for a in args[at + 1:]))
+                 for b in range(ids.shape[0])]
+        for b, lane in enumerate(lanes):
+            check(bitwise_equal(torch, got[b], solo(*lane)),
+                  f"{name} {shape} lane {b}: not bitwise the solo kernel")
+        row["solo_ms"] = time_cold(torch, lambda: [solo(*lane) for lane in lanes])
+    ms = time_cold(torch, lambda: fn(*args))
+    plain_ms = time_cold(torch, lambda: ref(*args))
+    nbytes = moved_bytes(np, name, args, got)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    solo_txt = (f"{ids.shape[0]} solo launches {row['solo_ms'] * 1e3:.2f} us, "
+                if solo is not None else "")
+    print(f"[kernels] {name} ids {shape}: {ms * 1e3:.2f} us ({solo_txt}plain "
+          f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.3f} us = {nbytes:,} B "
+          f"/ 3.35 TB/s, {bound_ms / ms:.1%} of bound); max |kernel - plain| "
+          f"{err:.3g}  [{smi}]")
+    return {"ids_shape": list(ids.shape), "ms": ms, **row, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bytes": nbytes, "max_abs_err": err}
+
+
+def time_recorded(torch, np, recorder, kernels, scale_args, smi):
+    """``time_kernel`` of every recorded call of ``kernels`` (name -> (fn,
+    ref, solo)), then of each scaling point in ``scale_args[name]``.  The
+    headline is the recorded call with the most blocks."""
+    timed = {}
+    for name, (fn, ref, solo) in kernels.items():
+        calls = recorder.calls[name]
+        check(bool(calls), f"{name}: no call of the main path was recorded")
+        rows = [time_kernel(torch, np, name, fn, ref, solo, args, smi)
+                for args in calls.values()]
+        head = max(rows, key=lambda r: (np.prod(r["ids_shape"]), r["ids_shape"]))
+        scale = [time_kernel(torch, np, name, fn, ref, solo, args, smi)
+                 for args in scale_args[name]]
+        timed[name] = {"headline": head, "main_path": rows, "scaling_points": scale}
+    return timed
+
+
 # ---------------------------------------------------------------------------
 # phase 4/5 helpers
 # ---------------------------------------------------------------------------
@@ -192,6 +340,141 @@ def run_sql(torch, session, sql):
     return h, wall
 
 
+def zero_counters(wrappers):
+    for fn in wrappers:
+        fn.launches = 0
+
+
+def read_counters(wrappers):
+    return {fn.__name__: fn.launches for fn in wrappers}
+
+
+def run_drain(torch, np, catalog, Session, SessionConfig, wrappers, recorder,
+              smi):
+    """Phase 6: the herd through submit + drain on the default config,
+    against an equal-seed serial session on the card."""
+    session = Session(catalog, seed=42)
+    batched = ("filtered_agg_batched", "block_agg_batched")
+    zero_counters(wrappers)
+    recorder.active = set(batched)
+    t0 = time.perf_counter()
+    handles = [session.submit(q) for q in HERD]
+    session.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    recorder.active = set()
+    launches = read_counters(wrappers)
+    stats = session.scheduler.last_drain
+    buckets = {k: recorder.shapes[k] for k in batched}
+    print(f"[drain] {len(HERD)} queries: drain wall {wall * 1e3:.2f} ms; "
+          f"launches {launches}; batched launches' ids (B, n_phys) {buckets}  [{smi}]")
+    print(f"[drain] {stats}")
+    for h in handles:
+        check(h.status == "done", f"drain: query failed: {h.error}\n{h.sql}")
+    check(launches["filtered_agg_batched"] >= 1,
+          "the drain never launched filtered_agg_batched")
+    check(launches["block_agg_batched"] >= 1,
+          "the drain never launched block_agg_batched")
+    check(stats.pilots_run == HERD_PILOTS,
+          f"drain ran {stats.pilots_run} pilot stages, expected {HERD_PILOTS}")
+
+    serial = Session(catalog, seed=42, config=SessionConfig(
+        async_workers=0, share_pilots=False,
+        result_cache_size=0))
+    serial_walls = []
+    for h in handles:
+        r, w = run_sql(torch, serial, h.sql)
+        serial_walls.append(w)
+        check(np.array_equal(h.answer.values, r.answer.values),
+              f"drain answer {h.answer.values.ravel()} is not bitwise the serial "
+              f"session's {r.answer.values.ravel()}\n{h.sql}")
+        exact, _ = run_sql(torch, serial, h.sql.split(" ERROR ")[0])
+        rel = np.abs(h.answer.values - exact.answer.values) / np.abs(exact.answer.values)
+        check(bool(np.all(rel <= 0.05)) or h.fallback is not None,
+              f"drain: error {rel.ravel()} above 5% without a fallback\n{h.sql}")
+    serial_ms = sum(serial_walls) * 1e3
+    # where the drain's time went, from its own reports: the pilot stages
+    # (the owners' reports), the rate solves, and each member's final (the
+    # time until its bucket or solo final completed)
+    reps = [h.report for h in handles]
+    split = {"pilot_stages_ms": sum(r.pilot_time_s for r in reps
+                                    if not r.pilot_shared) * 1e3,
+             "rate_solves_ms": sum(r.plan_time_s for r in reps) * 1e3,
+             "finals_max_ms": max(r.final_time_s for r in reps) * 1e3}
+    print(f"[drain] stage sums: {split}")
+    print(f"[drain] every answer bitwise equal to the serial session's "
+          f"Session.sql and within 5% of exact (or a fallback); serial walls sum "
+          f"{serial_ms:.2f} ms vs drain {wall * 1e3:.2f} ms; rates "
+          f"{[round(h.report.plan.rates['lineitem'], 8) if h.report.plan else None for h in handles]}; "
+          f"fallbacks {[h.fallback for h in handles]}")
+
+    # the herd's wall four ways, in turns, result cache off: the default
+    # drain (group worker threads), the same with a pilot-subgroup pool, the
+    # drain inline on the draining thread, and the serial Session.sql loop —
+    # walls on a shared host spread, so each is run REPS times and every run
+    # is kept
+    modes = {"threaded": {}, "pilot_pool": {"pilot_workers": 4},
+             "inline": {"async_workers": 0}}
+    runs = {m: {"wall_ms": [], "rate_solves_ms": [], "pilot_stages_ms": []}
+            for m in (*modes, "serial_sql")}
+    for _ in range(REPS):
+        for mode, kw in modes.items():
+            s = Session(catalog, seed=42,
+                        config=SessionConfig(result_cache_size=0, **kw))
+            t0 = time.perf_counter()
+            hs = [s.submit(q) for q in HERD]
+            s.drain()
+            torch.cuda.synchronize()
+            runs[mode]["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+            runs[mode]["rate_solves_ms"].append(
+                sum(h.report.plan_time_s for h in hs) * 1e3)
+            runs[mode]["pilot_stages_ms"].append(
+                sum(h.report.pilot_time_s for h in hs
+                    if not h.report.pilot_shared) * 1e3)
+            s.close()
+        t0 = time.perf_counter()
+        hs = [run_sql(torch, serial, q)[0] for q in HERD]
+        runs["serial_sql"]["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+        runs["serial_sql"]["rate_solves_ms"].append(
+            sum(h.report.plan_time_s for h in hs) * 1e3)
+        runs["serial_sql"]["pilot_stages_ms"].append(
+            sum(h.report.pilot_time_s for h in hs) * 1e3)
+    for mode, r in runs.items():
+        print(f"[drain] {mode}: wall ms {[round(v, 2) for v in r['wall_ms']]} "
+              f"(median {statistics.median(r['wall_ms']):.2f}); rate solves "
+              f"summed {[round(v, 2) for v in r['rate_solves_ms']]}; pilot "
+              f"stages summed {[round(v, 2) for v in r['pilot_stages_ms']]}  [{smi}]")
+
+    zero_counters(wrappers)
+    again = [session.submit(q) for q in HERD]
+    session.drain()
+    cached_launches = read_counters(wrappers)
+    check(all(h.cached and h.status == "done" for h in again),
+          "the second drain was not served from the result cache")
+    check(session.scheduler.last_drain.result_hits == len(HERD),
+          f"second drain: {session.scheduler.last_drain.result_hits} cache hits")
+    check(not any(cached_launches.values()),
+          f"the cached drain launched kernels: {cached_launches}")
+    print(f"[drain] a second drain of the herd: {len(HERD)} result-cache hits, "
+          f"launches {cached_launches}")
+    session.close()
+    serial.close()
+
+    # device busy share of an uncached drain of the herd, under the profiler
+    prof = Session(catalog, seed=42, config=SessionConfig(result_cache_size=0))
+    for q in HERD:
+        prof.submit(q)
+    busy, pwall = device_busy_ms(torch, prof.drain)
+    prof.close()
+    share = "not measured" if busy is None else f"{1 - busy / pwall:.1%}"
+    print(f"[drain] uncached drain under torch.profiler: device kernels "
+          f"{busy if busy is None else round(busy, 4)} ms of {pwall:.2f} ms wall; "
+          f"device idle share {share}  [{smi}]")
+    return {"wall_ms": wall * 1e3, "serial_ms": serial_ms, "launches": launches,
+            "buckets": buckets, "stats": dataclasses.asdict(stats), **split,
+            "device_busy_ms": busy, "profiled_wall_ms": pwall, "runs": runs}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -204,11 +487,20 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
-    from repro_torch.api import Session
+    from repro_torch.api import Session, SessionConfig
+    from repro_torch.engine import physical
     from repro_torch.engine.datagen import tpch_catalog
     from repro_torch.kernels import _build
-    from repro_torch.kernels.block_agg import block_agg, block_agg_ref
-    from repro_torch.kernels.filtered_agg import filtered_agg, filtered_agg_ref
+    from repro_torch.kernels.block_agg import (block_agg, block_agg_batched,
+                                               block_agg_batched_ref,
+                                               block_agg_ref)
+    from repro_torch.kernels.filtered_agg import (filtered_agg,
+                                                  filtered_agg_batched,
+                                                  filtered_agg_batched_ref,
+                                                  filtered_agg_ref)
+    wrappers = (filtered_agg, block_agg, filtered_agg_batched, block_agg_batched)
+    recorder = CallRecorder(physical, wrappers)
+    no_cache = SessionConfig(result_cache_size=0)
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -251,6 +543,42 @@ def main() -> int:
             check(bool(torch.isnan(a[900, 3])), "empty block lacks the NaN sentinel")
         print(f"[kernels] block_rows={br}: filtered_agg and block_agg (f32, "
               "int32, bool values) match their plain versions; bitwise stable")
+
+        # the batched kernels: 3 lanes, each with its own ids and bounds
+        lanes = torch.stack([
+            c["ids"], c["ids"].flip(0),
+            torch.from_numpy(lane_ids(np, np.random.default_rng(br), 4096,
+                                      c["ids"].shape[0], 1, pad=100)[0]).to(dev)])
+        lane_bounds = torch.tensor([[100.0, 1500.0, 0.02, 0.08, 24.0],
+                                    [0.0, 2525.0, 0.05, 0.07, 40.0],
+                                    [-3.0e38, 3.0e38, 0.0, 0.02, 3.0e38]],
+                                   dtype=torch.float32, device=dev)
+        fb = (c["price"], c["discount"], c["shipdate"], c["discount"],
+              c["quantity"], c["valid"], br)
+        a = filtered_agg_batched(*fb, lanes, lane_bounds)
+        check(bitwise_equal(torch, a, filtered_agg_batched(*fb, lanes, lane_bounds)),
+              f"filtered_agg_batched br={br}: launches differ bitwise")
+        want = filtered_agg_batched_ref(*fb, lanes, lane_bounds)
+        compare(torch, f"filtered_agg_batched br={br}", a.reshape(-1, 3),
+                want.reshape(-1, 3), 1)
+        for b in range(lanes.shape[0]):
+            solo = filtered_agg(*fb, lanes[b].contiguous(), lane_bounds[b].contiguous())
+            check(bitwise_equal(torch, a[b], solo),
+                  f"filtered_agg_batched br={br} lane {b}: not bitwise the solo kernel")
+        for vname in ("price", "shipdate", "valid"):
+            bb = (c[vname], c["valid"], br, lanes)
+            a = block_agg_batched(*bb)
+            check(bitwise_equal(torch, a, block_agg_batched(*bb)),
+                  f"block_agg_batched br={br} {vname}: launches differ")
+            compare(torch, f"block_agg_batched br={br} {vname}", a.reshape(-1, 5),
+                    block_agg_batched_ref(*bb).reshape(-1, 5), 1)
+            for b in range(lanes.shape[0]):
+                solo = block_agg(c[vname], c["valid"], br, lanes[b].contiguous())
+                check(bitwise_equal(torch, a[b], solo),
+                      f"block_agg_batched br={br} {vname} lane {b}: not bitwise solo")
+        print(f"[kernels] block_rows={br}: filtered_agg_batched and "
+              "block_agg_batched (3 lanes, per-lane bounds) match their plain "
+              "versions; every lane bitwise the solo kernel; bitwise stable")
     torch.cuda.synchronize()
 
     # -- 4. main path at SF10 --------------------------------------------------
@@ -263,55 +591,36 @@ def main() -> int:
           f"{sum(t.total_bytes() for t in catalog.values()) / 1e9:.3f} GB of columns "
           f"on the card, built in {time.perf_counter() - t0:.1f} s")
 
-    # kernel timing at the main path's shapes, on the SF10 columns
-    cols = li.columns
-    q6_bounds = torch.tensor([100.0, 1500.0, 0.02, 0.08, 3.0e38],
-                             dtype=torch.float32, device=dev)
-    timed = {"filtered_agg": {}, "block_agg": {}}
-    rng = np.random.default_rng(7)
-    for n_phys in TIMED_N_PHYS:
-        ids_np = np.sort(rng.choice(li.num_blocks, n_phys, replace=False)).astype(np.int32)
-        ids = torch.from_numpy(ids_np).to(dev)
-        fa = (cols["l_extendedprice"], cols["l_discount"], cols["l_shipdate"],
-              cols["l_discount"], cols["l_shipdate"], li.valid, BLOCK_ROWS, ids,
-              q6_bounds)
-        ba = (cols["l_extendedprice"], li.valid, BLOCK_ROWS, ids)
-        # bytes each function must move: the distinct columns it reads (Q6
-        # passes l_discount and l_shipdate twice), once per sampled row, plus
-        # ids, bounds and output
-        rows = n_phys * BLOCK_ROWS
-        fa_bytes = rows * (4 + 4 + 4 + 1) + n_phys * 4 + 20 + n_phys * 3 * 4
-        ba_bytes = rows * (4 + 1) + n_phys * 4 + n_phys * 5 * 4
-        for kname, fn, ref, args, nbytes in (
-                ("filtered_agg", filtered_agg, filtered_agg_ref, fa, fa_bytes),
-                ("block_agg", block_agg, block_agg_ref, ba, ba_bytes)):
-            err = compare(torch, f"{kname} SF10 n_phys={n_phys}", fn(*args),
-                          ref(*args), 1)
-            ms = time_cold(torch, lambda: fn(*args))
-            plain_ms = time_cold(torch, lambda: ref(*args))
-            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            timed[kname][n_phys] = dict(ms=ms, plain_ms=plain_ms,
-                                        bound_ms=bound_ms, bytes=nbytes,
-                                        max_abs_err=err)
-            print(f"[kernels] {kname} n_phys={n_phys:,}: {ms * 1e3:.2f} us "
-                  f"(plain {plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.3f} us "
-                  f"= {nbytes:,} B / 3.35 TB/s, {bound_ms / ms:.1%} of bound); "
-                  f"max |kernel - plain| {err:.3g}  [{smi}]")
-    torch.cuda.synchronize()
-
-    session = Session(catalog, seed=42)
+    session = Session(catalog, seed=42, config=no_cache)
     queries = {"q6": Q6, "sum_count": SUM_COUNT}
-    filtered_agg.launches = 0
-    block_agg.launches = 0
+    zero_counters(wrappers)
+    recorder.active = {"filtered_agg", "block_agg"}
     first = {}
     for qn, sql in queries.items():
         first[qn] = (run_sql(torch, session, sql),
                      run_sql(torch, session, sql + GUARANTEE))
-    launches = {"filtered_agg": filtered_agg.launches,
-                "block_agg": block_agg.launches}
+    recorder.active = set()
+    launches = read_counters(wrappers)
     print(f"[main] kernel launches on the main path: {launches}")
     check(launches["filtered_agg"] > 0, "the Q6 path never launched filtered_agg")
     check(launches["block_agg"] > 0, "the SUM/COUNT path never launched block_agg")
+    print(f"[main] solo launches' ids (n_phys,): "
+          f"{ {k: recorder.shapes[k] for k in ('filtered_agg', 'block_agg')} }")
+
+    # the solo kernels at the main path's own inputs, and at a large final
+    cols = li.columns
+    q6_bounds = torch.tensor([100.0, 1500.0, 0.02, 0.08, 3.0e38],
+                             dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(7)
+    ids = torch.from_numpy(np.sort(rng.choice(li.num_blocks, SCALE_N_PHYS, replace=False))
+                           .astype(np.int32)).to(dev)
+    q6_cols = (cols["l_extendedprice"], cols["l_discount"], cols["l_shipdate"],
+               cols["l_discount"], cols["l_shipdate"], li.valid, BLOCK_ROWS)
+    timed = time_recorded(torch, np, recorder, {
+        "filtered_agg": (filtered_agg, filtered_agg_ref, None),
+        "block_agg": (block_agg, block_agg_ref, None)}, {
+        "filtered_agg": [(*q6_cols, ids, q6_bounds)],
+        "block_agg": [(cols["l_extendedprice"], li.valid, BLOCK_ROWS, ids)]}, smi)
 
     # correctness of the exact route at full size: f64 numpy over the same data
     price = cols["l_extendedprice"].cpu().numpy().astype(np.float64)
@@ -385,7 +694,27 @@ def main() -> int:
                   f"{busy if busy is None else round(busy, 4)} ms of {wall:.2f} ms "
                   f"wall; device idle share {share}  [{smi}]")
     summary["draw_block_ids_ms"] = draw_ms
-    del session, catalog, cols, li
+    session.close()
+
+    # -- 6. the serving path: submit + drain -----------------------------------
+    drain = run_drain(torch, np, catalog, Session, SessionConfig, wrappers,
+                      recorder, smi)
+    # the batched kernels at the drain's own inputs, beside B solo launches,
+    # and at B lanes of a herd-sized and of a large final
+    lane_bounds = q6_bounds.repeat(SCALE_BATCH, 1).contiguous()
+    lanes = [torch.from_numpy(lane_ids(np, rng, li.num_blocks, n, SCALE_BATCH)).to(dev)
+             for n in SCALE_BATCH_N_PHYS]
+    timed.update(time_recorded(torch, np, recorder, {
+        "filtered_agg_batched": (filtered_agg_batched, filtered_agg_batched_ref,
+                                 filtered_agg),
+        "block_agg_batched": (block_agg_batched, block_agg_batched_ref, block_agg)}, {
+        "filtered_agg_batched": [(*q6_cols, ids, lane_bounds) for ids in lanes],
+        "block_agg_batched": [(cols["l_extendedprice"], li.valid, BLOCK_ROWS, ids)
+                              for ids in lanes]},
+        smi))
+    torch.cuda.synchronize()
+    recorder.calls.clear()
+    del session, catalog, cols, li, ids, lanes, q6_cols
     torch.cuda.empty_cache()
 
     # -- 5. the same route on both devices -------------------------------------
@@ -393,12 +722,13 @@ def main() -> int:
     for devname in ("cuda", "cpu"):
         cat = tpch_catalog(scale_rows=200_000, block_rows=BLOCK_ROWS, seed=0,
                            device=devname)
-        s = Session(cat, seed=42, device=devname)
+        s = Session(cat, seed=42, device=devname, config=no_cache)
         seen = spy(s)
         hs = [s.sql(sql + GUARANTEE) for sql in (Q6, SUM_COUNT)]
         for h in hs:
             check(h.status == "done", f"{devname}: {h.error}")
         answers[devname] = (hs, seen)
+        s.close()
     (gh, gseen), (ch, cseen) = answers["cuda"], answers["cpu"]
     check(gseen["pilots"] == cseen["pilots"], "pilot draws differ between devices")
     check(len(gseen["final_ids"]) == len(cseen["final_ids"]), "final count differs")
@@ -418,23 +748,35 @@ def main() -> int:
           f"{[h.answer.values.ravel().tolist() for h in gh]}")
 
     # -- results ---------------------------------------------------------------
-    sources = {"filtered_agg": "src/repro_torch/kernels/filtered_agg/csrc/filtered_agg.cu",
-               "block_agg": "src/repro_torch/kernels/block_agg/csrc/block_agg.cu"}
-    replaces = {"filtered_agg": "src/repro/kernels/filtered_agg/kernel.py:114",
-                "block_agg": "src/repro/kernels/block_agg/kernel.py:92"}
-    big = TIMED_N_PHYS[-1]
+    sources = {
+        "filtered_agg": "src/repro_torch/kernels/filtered_agg/csrc/filtered_agg.cu",
+        "block_agg": "src/repro_torch/kernels/block_agg/csrc/block_agg.cu",
+        "filtered_agg_batched": "src/repro_torch/kernels/filtered_agg/csrc/filtered_agg.cu",
+        "block_agg_batched": "src/repro_torch/kernels/block_agg/csrc/block_agg.cu"}
+    replaces = {
+        "filtered_agg": "src/repro/kernels/filtered_agg/kernel.py:114",
+        "block_agg": "src/repro/kernels/block_agg/kernel.py:92",
+        "filtered_agg_batched": "src/repro/kernels/filtered_agg/kernel.py:85",
+        "block_agg_batched": "src/repro/kernels/block_agg/kernel.py:63"}
+    # each kernel's headline: the main path's own call with the most blocks
+    # (the sql path's for the solo kernels, the drain's for the batched ones)
     kernels = []
-    for k in ("filtered_agg", "block_agg"):
-        t = timed[k][big]
+    for k in sources:
+        t = timed[k]["headline"]
+        path = "drain" if k.endswith("_batched") else "sql"
         kernels.append({
             "name": k, "route": "cuda", "source": sources[k],
-            "replaces": replaces[k], "launches": launches[k],
+            "replaces": replaces[k],
+            "launches": (drain["launches"] if path == "drain" else launches)[k],
+            "launches_by_path": {"sql": launches[k], "drain": drain["launches"][k]},
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": "bytes", "library_ms": None, "n_phys": big,
-            "by_n_phys": {str(n): {kk: v for kk, v in timed[k][n].items()}
-                          for n in TIMED_N_PHYS},
+            "bound_by": "bytes", "library_ms": None,
+            "ids_shape": t["ids_shape"], "solo_ms": t.get("solo_ms"),
+            "main_path": timed[k]["main_path"],
+            "scaling_points": timed[k]["scaling_points"],
         })
+    summary["drain"] = drain
     print(f"[done] {time.perf_counter() - t_start:.1f} s; main path {json.dumps(summary)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,12 +1,21 @@
-"""Session — the stateful front door of the port (synchronous subset).
+"""Session — the stateful front door of the port.
 
 A :class:`Session` owns the registered tables (plus optional per-column
 string dictionaries), the :class:`Executor` whose signature cache makes
-repeated structurally-identical queries run warm, and deterministic seed
-derivation.  ``session.sql(...)`` parses dialect SQL, runs TAQA's two
-stages (pilot on the device → f64 rate solve on the host → final on the
-device) and returns a :class:`QueryHandle` carrying status, the answer, the
-:class:`TaqaReport` and any fallback reason.
+repeated structurally-identical queries run warm, a result cache of
+finished answers, the scheduler and worker pool behind ``submit`` /
+``drain``, and deterministic seed derivation.
+
+Two front doors:
+
+* ``session.sql(...)`` parses dialect SQL, runs TAQA's two stages (pilot on
+  the device → f64 rate solve on the host → final on the device) and
+  returns a finished :class:`QueryHandle` carrying status, the answer, the
+  :class:`TaqaReport` and any fallback reason;
+* ``session.submit(...)`` queues a handle and ``session.drain()`` runs the
+  queue: grouped by template signature, one pilot per pilot-sharing
+  subgroup, finals of one bucket in one batched kernel launch, answers
+  bitwise those of ``sql`` on an equal-seed session.
 
 Seed derivation is the reference's exactly: every query's sampling seed is
 a pure function of ``(session seed, lowered query, ErrorSpec)`` and the
@@ -17,8 +26,8 @@ the same pilot and final blocks.
 
 The session runs on the CUDA card by default and raises where there is
 none; ``device="cpu"`` runs the kernels' plain PyTorch versions.  The
-scheduler, concurrent runtime, result cache, staging, sharding, streaming
-and observability hooks of the reference wait for later slices.
+staging, sharding, fused, streaming and observability hooks of the
+reference wait for later slices.
 """
 
 from __future__ import annotations
@@ -26,10 +35,13 @@ from __future__ import annotations
 import bisect
 import dataclasses
 import hashlib
+import os
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.api.scheduler import QueryScheduler
 from repro_torch.api.sql import (HavingClause, LimitClause, UnsupportedSqlError,
                                  parse_sql, resolve_string_literals)
 from repro_torch.core.spec import ErrorSpec
@@ -37,7 +49,12 @@ from repro_torch.core.taqa import (ApproxAnswer, PilotDB, Query, TaqaReport,
                                    pilot_params, structural_signature)
 from repro_torch.device import resolve_device
 from repro_torch.engine.executor import Executor
+from repro_torch.engine.physical import plan_template
 from repro_torch.engine.table import BlockTable
+from repro_torch.runtime import shared_pilot as _shared_pilot
+from repro_torch.runtime.pool import AsyncRuntime
+from repro_torch.runtime.result_cache import (CachedAnswer, ResultCache,
+                                              ResultCacheInfo)
 
 
 class QueryStatus:
@@ -82,10 +99,19 @@ class QueryHandle:
     limit: Optional[LimitClause] = None
     status: str = QueryStatus.PENDING
     error: Optional[str] = None
+    cached: bool = False              # answered from the session result cache
     _answer: Optional[ApproxAnswer] = None
-    # full constant-bearing structural signature (pilot-seed derivation)
+    # full constant-bearing structural signature, computed once at
+    # submission (pilot-seed derivation and pilot-sharing subgroups key off
+    # it — pilot statistics depend on predicate constants)
     signature: Optional[object] = dataclasses.field(
         default=None, repr=False, compare=False)
+    # constant-stripped template signature: the scheduler's grouping key —
+    # constant-varied queries share compilations and batched final launches
+    group_key: Optional[object] = dataclasses.field(
+        default=None, repr=False, compare=False)
+    _done_event: threading.Event = dataclasses.field(
+        default_factory=threading.Event, repr=False, compare=False)
 
     @property
     def done(self) -> bool:
@@ -105,12 +131,43 @@ class QueryHandle:
         r = self.report
         return r.fallback if r is not None else None
 
+    # -- async observation ----------------------------------------------------
+    def poll(self) -> str:
+        """Non-blocking status probe: pending / running / done / failed."""
+        return self.status
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        """Block until the query finished (done OR failed); False on
+        timeout.  Returns at once for handles finished synchronously."""
+        if self.done:
+            return True
+        return self._done_event.wait(timeout)
+
+    # -- completion (runtime-internal) ----------------------------------------
+    def _mark_running(self) -> None:
+        if not self.done:
+            self.status = QueryStatus.RUNNING
+
+    def _mark_done(self, answer: ApproxAnswer, cached: bool = False) -> None:
+        self._answer = answer
+        self.cached = cached
+        self.status = QueryStatus.DONE
+        self._done_event.set()
+
+    def _mark_failed(self, error: str) -> None:
+        self.status = QueryStatus.FAILED
+        self.error = error
+        self._done_event.set()
+
     def result(self) -> ApproxAnswer:
         """The answer; raises if the query failed or has not run yet."""
         if self.status == QueryStatus.FAILED:
             raise QueryFailedError(self.error or "query failed")
         if self._answer is None:
-            raise RuntimeError(f"query {self.query_id} is {self.status}")
+            raise RuntimeError(
+                f"query {self.query_id} is {self.status}; drain the session "
+                "it was submitted to (session.drain()), or wait() on the "
+                "handle after drain_async(), before reading results")
         return self._answer
 
     def scalar(self, name: str, group: int = 0) -> float:
@@ -125,6 +182,36 @@ class SessionConfig:
     # max_groups; an id-cardinality GROUP BY would otherwise allocate
     # process-killing buffers in a shared server.
     max_groups_limit: int = 4096
+    # -- concurrent runtime (repro_torch.runtime) ----------------------------
+    # Worker threads draining signature groups concurrently; 0 runs groups
+    # inline on the draining thread.  None sizes the pool from the core
+    # count (see resolve_workers).  Answers never depend on it.
+    async_workers: Optional[int] = None
+    # One pilot per (full signature, pilot-params) subgroup, statistics
+    # fanned out to every member, and the group's same-bucket finals run as
+    # ONE batched kernel launch (off: each query runs its own pilot and its
+    # own final launch, bitwise equal).  Never shared across predicate
+    # constants.
+    share_pilots: bool = True
+    # Worker threads fanning a drain group's pilot SUBGROUPS out; separate
+    # from the group pool, so group workers waiting on them cannot deadlock
+    # it.  0 (the default) runs them one after another on the group's
+    # worker: the rate solves and host draws hold the GIL, and threads
+    # fanning them out made the H100 host's drain slower, not faster.
+    pilot_workers: int = 0
+    # Session result-cache capacity in answers; 0 disables caching.
+    result_cache_size: int = 128
+
+    def resolve_workers(self) -> int:
+        """The worker count ``async_workers=None`` sizes to: serial on <= 2
+        cores (the GIL-bound rate solves gain nothing from a pool there),
+        else one fewer than the cores, capped at 8."""
+        if self.async_workers is not None:
+            return self.async_workers
+        cpus = os.cpu_count() or 1
+        if cpus <= 2:
+            return 0
+        return min(8, cpus - 1)  # leave a core for the draining thread
 
 
 class Session:
@@ -146,6 +233,20 @@ class Session:
         self._next_id = 0
         self._max_groups_cache: Dict[tuple, int] = {}
         self._dictionaries: Dict[str, _Dictionary] = {}
+        # Bumped by register_table; snapshotted when a query starts running
+        # so an answer computed against since-replaced data is never
+        # delivered or cached.  The lock makes bump+swap atomic with respect
+        # to snapshots.
+        self._table_gen: Dict[str, int] = {}
+        self._gen_lock = threading.Lock()
+        self.result_cache = ResultCache(config.result_cache_size)
+        self.runtime = AsyncRuntime(self, workers=config.resolve_workers(),
+                                    pilot_workers=config.pilot_workers)
+        self.scheduler = QueryScheduler(self)
+
+    def close(self) -> None:
+        """Shut the runtime's worker pools down (idempotent)."""
+        self.runtime.shutdown()
 
     # -- catalog -------------------------------------------------------------
     def register_table(self, name: str, table: BlockTable, *,
@@ -154,14 +255,26 @@ class Session:
         """Add (or replace) a catalog table on this session's device.
 
         Registering ``name`` evicts the cached MAXGROUPS statistics of its
-        columns.  ``dictionaries`` maps dictionary-encoded column names to
-        their value lists (code = list index), enabling string literals for
-        those columns in WHERE clauses.
+        columns and every result-cache entry whose plan scanned it.  A query
+        of ``name`` in flight when the replacement lands fails with a
+        retryable error rather than delivering a possibly-torn answer (see
+        :meth:`_complete_handle`); one queued but not yet started runs on
+        the new data.  ``dictionaries`` maps dictionary-encoded column names
+        to their value lists (code = list index), enabling string literals
+        for those columns in WHERE clauses.
         """
-        self.executor.register_table(name, table)
+        # bump+swap under the generation lock: no snapshot interleaves
+        # between the new generation and the new data
+        with self._gen_lock:
+            self._table_gen[name] = self._table_gen.get(name, 0) + 1
+            self.executor.register_table(name, table)
         self._max_groups_cache = {k: v for k, v in
                                   self._max_groups_cache.items()
                                   if k[0] != name}
+        # eviction after the bump: an in-flight query's cache insert either
+        # sees the bump in its put guard (skipped) or lands before this
+        # eviction (removed)
+        self.result_cache.invalidate_table(name)
         if dictionaries:
             for column, values in dictionaries.items():
                 self.register_dictionary(column, values)
@@ -214,6 +327,9 @@ class Session:
     def compile_cache_info(self):
         return self.executor.compile_cache_info()
 
+    def result_cache_info(self) -> ResultCacheInfo:
+        return self.result_cache.info()
+
     # -- seed derivation ------------------------------------------------------
     def _derive_seed(self, query: Query, spec: Optional[ErrorSpec]) -> int:
         """Per-query seed as a pure function of session seed and query
@@ -240,12 +356,21 @@ class Session:
         :class:`repro_torch.api.UnsupportedSqlError`) raise immediately;
         execution failures are captured on the returned handle.
         """
-        parsed = parse_sql(text, max_groups_resolver=self.infer_max_groups,
-                           spec_kwargs=self.config.spec_kwargs)
-        handle = self._make_handle(parsed.query, parsed.spec, sql=text,
-                                   having=parsed.having, limit=parsed.limit)
+        handle = self.prepare(text)
         self._run_handle(handle)
         return handle
+
+    def prepare(self, text: str) -> QueryHandle:
+        """Parse dialect SQL into a pending handle without scheduling it."""
+        parsed = parse_sql(text, max_groups_resolver=self.infer_max_groups,
+                           spec_kwargs=self.config.spec_kwargs)
+        return self._make_handle(parsed.query, parsed.spec, sql=text,
+                                 having=parsed.having, limit=parsed.limit)
+
+    def submit(self, text: str) -> QueryHandle:
+        """Parse dialect SQL and queue it on the session scheduler; it runs
+        at the next :meth:`drain`."""
+        return self.scheduler.submit(self.prepare(text))
 
     def execute(self, query: Query,
                 spec: Optional[ErrorSpec] = None) -> QueryHandle:
@@ -253,6 +378,24 @@ class Session:
         handle = self._make_handle(query, spec)
         self._run_handle(handle)
         return handle
+
+    def submit_query(self, query: Query, spec: Optional[ErrorSpec] = None, *,
+                     having: Optional[HavingClause] = None,
+                     limit: Optional[LimitClause] = None) -> QueryHandle:
+        """Queue an already-lowered query on the session scheduler."""
+        return self.scheduler.submit(
+            self._make_handle(query, spec, having=having, limit=limit))
+
+    def drain(self, max_queries: Optional[int] = None) -> List[QueryHandle]:
+        """Run the queued queries (see :class:`QueryScheduler`) and return
+        their handles, finished, in fair admission order;
+        ``scheduler.last_drain`` holds the drain's :class:`DrainStats`."""
+        return self.scheduler.drain(max_queries)
+
+    def drain_async(self) -> List[QueryHandle]:
+        """Dispatch every queued query to the runtime without waiting;
+        observe completion per handle via ``poll()`` / ``wait()``."""
+        return self.scheduler.drain_async()
 
     # -- plumbing -------------------------------------------------------------
     def _resolve_dictionary(self, column: str, literal: str) -> int:
@@ -331,17 +474,82 @@ class Session:
             raise UnsupportedSqlError(
                 f"ORDER BY references unknown aggregate {limit.order_by!r} "
                 f"(outputs: {outputs})")
+        signature = structural_signature(query)
         handle = QueryHandle(query_id=self._next_id, query=query, spec=spec,
                              seed=self._derive_seed(query, spec), sql=sql,
-                             having=having, limit=limit,
-                             signature=structural_signature(query))
+                             having=having, limit=limit, signature=signature,
+                             group_key=plan_template(signature))
         self._next_id += 1
         return handle
+
+    # -- execution core (shared by sql and the runtime workers) --------------
+    def _cache_key(self, handle: QueryHandle):
+        # (structural signature, predicate constants, ErrorSpec, seed): the
+        # frozen Query embeds the first two and pins the aggregate names
+        return (handle.query, handle.spec, handle.seed)
+
+    def _deliver(self, handle: QueryHandle, answer: ApproxAnswer) -> ApproxAnswer:
+        """The answer a client sees: HAVING, then [ORDER BY] LIMIT, applied
+        to the base answer (never part of the plan, the seed or the cache
+        key)."""
+        if handle.having is not None:
+            answer = handle.having.apply(answer)
+        if handle.limit is not None:
+            answer = handle.limit.apply(answer)
+        return answer
+
+    def _serve_cached(self, handle: QueryHandle) -> bool:
+        """Answer ``handle`` from the result cache if possible: the values
+        and the error report guaranteed when they were computed (still
+        valid: register_table would have evicted the entry)."""
+        if handle.query is None:
+            return False
+        entry = self.result_cache.get(self._cache_key(handle))
+        if entry is None:
+            return False
+        answer = entry.to_answer() if isinstance(entry, CachedAnswer) else entry
+        handle._mark_done(self._deliver(handle, answer), cached=True)
+        return True
+
+    def _scan_generations(self, query: Query) -> Tuple[int, ...]:
+        with self._gen_lock:
+            return tuple(self._table_gen.get(s.table, 0)
+                         for s in query.child.scans())
+
+    def _complete_handle(self, handle: QueryHandle, answer: ApproxAnswer,
+                         gen_snapshot: Optional[tuple] = None) -> bool:
+        """Finish a handle, guarding against mid-flight table replacement.
+
+        If :meth:`register_table` replaced a scanned table after execution
+        started (``gen_snapshot`` mismatch), the answer may be torn — pilot
+        statistics of the old data scaling a final scan of the new — so its
+        error report is no longer a guarantee: the handle fails with a
+        retryable error instead.  The result-cache insert is guarded by the
+        same check, under the cache lock.  Returns True when the handle
+        completed with the answer.
+        """
+        if gen_snapshot is not None \
+                and gen_snapshot != self._scan_generations(handle.query):
+            handle._mark_failed(
+                "table replaced while the query was in flight "
+                f"({sorted({s.table for s in handle.query.child.scans()})}); "
+                "resubmit to run against the new data")
+            return False
+        self.result_cache.put(
+            self._cache_key(handle), CachedAnswer.from_answer(answer),
+            (s.table for s in handle.query.child.scans()),
+            guard=None if gen_snapshot is None else
+            (lambda: gen_snapshot == self._scan_generations(handle.query)))
+        handle._mark_done(self._deliver(handle, answer))
+        return True
 
     def _run_handle(self, handle: QueryHandle) -> QueryHandle:
         if handle.done:
             return handle
-        handle.status = QueryStatus.RUNNING
+        if self._serve_cached(handle):
+            return handle
+        handle._mark_running()
+        gen = self._scan_generations(handle.query)
         try:
             if handle.spec is None:
                 ans = self.db.exact(handle.query)
@@ -353,13 +561,13 @@ class Session:
                 stage = self.db.prepare_final(handle.query, handle.spec,
                                               outcome, handle.seed)
                 ans = self.db.run_final(stage)
-            if handle.having is not None:
-                ans = handle.having.apply(ans)
-            if handle.limit is not None:   # after HAVING, as in the reference
-                ans = handle.limit.apply(ans)
-            handle._answer = ans
-            handle.status = QueryStatus.DONE
+            self._complete_handle(handle, ans, gen)
         except Exception as e:  # capture, don't raise through the client
-            handle.status = QueryStatus.FAILED
-            handle.error = f"{type(e).__name__}: {e}"
+            handle._mark_failed(f"{type(e).__name__}: {e}")
         return handle
+
+    def _execute_group(self, handles: List[QueryHandle]) -> None:
+        """Run one signature group (runtime workers land here): cached
+        members answer immediately, the rest share a pilot per
+        pilot-params subgroup and finish independently."""
+        _shared_pilot.execute_group(self, handles)

@@ -9,18 +9,21 @@ the channels into user-facing estimates.  Any failure (too-few pilot blocks,
 non-positive L_μ, no feasible plan, plan costlier than exact) falls back to
 exact execution — PilotDB never returns an unguaranteed estimate.
 
-This is the port's synchronous two-stage path: the pilot and the final each
-run as one compiled dispatch on the device (the hand-written kernels for the
-single-table shapes), and the rate solve runs on the host in f64, exactly
-as in the reference.  The batched, fused and advisory paths wait for later
-slices of the port.
+The pilot and the final each run as one compiled dispatch on the device
+(the hand-written kernels for the single-table shapes), and the rate solve
+runs on the host in f64, exactly as in the reference.  A drain group's
+finals run through :meth:`PilotDB.run_finals_batched` (one batched kernel
+launch per same-signature bucket); its pilots through
+:meth:`PilotDB.run_pilots_batched`, where every member takes the solo pilot,
+as the reference's kernel routes do.  The stacked pilot, fused and advisory
+paths wait for later slices of the port.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -130,6 +133,20 @@ def structural_signature(q: Query) -> L.Aggregate:
     """
     plan, _ = build_engine_plan(q)
     return L.strip_samples(plan)
+
+
+def template_signature(q: Query) -> L.Plan:
+    """The constant-stripped structural signature: :func:`structural_signature`
+    with every predicate/expression constant hoisted into a Param slot.
+
+    Queries agreeing on it share every callable the physical layer compiles
+    (constants enter at run time as the params operand), so the scheduler
+    groups submissions by it: a herd differing only in WHERE constants
+    drains as one group and its finals can launch as one batched kernel.
+    Pilot sharing inside the group still keys on the full signature.
+    """
+    from repro_torch.engine.physical import plan_template  # memoized
+    return plan_template(structural_signature(q))
 
 
 def pilot_params(spec: ErrorSpec) -> Tuple:
@@ -342,6 +359,29 @@ class PilotDB:
             outcome.fallback = "no groups in pilot"
         return outcome
 
+    def run_pilots_batched(self, reqs: List[Tuple[Query, ErrorSpec, int]]
+                           ) -> List[object]:
+        """Stage 1 for many pilot subgroups at once.
+
+        ``reqs`` holds one ``(query, spec, pilot_seed)`` per subgroup
+        leader; the returned list is position-aligned and each entry is the
+        :class:`PilotOutcome` :meth:`run_pilot` would have produced, or the
+        exception it would have raised (captured per member, so one failing
+        subgroup cannot sink its siblings).  The port's pilots run on the
+        kernel routes, where the reference runs every member's solo pilot
+        too; the stacked pilot of its gather route waits for a later slice.
+        """
+        results: List[object] = []
+        for q, spec, pseed in reqs:
+            try:
+                outcome, theta_p = self._pilot_prelude(q, spec)
+                if outcome.fallback is None:
+                    outcome = self._pilot_scan(outcome, spec, theta_p, pseed)
+                results.append(outcome)
+            except Exception as e:  # noqa: BLE001 — per-member capture
+                results.append(e)
+        return results
+
     def finish_from_pilot(self, q: Query, spec: ErrorSpec,
                           outcome: "PilotOutcome", seed: int,
                           shared: bool = False) -> ApproxAnswer:
@@ -459,6 +499,40 @@ class PilotDB:
             return self._exact(stage.q, stage.plan, stage.comp_channels,
                                stage.report, f"final sample empty ({e.table})")
         return self._finish_result(stage, res, time.perf_counter() - t0)
+
+    def run_finals_batched(self, stages: List[FinalStage],
+                           on_answer: Optional[Callable] = None) -> None:
+        """Execute many prepared finals, one batched kernel launch per
+        same-signature bucket (:meth:`Executor.execute_batch`), filling each
+        stage's ``answer``.
+
+        Lane k of a launch computes member k's solo per-block stats and
+        reduces them as the solo route does, so answers are bitwise those
+        of :meth:`run_final`; a member whose sampled scan comes back empty
+        takes its own exact fallback, as it would solo.  ``on_answer(stage)``
+        runs the moment a stage's answer is filled (per bucket), and each
+        member's ``final_time_s`` is the time until its bucket completed.
+        A failing batched launch raises to the caller.
+        """
+        pend = [s for s in stages if s.answer is None]
+        if not pend:
+            return
+        t0 = time.perf_counter()
+
+        def land(i: int, res) -> None:
+            stage = pend[i]
+            elapsed = time.perf_counter() - t0
+            if isinstance(res, EmptySampleError):
+                stage.report.final_time_s = elapsed
+                stage.answer = self._exact(
+                    stage.q, stage.plan, stage.comp_channels, stage.report,
+                    f"final sample empty ({res.table})")
+            else:
+                stage.answer = self._finish_result(stage, res, elapsed)
+            if on_answer is not None:
+                on_answer(stage)
+
+        self.ex.execute_batch([s.final_plan for s in pend], on_result=land)
 
     def _finish_result(self, stage: FinalStage, res,
                        elapsed_s: float) -> ApproxAnswer:

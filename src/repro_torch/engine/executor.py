@@ -8,12 +8,14 @@ cost (bytes moved) is attributed by that layer: block-sampled scans pay only
 for sampled slabs, exact scans stream everything.
 
 Besides plain execution it produces the artifact TAQA's pilot needs
-(``execute_pilot``: per-block sums of every simple aggregate).  A sampled
-scan that draws zero blocks raises :class:`EmptySampleError` instead of
-fabricating an upscale factor — callers take their exact fallback.
+(``execute_pilot``: per-block sums of every simple aggregate), and runs a
+drain group's finals in batches (``execute_batch``: members that share a
+compile key run as one batched kernel launch).  A sampled scan that draws
+zero blocks raises :class:`EmptySampleError` instead of fabricating an
+upscale factor — callers take their exact fallback.
 
-Each query crosses the device→host boundary once, where its sums are
-widened to f64 for the host-side upscale and rate solve.
+Each query (each batch) crosses the device→host boundary once, where its
+sums are widened to f64 for the host-side upscale and rate solve.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -218,6 +220,11 @@ class Executor:
         t0 = time.perf_counter()
         runtimes, infos = self._scan_runtimes(plan)
         self._check_empty(infos)
+        return self._execute_drawn(plan, runtimes, infos, t0)
+
+    def _execute_drawn(self, plan: L.Aggregate, runtimes, infos,
+                       t0: float) -> QueryResult:
+        """The device half of :meth:`execute`, on a sample already drawn."""
         compiled = self.physical.compile_query(plan, runtimes)
         # Predicate/expression constants ride as a runtime operand: the
         # compiled callable is shared across every constant variant.
@@ -237,6 +244,112 @@ class Executor:
             sample_infos=infos,
             wall_time_s=time.perf_counter() - t0,
         )
+
+    # -- batched execution (drain-group finals) ------------------------------
+    def _execute_captured(self, plan: L.Aggregate):
+        """execute(), with EmptySampleError returned instead of raised (the
+        per-member contract of :meth:`execute_batch`)."""
+        try:
+            return self.execute(plan)
+        except EmptySampleError as e:
+            return e
+
+    def execute_batch(self, plans: List[L.Aggregate],
+                      on_result: Optional[Callable] = None) -> List[object]:
+        """Execute several plans, running members that share a compile key
+        (:meth:`PhysicalCompiler.query_signature`: the constant-hoisted plan
+        signature with sampling methods and bucketed id lengths) as ONE
+        batched kernel launch per chunk.
+
+        Returns one entry per plan, position-aligned: a
+        :class:`QueryResult`, or the :class:`EmptySampleError` that member's
+        sampled scan raised (callers take their per-member exact fallback,
+        as on the serial path).  ``on_result(i, result)``, if given, runs
+        as each entry lands: per member on the solo path, per chunk on the
+        batched one.
+
+        Buckets split greedily into power-of-two chunks (5 members run as
+        4 + 1), so batch callables recur in log-many sizes with no padded
+        lanes; a chunk of one runs solo on the sample already drawn.  Plans
+        with an unsampled scan (a final at rate 1) run solo: only the kernel
+        routes batch.  A failing batched call raises to the caller — it is
+        never re-run as solo launches.
+        """
+        results: List[object] = [None] * len(plans)
+
+        def land(i: int, res: object) -> None:
+            results[i] = res
+            if on_result is not None:
+                on_result(i, res)
+
+        if len(plans) < 2:
+            for i, p in enumerate(plans):
+                land(i, self._execute_captured(p))
+            return results
+
+        drawn: Dict[int, tuple] = {}
+        buckets: Dict[tuple, List[int]] = {}
+        for i, plan in enumerate(plans):
+            t0 = time.perf_counter()
+            runtimes, infos = self._scan_runtimes(plan)
+            try:
+                self._check_empty(infos)
+            except EmptySampleError as e:
+                self._count("queries_run")
+                land(i, e)
+                continue
+            if any(r.method != "block" for r in runtimes.values()):
+                self._count("queries_run")
+                land(i, self._execute_drawn(plan, runtimes, infos, t0))
+                continue
+            drawn[i] = (runtimes, infos)
+            key = self.physical.query_signature(plan, runtimes)
+            buckets.setdefault(key, []).append(i)
+
+        for idxs in buckets.values():
+            while idxs:
+                take = 1 << (len(idxs).bit_length() - 1)
+                chunk, idxs = idxs[:take], idxs[take:]
+                if len(chunk) == 1:
+                    i = chunk[0]
+                    self._count("queries_run")
+                    land(i, self._execute_drawn(plans[i], *drawn[i],
+                                                time.perf_counter()))
+                    continue
+                self._run_bucket(plans, chunk, drawn, results)
+                if on_result is not None:
+                    for i in chunk:
+                        on_result(i, results[i])
+        return results
+
+    def _run_bucket(self, plans, idxs, drawn, results) -> None:
+        """One batched launch for members ``idxs`` of one bucket."""
+        t0 = time.perf_counter()
+        compiled = self.physical.compile_batched_query(
+            plans[idxs[0]], drawn[idxs[0]][0], len(idxs))
+        self._count("device_dispatches")
+        sums_d, counts_d = compiled.call_batch(
+            [drawn[i][0] for i in idxs],
+            [plan_constants(plans[i]) for i in idxs])
+        # one device→host boundary for the whole bucket
+        sums_b = sums_d.double().cpu().numpy()
+        counts_b = counts_d.double().cpu().numpy()
+        wall = time.perf_counter() - t0
+        for k, i in enumerate(idxs):
+            self._count("queries_run")
+            runtimes, infos = drawn[i]
+            sums, counts = sums_b[k], counts_b[k]
+            results[i] = QueryResult(
+                agg_names=[a.name for a in plans[i].aggs],
+                values=self._compose_values(plans[i], sums, counts,
+                                            self._upscale(infos)),
+                raw_sums=sums,
+                group_counts=counts,
+                group_present=counts > 0,
+                scanned_bytes=compiled.scanned_bytes(runtimes),
+                sample_infos=infos,
+                wall_time_s=wall,
+            )
 
     def execute_pilot(
         self,

@@ -19,6 +19,12 @@ Routes (this slice of the port: one table, no GROUP BY):
   :func:`repro_torch.kernels.block_agg`.
 * ``torch_scan``   — an exact (unsampled) ungrouped ``Aggregate(Filter*(Scan))``
   is one pass of plain tensor ops over the whole table.
+* ``filtered_agg_batched`` / ``block_agg_batched`` — a drain group's final
+  scans that share one compile key (:meth:`PhysicalCompiler.query_signature`)
+  run as ONE launch of the batched kernel over B lanes, each lane with its
+  own block-id row and bounds row (:meth:`PhysicalCompiler.compile_batched_query`).
+  Each lane's stats and its reduction over blocks are the solo route's own
+  calls on the solo route's shapes, so lane b is bitwise member b run alone.
 
 The route depends on the plan's shape alone, never on the device: a CUDA
 table runs the hand-written kernels, a CPU table runs their plain PyTorch
@@ -37,6 +43,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import threading
+from concurrent.futures import Future
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -45,8 +52,8 @@ import torch
 from repro_torch.engine import logical as L
 from repro_torch.engine.expr import And, Between, BinOp, Cmp, Col, Expr, eval_expr
 from repro_torch.engine.table import BlockTable
-from repro_torch.kernels.block_agg import block_agg
-from repro_torch.kernels.filtered_agg import filtered_agg
+from repro_torch.kernels.block_agg import block_agg, block_agg_batched
+from repro_torch.kernels.filtered_agg import filtered_agg, filtered_agg_batched
 
 _BIG_BOUND = 3.0e38       # "unbounded" predicate slot, f32-safe
 
@@ -329,10 +336,55 @@ class CompiledPilot(_CompiledBase):
 
 
 @dataclasses.dataclass
+class CompiledBatch(_CompiledBase):
+    """A drain-group batch callable: B same-signature members per call.
+
+    Lanes differ only in their sampled block ids and their hoisted-constant
+    params row.  ``call_batch`` stacks them (a (B, n_phys) id matrix, the
+    n_real of each lane, a (B, P) params matrix) and returns
+    (sums (B, num_channels, 1), counts (B, 1)) on the device, lane k
+    bitwise member k's solo run.
+    """
+
+    batch: int = 0
+
+    def call_batch(self, runtimes_list: Sequence[Dict[str, ScanRuntime]],
+                   params_list: Sequence[np.ndarray]):
+        if len(runtimes_list) != self.batch or len(params_list) != self.batch:
+            raise ValueError(
+                f"batch callable built for {self.batch} members, got "
+                f"{len(runtimes_list)} runtimes and {len(params_list)} params")
+        dev = next(iter(self.catalog[t] for t in self.needed)).device
+        rt = {"ids": {}, "nreal": {},
+              "params": torch.as_tensor(np.asarray(params_list, np.float32)
+                                        .reshape(self.batch, -1), device=dev)}
+        for name in self.needed:
+            if self.methods.get(name, "none") != "block":
+                continue
+            rows = [r[name] for r in runtimes_list]
+            n_phys = rows[0].n_phys
+            nb = self.catalog[name].num_blocks
+            # range-checked on the host, as _runtime_args does: the kernels
+            # index the table with these ids
+            shapes_ok = all(np.shape(r.ids) == (n_phys,) for r in rows)
+            ids = np.stack([np.asarray(r.ids, np.int32) for r in rows]) \
+                if shapes_ok else None
+            if ids is None or (ids.size and (ids.min() < 0 or ids.max() >= nb)):
+                raise ValueError(f"block ids of {name!r} must be "
+                                 f"({self.batch}, {n_phys}) in [0, {nb})")
+            rt["ids"][name] = torch.from_numpy(ids).to(dev)
+            rt["nreal"][name] = [r.n_real for r in rows]
+        return self.fn(rt)
+
+
+@dataclasses.dataclass
 class CacheInfo:
     hits: int = 0
     misses: int = 0
     size: int = 0
+    # the share of hits / misses above that were drain-group batch callables
+    batched_hits: int = 0
+    batched_misses: int = 0
 
 
 class PhysicalCompiler:
@@ -340,14 +392,23 @@ class PhysicalCompiler:
 
     def __init__(self, catalog: Dict[str, BlockTable]):
         self.catalog = catalog
-        self._cache: Dict[tuple, _CompiledBase] = {}
+        # Values are compiled callables, or a pending Future while one thread
+        # builds that key: drain workers compile concurrently, a key builds
+        # once and counts one miss, and threads asking for it meanwhile wait
+        # on the Future and count a hit, as in the reference.
+        self._cache: Dict[tuple, object] = {}
         self._lock = threading.Lock()
         self.hits = 0
         self.misses = 0
+        self.batched_hits = 0
+        self.batched_misses = 0
 
     def cache_info(self) -> CacheInfo:
         with self._lock:
-            return CacheInfo(self.hits, self.misses, len(self._cache))
+            size = sum(1 for v in self._cache.values()
+                       if not isinstance(v, Future))
+            return CacheInfo(self.hits, self.misses, size,
+                             self.batched_hits, self.batched_misses)
 
     def _geometry_sig(self, needed) -> tuple:
         out = []
@@ -359,36 +420,70 @@ class PhysicalCompiler:
         return tuple(out)
 
     def _lookup(self, key, build):
+        batched = key[0] == "batched"
         with self._lock:
             entry = self._cache.get(key)
-            if entry is not None:
+            if entry is None:  # this thread builds; others wait on the Future
+                self.misses += 1
+                self.batched_misses += batched
+                placeholder: Future = Future()
+                self._cache[key] = placeholder
+            else:
                 self.hits += 1
-                return entry
-            self.misses += 1
-        compiled = build()
-        with self._lock:
-            return self._cache.setdefault(key, compiled)
+                self.batched_hits += batched
+        if entry is None:
+            try:
+                compiled = build()
+            except BaseException as e:
+                with self._lock:  # let a later call retry the build
+                    if self._cache.get(key) is placeholder:
+                        del self._cache[key]
+                placeholder.set_exception(e)
+                raise
+            with self._lock:
+                self._cache[key] = compiled
+            placeholder.set_result(compiled)
+            return compiled
+        if isinstance(entry, Future):
+            return entry.result()  # waits for the build; re-raises its error
+        return entry
 
     # -- final / plain queries ----------------------------------------------
+    def query_signature(self, plan: L.Aggregate,
+                        runtimes: Dict[str, ScanRuntime]) -> tuple:
+        """The solo compile key of ``plan`` (constants hoisted), and the
+        bucket key of the drain-group batch path: members that agree on it
+        share one callable and may share one batched launch."""
+        needed = _needed_by_table(plan, self.catalog)
+        return ("query", plan_signature(plan, runtimes,
+                                        self._geometry_sig(needed)))
+
     def compile_query(self, plan: L.Aggregate,
                       runtimes: Dict[str, ScanRuntime]) -> CompiledQuery:
         needed = _needed_by_table(plan, self.catalog)
-        key = ("query", plan_signature(plan, runtimes,
-                                       self._geometry_sig(needed)))
-        return self._lookup(key, lambda: self._build_query(
-            plan_template(plan), runtimes, needed))
+        return self._lookup(self.query_signature(plan, runtimes),
+                            lambda: self._build_query(
+                                plan_template(plan), runtimes, needed))
 
-    def _build_query(self, template, runtimes, needed) -> CompiledQuery:
-        methods = {t: r.method for t, r in runtimes.items()}
-        exprs = tuple(None if a.op == "count" else a.expr for a in template.aggs)
+    @staticmethod
+    def _single_table(template, runtimes):
+        """(table, method, predicates, channel exprs) of an ungrouped
+        Aggregate(Filter*(Scan)) plan; raises for the shapes a later slice
+        ports."""
         if template.max_groups != 1 or template.group_by is not None:
             raise _not_yet("GROUP BY")
         if len(runtimes) != 1:
             raise _not_yet("a join or union")
-        (table, method), = methods.items()
+        (table, runtime), = runtimes.items()
         preds = _single_table_chain(template.child, table)
         if preds is None:
             raise _not_yet("a join or union")
+        exprs = tuple(None if a.op == "count" else a.expr for a in template.aggs)
+        return table, runtime.method, preds, exprs
+
+    def _build_query(self, template, runtimes, needed) -> CompiledQuery:
+        methods = {t: r.method for t, r in runtimes.items()}
+        table, method, preds, exprs = self._single_table(template, runtimes)
         if method == "none":
             run, route = self._exact_scan(table, preds, exprs), "torch_scan"
         elif method == "block":
@@ -405,15 +500,59 @@ class PhysicalCompiler:
         return CompiledQuery(fn=run, catalog=self.catalog, needed=needed,
                              methods=methods, route=route)
 
+    # -- batched drain-group queries -----------------------------------------
+    def compile_batched_query(self, plan: L.Aggregate,
+                              runtimes: Dict[str, ScanRuntime],
+                              batch: int) -> CompiledBatch:
+        """One callable running ``batch`` members of ``plan``'s
+        :meth:`query_signature` per call, through one batched kernel launch.
+        Callers split buckets into powers of two, so batch sizes recur in
+        log-many values."""
+        if batch < 1:
+            raise ValueError(f"batch must be >= 1, got {batch}")
+        needed = _needed_by_table(plan, self.catalog)
+        key = ("batched", batch,
+               plan_signature(plan, runtimes, self._geometry_sig(needed)))
+        return self._lookup(key, lambda: self._build_batched(
+            plan_template(plan), runtimes, needed, batch))
+
+    def _build_batched(self, template, runtimes, needed, batch) -> CompiledBatch:
+        """The batched kernel route; it admits exactly the plans the solo
+        route sends to a kernel: one block-sampled table, no GROUP BY,
+        Filter*(Scan), kernel-computable channels."""
+        methods = {t: r.method for t, r in runtimes.items()}
+        table, method, preds, exprs = self._single_table(template, runtimes)
+        if method != "block":
+            raise _not_yet(f"a batched final over a {method!r} scan")
+        lowered = self._lower_block_stats(table, preds, exprs, batched=True)
+        if lowered is None:
+            raise _not_yet("a predicate or aggregate the kernels cannot take")
+        lanes_fn, route = lowered
+
+        def run_batched(rt):
+            # each lane: the solo route's (n_phys, n_ch) channel tensor and
+            # (n_phys,) count, built fresh by the solo route's own calls, and
+            # the solo route's own reductions over them — one reduction over
+            # a (B, n_phys, n_ch) tensor may split its sum in another order
+            lanes = lanes_fn(rt)
+            sums = torch.stack([ch.sum(dim=0) for ch, _ in lanes])
+            counts = torch.stack([cnt.sum() for _, cnt in lanes])
+            return sums[:, :, None], counts[:, None]
+
+        return CompiledBatch(fn=run_batched, catalog=self.catalog,
+                             needed=needed, methods=methods, route=route,
+                             batch=batch)
+
     def _exact_scan(self, table: str, preds: List[Expr],
                     exprs: Sequence[Optional[Expr]]):
         """The unsampled ungrouped scan: predicates and channels evaluated
         over whole columns in f32 against the device params vector, then
         one ``torch.sum`` per channel."""
-        tab = self.catalog[table]
+        catalog = self.catalog
 
         def run(rt):
             params = rt["params"]
+            tab = catalog[table]  # the registered table at call time
             keep = tab.valid
             for p in preds:
                 keep = keep & eval_expr(p, tab.columns, params)
@@ -468,17 +607,30 @@ class PhysicalCompiler:
 
     # -- kernel lowering of per-block stats ----------------------------------
     def _lower_block_stats(self, table: str, preds: List[Expr],
-                           exprs: Sequence[Optional[Expr]]):
+                           exprs: Sequence[Optional[Expr]], batched=False):
         """Lower Filter*(Scan) per-block channel stats onto the kernels.
 
-        Returns (stats_fn, route) where ``stats_fn(rt)`` yields
-        ``(channel_sums (n_phys, n_ch), counts (n_phys,))`` with padding rows
-        (beyond n_real) zeroed, or None when the shape doesn't fit a kernel.
-        The kernels read the table's columns in their stored dtypes; no
-        column is cast, padded or materialised per call.
+        Returns (stats_fn, route), or None when the shape doesn't fit a
+        kernel.  Solo, ``stats_fn(rt)`` yields ``(channel_sums (n_phys,
+        n_ch), counts (n_phys,))`` with padding rows (beyond n_real) zeroed.
+        ``batched=True`` takes ``rt["ids"][table]`` (B, n_phys),
+        ``rt["nreal"][table]`` a list of B counts and ``rt["params"]``
+        (B, P), makes ONE batched launch per distinct channel column, and
+        yields per lane exactly the solo pair; each lane's bounds come from
+        the solo ``_bounds_vector`` on its params row, so the f32 bound bits
+        are the solo ones.  The kernels read the table's columns in their
+        stored dtypes; no column is cast, padded or materialised per call.
+        The table is looked up when the callable runs, not when it is built:
+        a replacement of the same geometry (same cache key) must be read,
+        not the old data.
         """
-        tab = self.catalog[table]
-        br = tab.block_rows
+        catalog = self.catalog
+        br = catalog[table].block_rows   # geometry: part of the cache key
+        if batched:
+            fa, ba, channels = filtered_agg_batched, block_agg_batched, _lane_channels
+        else:
+            fa, ba, channels = filtered_agg, block_agg, _kernel_channels
+        suffix = "_batched" if batched else ""
         if preds:
             q6 = _match_q6_bounds(preds)
             specs = _match_channels(exprs, products=True)
@@ -486,48 +638,65 @@ class PhysicalCompiler:
                 return None
             (f1, f2, f3), slots = q6
 
+            def bounds_of(params):
+                if not batched:
+                    return _bounds_vector(slots, params)
+                return torch.stack([_bounds_vector(slots, params[b])
+                                    for b in range(params.shape[0])])
+
             def stats_fn(rt):
+                tab = catalog[table]  # the registered table at call time
                 cols = tab.columns
                 ids = rt["ids"][table]
-                bounds = _bounds_vector(slots, rt["params"])
+                bounds = bounds_of(rt["params"])
                 outs = {}
                 for spec in specs:
                     if spec[0] != "prod" or spec[1:] in outs:
                         continue
                     y = None if spec[2] is None else cols[spec[2]]
-                    outs[spec[1:]] = filtered_agg(
-                        cols[spec[1]], y, cols[f1], cols[f2], cols[f3],
-                        tab.valid, br, ids, bounds)
+                    outs[spec[1:]] = fa(cols[spec[1]], y, cols[f1], cols[f2],
+                                        cols[f3], tab.valid, br, ids, bounds)
                 if not outs:  # COUNT-only query: any column works for cnt
                     c0 = cols[f1]
-                    outs[None] = filtered_agg(c0, c0, cols[f1], cols[f2],
-                                              cols[f3], tab.valid, br, ids, bounds)
-                cnt = next(iter(outs.values()))[:, 0]
-                chans = [cnt if s[0] == "count" else outs[s[1:]][:, 1] for s in specs]
-                return _mask_padding(torch.stack(chans, dim=1), cnt,
-                                     rt["nreal"][table])
+                    outs[None] = fa(c0, c0, cols[f1], cols[f2], cols[f3],
+                                    tab.valid, br, ids, bounds)
+                return channels(outs, specs, rt["nreal"][table])
 
-            return stats_fn, "filtered_agg"
+            return stats_fn, "filtered_agg" + suffix
 
         specs = _match_channels(exprs, products=False)
         if specs is None:
             return None
 
         def stats_fn(rt):
+            tab = catalog[table]  # the registered table at call time
             cols = tab.columns
             ids = rt["ids"][table]
             outs = {}
             for spec in specs:
-                if spec[0] == "prod" and spec[1] not in outs:
-                    outs[spec[1]] = block_agg(cols[spec[1]], tab.valid, br, ids)
+                if spec[0] == "prod" and spec[1:] not in outs:
+                    outs[spec[1:]] = ba(cols[spec[1]], tab.valid, br, ids)
             if not outs:  # COUNT-only: the cnt lane ignores the value column
-                outs[None] = block_agg(tab.valid, tab.valid, br, ids)
-            cnt = next(iter(outs.values()))[:, 0]
-            chans = [cnt if s[0] == "count" else outs[s[1]][:, 1] for s in specs]
-            return _mask_padding(torch.stack(chans, dim=1), cnt,
-                                 rt["nreal"][table])
+                outs[None] = ba(tab.valid, tab.valid, br, ids)
+            return channels(outs, specs, rt["nreal"][table])
 
-        return stats_fn, "block_agg"
+        return stats_fn, "block_agg" + suffix
+
+
+def _kernel_channels(outs: dict, specs, n_real: int):
+    """The (n_phys, n_ch) channel tensor and (n_phys,) counts of one scan
+    from its kernel outputs (keyed by channel spec; column 0 is the count,
+    column 1 the sum), padding rows zeroed."""
+    cnt = next(iter(outs.values()))[:, 0]
+    chans = [cnt if s[0] == "count" else outs[s[1:]][:, 1] for s in specs]
+    return _mask_padding(torch.stack(chans, dim=1), cnt, n_real)
+
+
+def _lane_channels(outs: dict, specs, n_reals: Sequence[int]):
+    """:func:`_kernel_channels` of each lane of batched kernel outputs
+    ((B, n_phys, k) each): per lane the solo call on that lane's slices."""
+    return [_kernel_channels({k: v[b] for k, v in outs.items()}, specs, n)
+            for b, n in enumerate(n_reals)]
 
 
 def _mask_padding(chans: torch.Tensor, cnt: torch.Tensor, n_real: int):

@@ -42,11 +42,35 @@ build_seconds: Dict[str, float] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# Every function each library exports, with its ctypes signature.  Each one
+# needs its argtypes set: without them ctypes passes a Python int as a 32-bit
+# C int, which cuts a device pointer and faults on the card.
 _SIGNATURES = {
-    "filtered_agg_launch": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _I,
-                            _P, _P, _I, _I, _P, _P, _P],
-    "block_agg_launch": [_P, _I, _P, _P, _I, _I, _P, _P],
+    "filtered_agg": {
+        "filtered_agg_launch": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _I,
+                                _P, _P, _I, _I, _P, _P, _P],
+        "filtered_agg_batched_launch": [_P, _I, _P, _I, _P, _I, _P, _I, _P,
+                                        _I, _P, _P, _I, _I, _I, _P, _P, _P],
+    },
+    "block_agg": {
+        "block_agg_launch": [_P, _I, _P, _P, _I, _I, _P, _P],
+        "block_agg_batched_launch": [_P, _I, _P, _P, _I, _I, _I, _P, _P],
+    },
 }
+
+# Launch counters of the wrappers are bumped under this lock: drain workers
+# launch from several threads, and ``fn.launches += 1`` is a read-modify-write
+# that would lose updates between them.
+_count_lock = threading.Lock()
+
+# the batched kernels' grid carries the lane in blockIdx.y
+MAX_BATCH = 65_535
+
+
+def count(fn, attr: str) -> None:
+    """Add one to the counter attribute ``attr`` of wrapper ``fn``."""
+    with _count_lock:
+        setattr(fn, attr, getattr(fn, attr) + 1)
 
 
 def _sources(name: str) -> Sequence[Path]:
@@ -110,9 +134,10 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(build([name])[name]))
-            launch = getattr(lib, f"{name}_launch")
-            launch.argtypes = _SIGNATURES[f"{name}_launch"]
-            launch.restype = ctypes.c_int
+            for fn_name, argtypes in _SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             err = getattr(lib, f"{name}_error_string")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p

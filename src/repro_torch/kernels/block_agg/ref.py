@@ -20,3 +20,11 @@ def block_agg_ref(values, valid, block_rows: int, ids) -> torch.Tensor:
     mx = torch.where(cnt > 0, torch.where(m > 0, v, -big).amax(dim=1), nan)
     return torch.stack([cnt, (v * m).sum(dim=1), (v * v * m).sum(dim=1), mn, mx],
                        dim=1)
+
+
+def block_agg_batched_ref(values, valid, block_rows: int, ids) -> torch.Tensor:
+    """The batched function: (B, n_phys) ids give (B, n_phys, 5) f32.
+    Defined as the solo plain version per lane, stacked, so each lane is
+    bitwise the solo plain version on its row."""
+    return torch.stack([block_agg_ref(values, valid, block_rows, ids[b])
+                        for b in range(ids.shape[0])])

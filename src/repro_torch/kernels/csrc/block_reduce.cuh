@@ -5,8 +5,8 @@
 // each 4-byte column (32 bytes of the bool validity column).  Lane partials
 // are combined by a fixed __shfl_xor_sync butterfly: the reduction order is
 // a function of block_rows alone, so results are bitwise equal run to run
-// and between a solo launch and any later batched launch that calls the
-// same __device__ body.  No atomics, no shared memory.
+// and between a solo launch and a batched launch, which calls the same
+// __device__ body.  No atomics, no shared memory.
 #pragma once
 
 #include <cstdint>

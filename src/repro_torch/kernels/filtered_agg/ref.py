@@ -28,3 +28,13 @@ def filtered_agg_ref(x, y: Optional[torch.Tensor], f1, f2, f3, valid,
     prod = rows(x) if y is None else rows(x) * rows(y)
     return torch.stack([keep.sum(dim=1), (prod * keep).sum(dim=1),
                         (prod * prod * keep).sum(dim=1)], dim=1)
+
+
+def filtered_agg_batched_ref(x, y: Optional[torch.Tensor], f1, f2, f3, valid,
+                             block_rows: int, ids, bounds) -> torch.Tensor:
+    """The batched function: (B, n_phys) ids and (B, 5) bounds give
+    (B, n_phys, 3) f32.  Defined as the solo plain version per lane,
+    stacked, so each lane is bitwise the solo plain version on its row."""
+    return torch.stack([
+        filtered_agg_ref(x, y, f1, f2, f3, valid, block_rows, ids[b], bounds[b])
+        for b in range(ids.shape[0])])

@@ -11,8 +11,11 @@ import torch
 
 from repro_torch.api import Session
 from repro_torch.engine.datagen import tpch_catalog
-from repro_torch.kernels.block_agg import block_agg, block_agg_ref
-from repro_torch.kernels.filtered_agg import filtered_agg, filtered_agg_ref
+from repro_torch.kernels.block_agg import (block_agg, block_agg_batched,
+                                           block_agg_batched_ref, block_agg_ref)
+from repro_torch.kernels.filtered_agg import (filtered_agg, filtered_agg_batched,
+                                              filtered_agg_batched_ref,
+                                              filtered_agg_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -67,6 +70,84 @@ def test_kernels_match_plain_versions_on_the_card(cuda, block_rows):
     torch.cuda.synchronize()
     assert (filtered_agg.launches, block_agg.launches) == \
         (launches[0] + 2, launches[1] + 6)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("block_rows", [32, 100, 256])
+def test_batched_kernels_match_plain_and_solo_on_the_card(cuda, block_rows):
+    """Each lane of one batched launch: against the batched plain version
+    (counts exact, sums rtol 1e-5, min/max exact), bitwise equal to a solo
+    launch on that lane's ids and bounds, and bitwise stable launch to
+    launch."""
+    price, discount, shipdate, valid, ids1 = _columns(block_rows, 500, cuda, 2)
+    rng = np.random.default_rng(3)
+    n_phys = ids1.shape[0]
+    ids = torch.stack([ids1, ids1.flip(0).contiguous(), torch.from_numpy(
+        rng.integers(0, 500, n_phys).astype(np.int32)).to(cuda)]).contiguous()
+    ids[2, -16:] = 0                                # zero padding
+    bounds = torch.tensor([[100.0, 1500.0, 0.02, 0.08, 3e38],
+                           [0.0, 2525.0, 0.05, 0.07, 2000.0],
+                           [-3e38, 3e38, 0.0, 0.02, 800.0]],
+                          dtype=torch.float32, device=cuda)
+    before = (filtered_agg_batched.launches, block_agg_batched.launches)
+    fa = (price, discount, shipdate, discount, shipdate, valid, block_rows)
+    a = filtered_agg_batched(*fa, ids, bounds)
+    assert torch.equal(_bits(a), _bits(filtered_agg_batched(*fa, ids, bounds)))
+    ref = filtered_agg_batched_ref(*fa, ids, bounds)
+    assert torch.equal(a[..., 0], ref[..., 0])
+    torch.testing.assert_close(a[..., 1:], ref[..., 1:], rtol=1e-5, atol=0)
+    for b in range(3):
+        solo = filtered_agg(*fa, ids[b].contiguous(), bounds[b].contiguous())
+        assert torch.equal(_bits(a[b]), _bits(solo))
+    for col in (price, shipdate, valid):
+        c = block_agg_batched(col, valid, block_rows, ids)
+        assert torch.equal(_bits(c),
+                           _bits(block_agg_batched(col, valid, block_rows, ids)))
+        r = block_agg_batched_ref(col, valid, block_rows, ids)
+        assert torch.equal(c[..., 0], r[..., 0])
+        torch.testing.assert_close(c[..., 1:3], r[..., 1:3], rtol=1e-5, atol=0)
+        torch.testing.assert_close(c[..., 3:], r[..., 3:], rtol=0, atol=0,
+                                   equal_nan=True)
+        for b in range(3):
+            solo = block_agg(col, valid, block_rows, ids[b].contiguous())
+            assert torch.equal(_bits(c[b]), _bits(solo))
+    torch.cuda.synchronize()
+    assert (filtered_agg_batched.launches, block_agg_batched.launches) == \
+        (before[0] + 2, before[1] + 6)
+
+
+def test_cuda_drain_matches_cuda_serial_session(cuda):
+    """Submit + drain on the card (threads, shared pilots, batched finals)
+    answers bitwise like an equal-seed serial session's Session.sql, and
+    launches both batched kernels."""
+    from repro_torch.api import SessionConfig
+    cat = tpch_catalog(200_000, 32, seed=0, device="cuda")
+    q6 = ("SELECT SUM(l_extendedprice * l_discount) AS rev FROM lineitem "
+          "WHERE l_quantity < {} ERROR 8% CONFIDENCE 95%")
+    sc = ("SELECT SUM(l_extendedprice) AS s, COUNT(*) AS n FROM lineitem "
+          "ERROR {}% CONFIDENCE 95%")
+    herd = [q6.format(c) for c in (18, 21, 24, 27, 30, 33)] + \
+        [sc.format(e) for e in (5, 6, 7, 8)]
+    before = (filtered_agg_batched.launches, block_agg_batched.launches)
+    s = Session(cat, seed=21, config=SessionConfig(async_workers=4))
+    hs = [s.submit(q) for q in herd]
+    s.drain()
+    serial = Session(cat, seed=21, config=SessionConfig(
+        async_workers=0, share_pilots=False,
+        result_cache_size=0))
+    try:
+        for h, q in zip(hs, herd):
+            r = serial.sql(q)
+            assert h.status == r.status == "done"
+            np.testing.assert_array_equal(h.answer.values, r.answer.values)
+        assert filtered_agg_batched.launches > before[0]
+        assert block_agg_batched.launches > before[1]
+    finally:
+        s.close()
+        serial.close()
 
 
 def test_cuda_session_matches_cpu_session(cuda):

@@ -33,7 +33,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "             or n.startswith('jaxlib') or n == 'repro' or n.startswith('repro.'))\n"
-        "print('LOADED', len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
+        "mods = sorted(n for n in sys.modules if n.startswith('repro_torch'))\n"
+        "print('LOADED', len(mods))\n"
+        "print('MODS', ' '.join(mods))\n"
         "print('BAD', bad)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=str(ROOT),
@@ -41,7 +43,12 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     loaded = int(out.stdout.split("LOADED ")[1].split()[0])
-    assert loaded >= 20  # every module of the package was imported
+    assert loaded >= 25  # every module of the package was imported
+    mods = set(out.stdout.split("MODS ")[1].split("\n")[0].split())
+    # the serving path: scheduler and runtime stand alone too
+    assert {"repro_torch.api.scheduler", "repro_torch.runtime",
+            "repro_torch.runtime.pool", "repro_torch.runtime.result_cache",
+            "repro_torch.runtime.shared_pilot"} <= mods
 
 
 def test_no_source_imports_jax_or_the_reference():
