@@ -59,6 +59,31 @@ Phases, each printing its own lines:
              pilot pool, the drain inline (no worker threads), and the
              serial Session.sql loop; and the device idle share of one drain
              under torch.profiler.
+3b. model kernels — flash_attention and gla_chunked (run right after phase
+             3) at fixed scaling points in bf16: flash at hymba's width (2 x 25
+             q heads over 5 kv heads, 2048 tokens, d 64) causal without a
+             window and non-causal, and at internlm2's d 128; GLA at an rwkv6
+             point (64 heads, dk = dv = 64).  Each against its plain version
+             (bf16 flash rtol 1e-2 atol 1e-4, one bf16 step; GLA o 2e-2 and
+             state 3e-3), a second launch
+             bitwise equal, then timed beside its plain version, the library
+             call (flash: scaled_dot_product_attention with the same mask)
+             and its bound (flops at the type's dense peak or bytes at 3.35
+             TB/s, whichever is larger, from the work these inputs need).
+7. eval    — the eval path (run last): hymba-1.5b at full width in bf16,
+             random weights from a seeded torch.Generator, 128 token shards of
+             2 x 2048 (examples/torch_approx_eval.py's metric: summed NLL),
+             GuaranteedEvaluator(seed=3).evaluate(error=0.05,
+             confidence=0.9, pilot_blocks=16), counters zeroed just before
+             and read just after (32 launches of each kernel per shard
+             forward), then the exact mean over all shards as the yardstick:
+             the achieved error must be <= 5 % or carry the exact fallback.
+             Prints pilot / plan / final / exact walls, ms per shard forward,
+             tokens/s and the device idle share of one forward; checks one
+             full-width forward against the same forward through the plain
+             versions, and a small f32 hymba on the card against the CPU.
+             The first call per shape of each model kernel is recorded and
+             replayed like phase 3b.
 
 Then one JSON line of per-kernel numbers, the ``nvidia-smi`` line again, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -97,6 +122,16 @@ HERD = ([f"SELECT SUM(l_extendedprice * l_discount) AS revenue FROM lineitem "
         + [SUM_COUNT + f" ERROR {e}% CONFIDENCE 95%" for e in (5, 6, 7, 8)])
 HERD_PILOTS = 9                  # 8 Q6 constants + 1 shared SUM/COUNT pilot
 REPS = 5                         # timed repetitions of each drain mode
+# dense peaks of one H100 SXM at 700 W (data sheet): bf16 tensor cores, f32
+# without them
+PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+# phase 7: guaranteed-error evaluation of hymba-1.5b at full width
+EVAL_ARCH = "hymba-1.5b"
+EVAL_SHARDS = 128                # eval corpus: shards of EVAL_BSZ x EVAL_SEQ tokens
+EVAL_BSZ, EVAL_SEQ = 2, 2048     # at 2048 tokens the 1024 window binds
+EVAL_SEED = 0                    # the random weights
+EVAL_EVAL_SEED = 3               # the evaluator's host draws
+EVAL_ERROR, EVAL_CONFIDENCE, EVAL_PILOT_BLOCKS = 0.05, 0.9, 16
 
 
 def check(cond, msg):
@@ -190,23 +225,31 @@ def time_cold(torch, fn, iters=30):
     return statistics.median(times)
 
 
-def device_busy_ms(torch, fn):
-    """(device kernel ms, host wall ms) of one call of ``fn`` under
-    torch.profiler; the kernel ms is None when the profiler saw no device
-    time."""
+def device_profile(torch, fn, top=12):
+    """``device_busy_ms`` plus the ``top`` device kernels by total time:
+    [(name, ms, count), ...]."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    from torch.autograd import DeviceType
-    # summed like the profiler table's "Self CUDA time total": device-side
-    # events only (kernels, copies), never the CPU ops that launched them
-    busy = sum(ev.self_device_time_total for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA
-               and not getattr(ev, "is_user_annotation", False))
-    return (busy / 1e3 if busy > 0 else None), wall
+    evs = [ev for ev in prof.key_averages()
+           if ev.device_type == DeviceType.CUDA
+           and not getattr(ev, "is_user_annotation", False)]
+    busy = sum(ev.self_device_time_total for ev in evs)
+    rows = sorted(((ev.key, ev.self_device_time_total / 1e3, ev.count) for ev in evs),
+                  key=lambda r: -r[1])[:top]
+    return (busy / 1e3 if busy > 0 else None), wall, rows
+
+
+def device_busy_ms(torch, fn):
+    """(device kernel ms, host wall ms) of one call of ``fn`` under
+    torch.profiler, summed like the profiler table's "Self CUDA time total"
+    (device-side events only, never the CPU ops that launched them); the
+    kernel ms is None when the profiler saw no device time."""
+    return device_profile(torch, fn)[:2]
 
 
 # position of the ids argument in each wrapper's signature
@@ -214,31 +257,45 @@ IDS_AT = {"filtered_agg": 7, "filtered_agg_batched": 7,
           "block_agg": 3, "block_agg_batched": 3}
 
 
+def ids_shape(name):
+    """Recording key of a column kernel: the shape of its ids."""
+    return lambda args: tuple(args[IDS_AT[name]].shape)
+
+
+def q_shape(args):
+    """Recording key of a model kernel: the shape of its q."""
+    return tuple(args[0].shape)
+
+
 class CallRecorder:
-    """Stands in for the kernel wrappers in the physical layer's namespace
-    (install it before the session that compiles the calls) and, while a
-    wrapper's name is in ``active``, keeps every ids shape it was called at
-    and the inputs of its first call at each shape: the main path's own
-    kernel inputs, replayed by ``time_kernel``.  Every call passes through
-    to the wrapper, whose launch counter counts it as before."""
+    """Stands in for kernel wrappers where their callers look them up
+    (``targets``: (module, attribute, key) triples; install it before
+    anything compiles or binds the calls) and, while a wrapper's name is in
+    ``active``, keeps every key its calls were made at (``key(args)``, a
+    shape) and the inputs ``(args, kwargs)`` of its first call at each key:
+    the main path's own kernel inputs, replayed by ``time_kernel`` and
+    ``time_model_kernel``.  Every call passes through to the wrapper, whose
+    launch counter counts it as before."""
 
-    def __init__(self, module, wrappers):
+    def __init__(self, targets):
         self.active = set()
-        self.shapes = {fn.__name__: [] for fn in wrappers}
-        self.calls = {fn.__name__: {} for fn in wrappers}
-        for fn in wrappers:
-            setattr(module, fn.__name__, self._wrap(fn))
+        self.shapes, self.calls = {}, {}
+        for module, attr, key in targets:
+            fn = getattr(module, attr)
+            self.shapes[fn.__name__], self.calls[fn.__name__] = [], {}
+            setattr(module, attr, self._wrap(fn, key))
 
-    def _wrap(self, fn):
+    def _wrap(self, fn, key):
         name = fn.__name__
 
-        def recorded(*args):
+        def recorded(*args, **kwargs):
             if name in self.active:
-                shape = tuple(args[IDS_AT[name]].shape)
+                shape = key(args)
                 self.shapes[name].append(shape)
-                self.calls[name].setdefault(shape, args)
-            return fn(*args)
+                self.calls[name].setdefault(shape, (args, kwargs))
+            return fn(*args, **kwargs)
 
+        recorded.__name__ = name
         return recorded
 
 
@@ -299,7 +356,7 @@ def time_recorded(torch, np, recorder, kernels, scale_args, smi):
         calls = recorder.calls[name]
         check(bool(calls), f"{name}: no call of the main path was recorded")
         rows = [time_kernel(torch, np, name, fn, ref, solo, args, smi)
-                for args in calls.values()]
+                for args, _ in calls.values()]
         head = max(rows, key=lambda r: (np.prod(r["ids_shape"]), r["ids_shape"]))
         scale = [time_kernel(torch, np, name, fn, ref, solo, args, smi)
                  for args in scale_args[name]]
@@ -475,6 +532,322 @@ def run_drain(torch, np, catalog, Session, SessionConfig, wrappers, recorder,
             "device_busy_ms": busy, "profiled_wall_ms": pwall, "runs": runs}
 
 
+# ---------------------------------------------------------------------------
+# phase 3b / 7 helpers: the model kernels and the eval slice
+# ---------------------------------------------------------------------------
+
+def attention_pairs(np, sq, skv, causal, window):
+    """(query, key) pairs the masks keep: the work attention needs."""
+    r = np.arange(sq)
+    hi = np.minimum(r, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(0, r - window + 1) if window else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_work(np, q, k, kw):
+    """(flops, bytes) one flash call needs: 4 d flops per kept (q, k) pair
+    (QK^T and PV), q, k, v read once and o written once."""
+    b, hq, sq, d = q.shape
+    pairs = attention_pairs(np, sq, k.shape[2], kw.get("causal", True),
+                            kw.get("window", 0))
+    return 4 * d * pairs * b * hq, (2 * q.numel() + 2 * k.numel()) * q.element_size()
+
+
+def gla_work(q, v):
+    """(flops, bytes) one gla_chunked call needs at the kernel's chunk of
+    64: per chunk the inter term and the state update (2 C dk dv each), the
+    lower-triangular A (2 dk per pair) and A v (2 dv per pair); q, k, g, v
+    read once, o and the f32 state written once."""
+    b, h, t, dk = q.shape
+    dv = v.shape[-1]
+    c = 64
+    tri = c * (c + 1) // 2
+    flops = b * h * -(-t // c) * (4 * c * dk * dv + 2 * tri * (dk + dv))
+    nbytes = (3 * q.numel() + 2 * v.numel()) * q.element_size() + b * h * dk * dv * 4
+    return flops, nbytes
+
+
+def least_ms(flops, nbytes, dtype):
+    """The card's least time for the work: the larger of the bytes over the
+    memory rate and the flops over the dense peak of the inputs' type."""
+    t_ops = flops / PEAK_FLOPS[str(dtype)]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def sdpa(torch, q, k, v, causal, window):
+    """One PyTorch call for flash_attention's function (the library
+    yardstick, timed only): ``scaled_dot_product_attention`` with GQA and
+    the same mask."""
+    F = torch.nn.functional
+    if not window:
+        return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                      enable_gqa=True)
+    rows = torch.arange(q.shape[2], device=q.device)[:, None]
+    cols = torch.arange(k.shape[2], device=q.device)[None, :]
+    mask = cols > rows - window
+    if causal:
+        mask = mask & (cols <= rows)
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+# (rtol, atol) of each model kernel's outputs against its plain version, by
+# input dtype.  f32: the reference's own tests' (flash 2e-3, GLA 3e-3).  bf16
+# flash: both compute in f32 and round once to bf16, so they may differ by one
+# bf16 step, at most 2^-7 |o| (7.8e-3 |o|); rtol 1e-2 holds that and atol
+# 1e-4 the f32 noise, while a window one key short or long fails it at
+# |o| ~ 0.04 (tests/test_torch_models.py).  bf16 GLA: o 2e-2, the f32 state
+# 3e-3.
+MODEL_TOL = {
+    ("flash_attention", "torch.float32"): [(2e-3, 2e-3)],
+    ("flash_attention", "torch.bfloat16"): [(1e-2, 1e-4)],
+    ("gla_chunked", "torch.float32"): [(3e-3, 3e-3), (3e-3, 3e-3)],
+    ("gla_chunked", "torch.bfloat16"): [(2e-2, 2e-2), (3e-3, 3e-3)],
+}
+
+
+def time_model_kernel(torch, np, name, fn, ref, args, kw, smi):
+    """Hold one model-kernel call against its plain version (``MODEL_TOL``),
+    check a second launch bitwise equal, then time the kernel, its plain
+    version and (flash) the library call with L2 flushed.  Returns the row
+    of the ``kernels`` line for these inputs."""
+    q = args[0]
+    ref_kw = {k: v for k, v in kw.items() if k != "q_offset"}
+    got, again = fn(*args, **kw), fn(*args, **kw)
+    outs = got if isinstance(got, tuple) else (got,)
+    agains = again if isinstance(again, tuple) else (again,)
+    want = ref(*args, **ref_kw)
+    wants = want if isinstance(want, tuple) else (want,)
+    err = 0.0
+    for a, b, w, (rtol, atol) in zip(outs, agains, wants,
+                                     MODEL_TOL[name, str(q.dtype)]):
+        check(torch.equal(a, b), f"{name} {tuple(q.shape)}: launches differ bitwise")
+        torch.testing.assert_close(a.float(), w.float(), rtol=rtol, atol=atol,
+                                   msg=f"{name} {tuple(q.shape)}: kernel vs plain")
+        err = max(err, float((a.float() - w.float()).abs().max()))
+    if name == "flash_attention":
+        flops, nbytes = flash_work(np, q, args[1], kw)
+        lib = sdpa(torch, *args[:3], kw.get("causal", True), kw.get("window", 0))
+        lib_err = float((lib().float() - wants[0].float()).abs().max())
+        library_ms = time_cold(torch, lib, iters=10)
+    else:
+        flops, nbytes = gla_work(q, args[2])
+        library_ms = lib_err = None
+    ms = time_cold(torch, lambda: fn(*args, **kw))
+    plain_ms = time_cold(torch, lambda: ref(*args, **ref_kw), iters=10)
+    bound_ms, by = least_ms(flops, nbytes, q.dtype)
+    where = ", ".join(f"{k}={v}" for k, v in ref_kw.items())
+    lib_txt = (f", SDPA {library_ms * 1e3:.2f} us (|SDPA - plain| {lib_err:.3g})"
+               if library_ms is not None else "")
+    other = args[1] if name == "flash_attention" else args[2]  # k, or v
+    print(f"[kernels] {name} {tuple(q.shape)} x {tuple(other.shape)} {str(q.dtype)[6:]} "
+          f"{where}: {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us{lib_txt}; bound "
+          f"{bound_ms * 1e3:.3f} us by {by}: {flops / 1e9:.3f} GFLOP / "
+          f"{PEAK_FLOPS[str(q.dtype)] / 1e12:.0f} TFLOP/s vs {nbytes:,} B / 3.35 TB/s; "
+          f"{bound_ms / ms:.1%} of bound); max |kernel - plain| {err:.3g}  [{smi}]")
+    return {"shape": list(q.shape), "other_shape": list(other.shape),
+            "dtype": str(q.dtype), **{k: v for k, v in ref_kw.items()},
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": by, "flops": flops,
+            "bytes": nbytes, "max_abs_err": err}
+
+
+def model_kernel_scaling_points(torch, np, dev):
+    """Fixed inputs beside the eval forward's own: flash at the forward's
+    width without the window (causal, the Pallas mask; and non-causal) and
+    at internlm2's head_dim 128; GLA at an rwkv6 point (64 heads, dk = dv =
+    64).  Returns {name: [(args, kwargs), ...]}."""
+    rng = np.random.default_rng(13)
+
+    def normal(shape, scale=1.0):
+        a = (rng.standard_normal(shape) * scale).astype(np.float32)
+        return torch.from_numpy(a).to(dev).to(torch.bfloat16)
+
+    b, s = EVAL_BSZ, EVAL_SEQ
+    hymba = (normal((b, 25, s, 64)), normal((b, 5, s, 64)), normal((b, 5, s, 64)))
+    intern = (normal((1, 16, s, 128)), normal((1, 8, s, 128)), normal((1, 8, s, 128)))
+    g = -torch.nn.functional.softplus(normal((1, 64, s, 64)).float() - 1.0)
+    rwkv = (normal((1, 64, s, 64), 0.5), normal((1, 64, s, 64), 0.5),
+            normal((1, 64, s, 64)), g.to(torch.bfloat16).contiguous())
+    return {"flash_attention": [(hymba, {"causal": True, "window": 0}),
+                                (hymba, {"causal": False, "window": 0}),
+                                (intern, {"causal": True, "window": 0})],
+            "gla_chunked": [(rwkv, {})]}
+
+
+def run_eval(torch, np, smi, recorder, model_wrappers):
+    """Phase 7: hymba-1.5b at full width through GuaranteedEvaluator on the
+    card, the exact mean over every shard as the yardstick."""
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    import torch_approx_eval as example
+    from repro_torch.aqpeval import GuaranteedEvaluator
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import flash_attention_ref
+    from repro_torch.kernels.gla_chunk import gla_chunked_ref
+    from repro_torch.models import Model, layers, linear_attn
+
+    cfg = get_config(EVAL_ARCH)
+    t0 = time.perf_counter()
+    model = Model(cfg).init(torch.Generator(device="cuda").manual_seed(EVAL_SEED))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[eval] {cfg.name} at full width ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads} q / {cfg.num_kv_heads} kv heads of "
+          f"{cfg.head_dim}, window {cfg.sliding_window}, {cfg.num_ssm_heads} SSM "
+          f"heads dk {cfg.ssm_state} dv {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size} padded to {model.embed.shape[0]}), {cfg.dtype}: "
+          f"{n_params:,} parameters, {n_params * 2 / 1e9:.3f} GB; random init "
+          f"(seed {EVAL_SEED}) in {time.perf_counter() - t0:.2f} s")
+    shards = example.eval_corpus(cfg.vocab_size, EVAL_SHARDS, EVAL_BSZ, EVAL_SEQ)
+    block_metric, calls = example.make_block_metric(model, shards)
+    block_metric(np.arange(1))  # warm-up: cuBLAS handles, first kernel loads
+    torch.cuda.synchronize()
+
+    # the main path, counters zeroed just before it and read just after
+    stages = []
+
+    def staged_metric(ids):
+        t = time.perf_counter()
+        out = block_metric(ids)
+        stages.append((len(ids), time.perf_counter() - t))
+        return out
+
+    zero_counters(model_wrappers)
+    recorder.active = {fn.__name__ for fn in model_wrappers}
+    t0 = time.perf_counter()
+    res = GuaranteedEvaluator(EVAL_SHARDS, staged_metric, seed=EVAL_EVAL_SEED).evaluate(
+        error=EVAL_ERROR, confidence=EVAL_CONFIDENCE, pilot_blocks=EVAL_PILOT_BLOCKS)
+    approx_wall = time.perf_counter() - t0
+    recorder.active = set()
+    launches = read_counters(model_wrappers)
+    forwards = res.pilot_blocks + res.final_blocks
+    check(len(stages) == 2, f"the evaluator ran {len(stages)} metric stages")
+    pilot_s, final_s = stages[0][1], stages[1][1]
+    for k, n in launches.items():
+        check(n == cfg.num_layers * forwards,
+              f"{k}: {n} launches for {forwards} shard forwards of {cfg.num_layers} layers")
+
+    t0 = time.perf_counter()
+    s, c = block_metric(np.arange(EVAL_SHARDS))
+    exact_wall = time.perf_counter() - t0
+    truth = float(s.sum() / c.sum())
+    check(bool(np.all(np.isfinite(s))) and np.isfinite(res.estimate),
+          "non-finite eval loss")
+    rel = abs(res.estimate - truth) / truth
+    check(rel <= EVAL_ERROR or res.exact,
+          f"eval: error {rel:.4%} above {EVAL_ERROR:.0%} without the exact fallback")
+    tokens = EVAL_SHARDS * EVAL_BSZ * EVAL_SEQ
+    ms_per_shard = exact_wall / EVAL_SHARDS * 1e3
+    print(f"[eval] {EVAL_SHARDS} shards of {EVAL_BSZ} x {EVAL_SEQ} tokens, ERROR "
+          f"{EVAL_ERROR:.0%} CONFIDENCE {EVAL_CONFIDENCE:.0%}: estimate "
+          f"{res.estimate:.6f}, exact {truth:.6f}, achieved error {rel:.4%}, exact "
+          f"fallback {res.exact}; pilot {res.pilot_blocks} shards, final "
+          f"{res.final_blocks}, theta {res.theta:.6g}  [{smi}]")
+    print(f"[eval] walls: pilot {pilot_s * 1e3:.1f} ms, plan "
+          f"{(approx_wall - pilot_s - final_s) * 1e3:.2f} ms, final {final_s * 1e3:.1f} "
+          f"ms, approximate total {approx_wall * 1e3:.1f} ms; exact pass over "
+          f"{EVAL_SHARDS} shards {exact_wall * 1e3:.1f} ms = {ms_per_shard:.2f} ms per "
+          f"shard forward, {tokens / exact_wall:,.0f} tokens/s; approx/exact wall "
+          f"{approx_wall / exact_wall:.3f}  [{smi}]")
+    check(exact_wall <= 60.0 or EVAL_SHARDS < 128,
+          f"the exact pass took {exact_wall:.1f} s (> 60 s): cut EVAL_SHARDS")
+
+    zero_counters(model_wrappers)
+    block_metric(np.arange(1, 2))
+    per_forward = read_counters(model_wrappers)
+    check(all(n == cfg.num_layers for n in per_forward.values()),
+          f"launches per shard forward {per_forward}, expected {cfg.num_layers} each")
+    walls = []
+    for i in range(3, 3 + WARM_RUNS):
+        t0 = time.perf_counter()
+        block_metric(np.arange(i, i + 1))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    fwd_ms = statistics.median(walls)
+    busy, pwall, top = device_profile(torch, lambda: block_metric(np.arange(2, 3)))
+    share = "not measured" if busy is None else f"{1 - busy / pwall:.1%}"
+    print(f"[eval] main path launches {launches} over {forwards} shard forwards; per "
+          f"forward {per_forward}; one shard forward unprofiled: {fwd_ms:.2f} ms "
+          f"(median of {WARM_RUNS}); under torch.profiler: device "
+          f"{busy if busy is None else round(busy, 3)} ms of {pwall:.2f} ms wall, "
+          f"device idle share {share}; device busy / unprofiled wall "
+          f"{'not measured' if busy is None else f'{busy / fwd_ms:.1%}'}  [{smi}]")
+    for kname, ms, count in top:
+        print(f"[eval]   device {ms:8.3f} ms  x{count:<4d} {kname[:110]}")
+
+    # the forward at full width with the plain versions in place of the
+    # kernels, on the same card and weights: in f32 the two routes differ only
+    # by summation order, and must agree; in bf16 each kernel's last-bit
+    # rounding differences are carried through 32 random layers (printed)
+    tok = torch.from_numpy(shards[0]).cuda()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = Model(cfg32)
+    model32.load_state_dict(model.state_dict())
+    full = {}
+    for label, m in (("bf16", model), ("f32", model32)):
+        routes = []
+        for plain in (False, True):
+            saved = layers.flash_attention, linear_attn._gla_kernel
+            if plain:
+                layers.flash_attention = (
+                    lambda *a, q_offset=0, **kw: flash_attention_ref(*a, **kw))
+                linear_attn._gla_kernel = gla_chunked_ref
+            try:
+                with torch.inference_mode():
+                    logits, _ = m({"tokens": tok[:, :-1]})
+                    routes.append((logits.float(), float(example.shard_loss(m, tok))))
+            finally:
+                layers.flash_attention, linear_attn._gla_kernel = saved
+        (kl, kloss), (pl, ploss) = routes
+        d = (kl - pl).abs()
+        full[label] = {"loss_rel": abs(kloss - ploss) / ploss,
+                       "logits_rel": float(d.mean() / pl.abs().mean()),
+                       "logits_max_abs": float(d.max())}
+        print(f"[eval] shard 0 in {label} at full width, kernels vs plain versions: "
+              f"loss {kloss:.4f} vs {ploss:.4f} (rel {full[label]['loss_rel']:.3g}); "
+              f"logits mean |diff| / mean |logit| {full[label]['logits_rel']:.3g}, "
+              f"max |diff| {full[label]['logits_max_abs']:.3g}")
+        del routes, kl, pl, d
+    check(full["f32"]["logits_rel"] <= 1e-3 and full["f32"]["loss_rel"] <= 1e-5,
+          "full-width f32 forward: kernels and plain versions disagree")
+    check(full["bf16"]["loss_rel"] <= 1e-3,
+          "full-width bf16 forward: kernels and plain versions disagree on the loss")
+    del model32
+    torch.cuda.empty_cache()
+
+    # a small f32 hymba (widths the kernels take, window 64 binding at 200
+    # tokens): the card's forward against the CPU's plain versions
+    small = get_config(EVAL_ARCH).reduced(d_model=256, num_heads=4, num_kv_heads=2,
+                                          head_dim=64, ssm_state=16, d_ff=512,
+                                          sliding_window=64)
+    cpu_model = Model(small, device="cpu").init(torch.Generator().manual_seed(5))
+    gpu_model = Model(small)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(6).integers(0, small.vocab_size, (2, 200)))
+    with torch.inference_mode():
+        want, _ = cpu_model({"tokens": toks})
+        got, _ = gpu_model({"tokens": toks.cuda()})
+    small_err = float((got.cpu() - want).abs().max())
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3,
+                               msg="small f32 hymba: card vs CPU logits")
+    print(f"[eval] small f32 hymba (2 layers, d_model 256, head_dim 64, window 64, "
+          f"200 tokens): card logits vs the CPU's plain versions, max |diff| "
+          f"{small_err:.3g} (tolerance 1e-3)")
+    del model, gpu_model
+    torch.cuda.empty_cache()
+    return {"estimate": res.estimate, "exact_loss": truth, "achieved_error": rel,
+            "exact_fallback": res.exact, "pilot_shards": res.pilot_blocks,
+            "final_shards": res.final_blocks, "theta": res.theta,
+            "pilot_ms": pilot_s * 1e3, "plan_ms": (approx_wall - pilot_s - final_s) * 1e3,
+            "final_ms": final_s * 1e3, "approx_ms": approx_wall * 1e3,
+            "exact_ms": exact_wall * 1e3, "ms_per_shard_forward": ms_per_shard,
+            "tokens_per_s": tokens / exact_wall, "launches": launches,
+            "launches_per_forward": per_forward, "forward_ms": fwd_ms,
+            "forward_walls_ms": walls, "device_busy_ms": busy,
+            "profiled_wall_ms": pwall, "device_top": top, "full_width": full,
+            "small_max_abs_err": small_err, "parameters": n_params}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -498,8 +871,16 @@ def main() -> int:
                                                   filtered_agg_batched,
                                                   filtered_agg_batched_ref,
                                                   filtered_agg_ref)
+    from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
+    from repro_torch.kernels.gla_chunk import gla_chunked, gla_chunked_ref
+    from repro_torch.models import layers, linear_attn
     wrappers = (filtered_agg, block_agg, filtered_agg_batched, block_agg_batched)
-    recorder = CallRecorder(physical, wrappers)
+    model_wrappers = (flash_attention, gla_chunked)
+    recorder = CallRecorder(
+        [(physical, fn.__name__, ids_shape(fn.__name__)) for fn in wrappers]
+        + [(layers, "flash_attention", q_shape), (linear_attn, "_gla_kernel", q_shape)])
+    model_kernels = {"flash_attention": (flash_attention, flash_attention_ref),
+                     "gla_chunked": (gla_chunked, gla_chunked_ref)}
     no_cache = SessionConfig(result_cache_size=0)
 
     t_start = time.perf_counter()
@@ -509,9 +890,9 @@ def main() -> int:
 
     # -- 1. device -----------------------------------------------------------
     smi = nvidia_smi_line()
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     print(f"[device] nvidia-smi: {smi}")
-    print(f"[device] torch: {name}, {torch.cuda.device_count()} device(s), "
+    print(f"[device] torch: {device_name}, {torch.cuda.device_count()} device(s), "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # -- 2. build ------------------------------------------------------------
@@ -580,6 +961,12 @@ def main() -> int:
               "block_agg_batched (3 lanes, per-lane bounds) match their plain "
               "versions; every lane bitwise the solo kernel; bitwise stable")
     torch.cuda.synchronize()
+
+    # -- 3b. the model kernels at fixed scaling points ---------------------------
+    model_scale = {k: [time_model_kernel(torch, np, k, *model_kernels[k], args, kw, smi)
+                       for args, kw in points]
+                   for k, points in model_kernel_scaling_points(torch, np, dev).items()}
+    torch.cuda.empty_cache()
 
     # -- 4. main path at SF10 --------------------------------------------------
     t0 = time.perf_counter()
@@ -713,7 +1100,8 @@ def main() -> int:
                               for ids in lanes]},
         smi))
     torch.cuda.synchronize()
-    recorder.calls.clear()
+    for fn in wrappers:
+        recorder.calls[fn.__name__].clear()
     del session, catalog, cols, li, ids, lanes, q6_cols
     torch.cuda.empty_cache()
 
@@ -747,6 +1135,20 @@ def main() -> int:
           f"ids equal; rates within 1e-6; answers within 1e-5): "
           f"{[h.answer.values.ravel().tolist() for h in gh]}")
 
+    # -- 7. the eval path: hymba-1.5b through GuaranteedEvaluator ---------------
+    evaluation = run_eval(torch, np, smi, recorder, model_wrappers)
+    # the model kernels at the eval forward's own inputs (first call per shape)
+    model_timed = {}
+    for kname, (fn, ref) in model_kernels.items():
+        calls = recorder.calls[kname]
+        check(bool(calls), f"{kname}: no call of the eval forward was recorded")
+        rows = [time_model_kernel(torch, np, kname, fn, ref, args, kw, smi)
+                for args, kw in calls.values()]
+        model_timed[kname] = {"headline": rows[0], "main_path": rows,
+                              "scaling_points": model_scale[kname]}
+    recorder.calls.clear()
+    torch.cuda.empty_cache()
+
     # -- results ---------------------------------------------------------------
     sources = {
         "filtered_agg": "src/repro_torch/kernels/filtered_agg/csrc/filtered_agg.cu",
@@ -776,11 +1178,30 @@ def main() -> int:
             "main_path": timed[k]["main_path"],
             "scaling_points": timed[k]["scaling_points"],
         })
+    model_sources = {
+        "flash_attention": ("src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",
+                            "src/repro/kernels/flash_attn/kernel.py:76"),
+        "gla_chunked": ("src/repro_torch/kernels/gla_chunk/csrc/gla_chunk.cu",
+                        "src/repro/kernels/gla_chunk/kernel.py:103")}
+    for k, (source, replaced) in model_sources.items():
+        t = model_timed[k]["headline"]
+        kernels.append({
+            "name": k, "route": "cuda", "source": source, "replaces": replaced,
+            "launches": evaluation["launches"][k],
+            "launches_by_path": {"eval": evaluation["launches"][k]},
+            "launches_per_forward": evaluation["launches_per_forward"][k],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "shape": t["shape"], "main_path": model_timed[k]["main_path"],
+            "scaling_points": model_timed[k]["scaling_points"],
+        })
     summary["drain"] = drain
+    summary["eval"] = evaluation
     print(f"[done] {time.perf_counter() - t_start:.1f} s; main path {json.dumps(summary)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                               "count": torch.cuda.device_count()}}))
     return 0
 

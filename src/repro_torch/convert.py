@@ -1,15 +1,18 @@
-"""Carry tables across: host numpy arrays → the port's BlockTable catalog.
+"""Carry tables and model weights across from host numpy arrays.
 
 Data takes the place of weights in this system.  A table of the JAX package
 is handed over as plain numpy arrays (this module imports nothing of that
 package): a mapping with ``columns`` (name → 1-D array), ``valid``,
 ``block_id``, ``block_rows``, ``num_rows`` and ``num_origin_blocks``.  The
-arrays are copied byte for byte, in their dtypes, onto ``device``.
+arrays are copied byte for byte, in their dtypes, onto ``device``.  A
+model's parameter tree comes over the same way
+(:func:`model_params_from_arrays`), so both packages compute with the same
+weights.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -48,3 +51,35 @@ def catalog_from_arrays(tables: Mapping[str, Mapping],
     """A catalog (name → BlockTable) on ``device`` from each table's arrays."""
     return {name: table_from_arrays(name, arrays, device)
             for name, arrays in tables.items()}
+
+
+def _weight(a, what: str, dev: torch.device) -> torch.Tensor:
+    arr = np.ascontiguousarray(np.asarray(a))
+    if arr.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: carry the bits
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16).to(dev)
+    if arr.dtype != np.dtype(np.float32):
+        raise ValueError(f"{what}: expected a float32/bfloat16 array, got {arr.dtype}")
+    return torch.from_numpy(arr.copy()).to(dev)
+
+
+def model_params_from_arrays(cfg, params: Mapping[str, Any],
+                             device="cuda") -> Dict[str, torch.Tensor]:
+    """The reference's parameter tree of ``cfg`` as the port's state dict.
+
+    ``params`` holds numpy arrays (bfloat16 ones as ml_dtypes arrays):
+    ``embed``, ``final_norm``, ``head`` and ``layers`` (name → array with the
+    layers stacked on a leading L axis, the reference's ``scan_layers=True``
+    layout).  Returns tensors on ``device`` keyed as
+    ``repro_torch.models.Model``'s ``state_dict``, bits unchanged; load them
+    with ``model.load_state_dict``.
+    """
+    dev = resolve_device(device)
+    out = {name: _weight(params[name], name, dev)
+           for name in ("embed", "final_norm", "head")}
+    for name, a in params["layers"].items():
+        t = _weight(a, f"layers.{name}", dev)
+        if t.dim() < 2 or t.shape[0] != cfg.num_layers:
+            raise ValueError(f"layers.{name}: expected {cfg.num_layers} layers "
+                             f"stacked on axis 0, got shape {tuple(t.shape)}")
+        out[f"layers.{name}"] = t
+    return out

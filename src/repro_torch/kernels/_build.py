@@ -22,16 +22,22 @@ from typing import Dict, Sequence
 
 import torch
 
-KERNELS = ("filtered_agg", "block_agg")
+# each library and the shared header of csrc/ that its .cu includes
+HEADERS = {"filtered_agg": "block_reduce.cuh", "block_agg": "block_reduce.cuh",
+           "flash_attn": "float_io.cuh", "gla_chunk": "float_io.cuh"}
+KERNELS = tuple(HEADERS)
 
 _KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-# dtype codes of csrc/block_reduce.cuh
+# dtype codes of csrc/block_reduce.cuh (the column kernels)
 DTYPE_CODES = {torch.float32: 0, torch.int32: 1, torch.bool: 2}
 ABSENT = -1
+# dtype codes of csrc/float_io.cuh (the model kernels: f32 or bf16 in, f32
+# arithmetic, the input's dtype out)
+FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 3}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -42,6 +48,7 @@ build_seconds: Dict[str, float] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # Every function each library exports, with its ctypes signature.  Each one
 # needs its argtypes set: without them ctypes passes a Python int as a 32-bit
 # C int, which cuts a device pointer and faults on the card.
@@ -55,6 +62,13 @@ _SIGNATURES = {
     "block_agg": {
         "block_agg_launch": [_P, _I, _P, _P, _I, _I, _P, _P],
         "block_agg_batched_launch": [_P, _I, _P, _P, _I, _I, _I, _P, _P],
+    },
+    "flash_attn": {
+        "flash_attn_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _F, _I, _I, _P],
+    },
+    "gla_chunk": {
+        "gla_chunk_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
 }
 
@@ -74,8 +88,9 @@ def count(fn, attr: str) -> None:
 
 
 def _sources(name: str) -> Sequence[Path]:
+    """The kernel's ``.cu`` first, then the shared header it includes."""
     return (_KERNELS_DIR / name / "csrc" / f"{name}.cu",
-            _KERNELS_DIR / "csrc" / "block_reduce.cuh")
+            _KERNELS_DIR / "csrc" / HEADERS[name])
 
 
 def library_path(name: str) -> Path:
@@ -157,4 +172,12 @@ def dtype_code(t: torch.Tensor, what: str) -> int:
     if code is None:
         raise TypeError(f"{what}: dtype {t.dtype} not supported "
                         "(float32, int32 or bool)")
+    return code
+
+
+def float_code(t: torch.Tensor, what: str) -> int:
+    code = FLOAT_CODES.get(t.dtype)
+    if code is None:
+        raise TypeError(f"{what}: dtype {t.dtype} not supported "
+                        "(float32 or bfloat16)")
     return code

@@ -1,0 +1,4 @@
+from repro_torch.kernels.gla_chunk.ops import gla_chunked
+from repro_torch.kernels.gla_chunk.ref import gla_chunked_ref
+
+__all__ = ["gla_chunked", "gla_chunked_ref"]

@@ -166,3 +166,82 @@ def test_cuda_session_matches_cpu_session(cuda):
     assert g.report.plan.rates["lineitem"] == pytest.approx(
         c.report.plan.rates["lineitem"], rel=1e-6)
     np.testing.assert_allclose(g.answer.values, c.answer.values, rtol=1e-5)
+
+
+# -- the model kernels: flash_attn and gla_chunk ----------------------------------
+
+def _normal(rng, shape, dev, dtype, scale=1.0):
+    a = (rng.standard_normal(shape) * scale).astype(np.float32)
+    return torch.from_numpy(a).to(dev).to(dtype)
+
+
+# (B, Hq, Hkv, Sq, Skv, d, dtype, causal, window): hymba's GQA and window at
+# a short sequence, internlm2's d 128, ragged and non-causal, f32 and bf16
+FLASH_CASES = [
+    (2, 10, 2, 300, 300, 64, torch.bfloat16, True, 128),
+    (1, 4, 4, 200, 200, 64, torch.float32, True, 0),
+    (1, 8, 2, 100, 150, 128, torch.float32, False, 0),
+    (2, 4, 2, 130, 130, 128, torch.bfloat16, True, 0),
+    (1, 5, 1, 257, 257, 64, torch.float32, False, 64),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_matches_plain_version_on_the_card(cuda, case):
+    """Against the dense f32 plain version: f32 at the reference's own 2e-3;
+    bf16 at rtol 1e-2, atol 1e-4, since both compute in f32 and round once to
+    bf16, so they differ by at most one bf16 step (2^-7 |o|).  Bitwise
+    stable between launches, one launch counted per call."""
+    from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
+    b, hq, hkv, sq, skv, d, dtype, causal, window = case
+    rng = np.random.default_rng(sq + d)
+    q = _normal(rng, (b, hq, sq, d), cuda, dtype)
+    k = _normal(rng, (b, hkv, skv, d), cuda, dtype)
+    v = _normal(rng, (b, hkv, skv, d), cuda, dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    again = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.equal(got, again)
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    rtol, atol = (1e-2, 1e-4) if dtype == torch.bfloat16 else (2e-3, 2e-3)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+# (B, H, T, dk, dv, dtype): hymba's (16, 64) and rwkv6's (64, 64), T off the
+# chunk, f32 and bf16
+GLA_CASES = [
+    (2, 5, 200, 16, 64, torch.bfloat16),
+    (1, 3, 130, 64, 64, torch.float32),
+    (2, 2, 256, 16, 64, torch.float32),
+    (1, 2, 100, 64, 64, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("case", GLA_CASES)
+def test_gla_chunked_matches_plain_version_on_the_card(cuda, case):
+    """o and the final state against the plain chunked version (3e-3 for
+    f32, the reference's; 2e-2 for bf16 outputs), with decays down to and
+    past the -8 clamp; bitwise stable between launches."""
+    from repro_torch.kernels.gla_chunk import gla_chunked, gla_chunked_ref
+    b, h, t, dk, dv, dtype = case
+    rng = np.random.default_rng(t + dk)
+    q = _normal(rng, (b, h, t, dk), cuda, dtype, 0.5)
+    k = _normal(rng, (b, h, t, dk), cuda, dtype, 0.5)
+    v = _normal(rng, (b, h, t, dv), cuda, dtype)
+    g = torch.from_numpy(-rng.uniform(0.0, 0.3, (b, h, t, dk)).astype(np.float32))
+    g[..., :3, :] = -9.0                              # clamped to -8
+    g = g.to(cuda).to(dtype)
+    before = gla_chunked.launches
+    o, s = gla_chunked(q, k, v, g)
+    o2, s2 = gla_chunked(q, k, v, g)
+    torch.cuda.synchronize()
+    assert gla_chunked.launches == before + 2
+    assert torch.equal(o, o2) and torch.equal(s, s2)
+    assert o.dtype == dtype and s.dtype == torch.float32
+    wo, ws = gla_chunked_ref(q, k, v, g)
+    tol = 2e-2 if dtype == torch.bfloat16 else 3e-3
+    torch.testing.assert_close(o.float(), wo.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(s, ws, rtol=3e-3, atol=3e-3)

@@ -14,7 +14,9 @@ import repro_torch
 from repro_torch.api import Session
 from repro_torch.engine.datagen import tpch_catalog
 from repro_torch.engine.executor import Executor
+from repro_torch.configs import get_config
 from repro_torch.kernels.block_agg import block_agg
+from repro_torch.models import Model
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = pathlib.Path(repro_torch.__file__).resolve().parent
@@ -49,11 +51,20 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     assert {"repro_torch.api.scheduler", "repro_torch.runtime",
             "repro_torch.runtime.pool", "repro_torch.runtime.result_cache",
             "repro_torch.runtime.shared_pilot"} <= mods
+    # the eval path: evaluator, configs, model stack and its two kernels
+    assert {"repro_torch.aqpeval.evaluator", "repro_torch.configs.registry",
+            "repro_torch.configs.hymba_1p5b", "repro_torch.models.config",
+            "repro_torch.models.layers", "repro_torch.models.linear_attn",
+            "repro_torch.models.model", "repro_torch.kernels.flash_attn.ops",
+            "repro_torch.kernels.flash_attn.ref",
+            "repro_torch.kernels.gla_chunk.ops",
+            "repro_torch.kernels.gla_chunk.ref"} <= mods
 
 
 def test_no_source_imports_jax_or_the_reference():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert (ROOT / "chip_smoke.py").exists()
+    scripts = [ROOT / "chip_smoke.py", ROOT / "examples" / "torch_approx_eval.py"]
+    files = sorted(PKG.rglob("*.py")) + scripts
+    assert all(f.exists() for f in scripts)
     offenders = [str(f) for f in files if _FORBIDDEN.search(f.read_text())]
     assert offenders == []
 
@@ -61,13 +72,15 @@ def test_no_source_imports_jax_or_the_reference():
 def test_default_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cat = tpch_catalog(2000, 32, device="cpu")
+    hymba = get_config("hymba-1.5b").reduced()
     for make in (lambda: Session(cat), lambda: Executor(cat),
-                 lambda: tpch_catalog(2000, 32)):
+                 lambda: tpch_catalog(2000, 32), lambda: Model(hymba)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
     # asked for, the CPU runs
     h = Session(cat, device="cpu").sql("SELECT COUNT(*) AS n FROM lineitem")
     assert h.status == "done" and h.scalar("n") == 2000
+    assert Model(hymba, device="cpu").embed.device.type == "cpu"
 
 
 def test_tables_must_sit_on_the_session_device():
