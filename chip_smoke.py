@@ -8,7 +8,8 @@ Phases, each printing its own lines:
 
 1. device  — ``nvidia-smi`` name and power limit, ``torch.cuda`` device name.
 2. build   — ``nvcc`` builds every kernel from the checkout's sources, all
-             started together; build seconds and ptxas register counts.
+             started together; build seconds and, per kernel, the registers,
+             spills and static shared memory that ptxas reports.
 3. kernels — each hand-written kernel against its plain PyTorch version on
              the card (block_rows 32 / 100 / 256; empty blocks, padding ids,
              an int32 filter column, rows on a bound): counts exact, sums
@@ -144,6 +145,33 @@ def nvidia_smi_line():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_lines(log):
+    """One line per kernel of nvcc's ``-Xptxas=-v`` output: registers per
+    thread, spill stores / loads and static shared memory (the kernels' tiles
+    are dynamic shared memory, sized in their sources)."""
+    rows, name, spill = [], None, "?"
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif "spill stores" in ln:
+            spill = "/".join([w for w in ln.replace(",", " ").split() if w.isdigit()][:3])
+        elif "Used" in ln and "registers" in ln and name:
+            words = ln.replace(",", " ").split()
+            regs = words[words.index("registers") - 1]
+            smem = words[words.index("smem") - 2] if "smem" in words else "0"
+            rows.append((name, f"{regs} registers, stack/spill stores/loads {spill} B, "
+                               f"static smem {smem} B"))
+            name = None
+    try:  # readable kernel names where binutils' c++filt is there
+        names = subprocess.run(["c++filt"], input="\n".join(n for n, _ in rows),
+                               capture_output=True, text=True, timeout=30).stdout.split("\n")
+    except (OSError, subprocess.SubprocessError):
+        names = []
+    if len(names) < len(rows):
+        names = [n for n, _ in rows]
+    return [f"{n.split('(')[0]}: {txt}" for n, (_, txt) in zip(names, rows)]
 
 
 # ---------------------------------------------------------------------------
@@ -637,6 +665,8 @@ def time_model_kernel(torch, np, name, fn, ref, args, kw, smi):
     ms = time_cold(torch, lambda: fn(*args, **kw))
     plain_ms = time_cold(torch, lambda: ref(*args, **ref_kw), iters=10)
     bound_ms, by = least_ms(flops, nbytes, q.dtype)
+    # the device kernels of one call (GLA's three passes), L2 warm
+    _, _, parts = device_profile(torch, lambda: fn(*args, **kw), top=4)
     where = ", ".join(f"{k}={v}" for k, v in ref_kw.items())
     lib_txt = (f", SDPA {library_ms * 1e3:.2f} us (|SDPA - plain| {lib_err:.3g})"
                if library_ms is not None else "")
@@ -646,11 +676,15 @@ def time_model_kernel(torch, np, name, fn, ref, args, kw, smi):
           f"{bound_ms * 1e3:.3f} us by {by}: {flops / 1e9:.3f} GFLOP / "
           f"{PEAK_FLOPS[str(q.dtype)] / 1e12:.0f} TFLOP/s vs {nbytes:,} B / 3.35 TB/s; "
           f"{bound_ms / ms:.1%} of bound); max |kernel - plain| {err:.3g}  [{smi}]")
+    for kname, kms, count in parts:
+        print(f"[kernels]   one call's device kernel {kms * 1e3:9.2f} us x{count} "
+              f"{kname.split('(')[0][:90]}")
     return {"shape": list(q.shape), "other_shape": list(other.shape),
             "dtype": str(q.dtype), **{k: v for k, v in ref_kw.items()},
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": by, "flops": flops,
-            "bytes": nbytes, "max_abs_err": err}
+            "bytes": nbytes, "max_abs_err": err,
+            "device_kernels": [[kname.split("(")[0], kms, count] for kname, kms, count in parts]}
 
 
 def model_kernel_scaling_points(torch, np, dev):
@@ -764,7 +798,7 @@ def run_eval(torch, np, smi, recorder, model_wrappers):
         block_metric(np.arange(i, i + 1))
         walls.append((time.perf_counter() - t0) * 1e3)
     fwd_ms = statistics.median(walls)
-    busy, pwall, top = device_profile(torch, lambda: block_metric(np.arange(2, 3)))
+    busy, pwall, top = device_profile(torch, lambda: block_metric(np.arange(2, 3)), top=20)
     share = "not measured" if busy is None else f"{1 - busy / pwall:.1%}"
     print(f"[eval] main path launches {launches} over {forwards} shard forwards; per "
           f"forward {per_forward}; one shard forward unprofiled: {fwd_ms:.2f} ms "
@@ -901,8 +935,9 @@ def main() -> int:
     print(f"[build] {len(paths)} kernels in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
     for k, log in _build.build_logs.items():
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
-        print(f"[build] {k}: {_build.build_seconds[k]:.2f} s; " + " | ".join(regs))
+        print(f"[build] {k}: {_build.build_seconds[k]:.2f} s")
+        for line in ptxas_lines(log):
+            print(f"[build]   {line}")
 
     # -- 3. kernels against their plain versions -------------------------------
     bounds = torch.tensor([100.0, 1500.0, 0.02, 0.08, 24.0],

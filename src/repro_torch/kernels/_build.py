@@ -22,9 +22,9 @@ from typing import Dict, Sequence
 
 import torch
 
-# each library and the shared header of csrc/ that its .cu includes
-HEADERS = {"filtered_agg": "block_reduce.cuh", "block_agg": "block_reduce.cuh",
-           "flash_attn": "float_io.cuh", "gla_chunk": "float_io.cuh"}
+# each library and the shared headers of csrc/ that its .cu includes
+HEADERS = {"filtered_agg": ("block_reduce.cuh",), "block_agg": ("block_reduce.cuh",),
+           "flash_attn": ("float_io.cuh", "hopper.cuh"), "gla_chunk": ("float_io.cuh",)}
 KERNELS = tuple(HEADERS)
 
 _KERNELS_DIR = Path(__file__).resolve().parent
@@ -68,7 +68,8 @@ _SIGNATURES = {
                               _F, _I, _I, _P],
     },
     "gla_chunk": {
-        "gla_chunk_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "gla_chunk_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _P],
     },
 }
 
@@ -88,9 +89,9 @@ def count(fn, attr: str) -> None:
 
 
 def _sources(name: str) -> Sequence[Path]:
-    """The kernel's ``.cu`` first, then the shared header it includes."""
+    """The kernel's ``.cu`` first, then the shared headers it includes."""
     return (_KERNELS_DIR / name / "csrc" / f"{name}.cu",
-            _KERNELS_DIR / "csrc" / HEADERS[name])
+            *(_KERNELS_DIR / "csrc" / h for h in HEADERS[name]))
 
 
 def library_path(name: str) -> Path:

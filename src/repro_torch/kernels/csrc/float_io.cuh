@@ -1,7 +1,8 @@
 // Shared pieces of the model kernels (flash_attn, gla_chunk): loading f32 or
-// bf16 tiles into shared memory as f32, and storing f32 results back in the
-// input's dtype.  Every product and sum of those kernels runs in f32, like
-// the reference's ``.astype(jnp.float32)`` inside its Pallas bodies.
+// bf16 tiles into shared memory as f32, storing f32 results back in the
+// input's dtype, and a short exp2.  Every product and sum of those kernels
+// runs in f32, like the reference's ``.astype(jnp.float32)`` inside its
+// Pallas bodies.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -24,6 +25,15 @@ __device__ __forceinline__ float from_f32<float>(float x) {
 template <>
 __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
   return __float2bfloat16_rn(x);
+}
+
+// 2^x by ex2.approx (2 ulp), subnormal results flushed to zero: the model
+// kernels' exps, whose arguments are <= 0 and whose results below 2^-126
+// add nothing an f32 sum keeps
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Eight consecutive elements widened to f32; ``p`` is 16-byte aligned (the

@@ -9,28 +9,57 @@
 // acc / l with l > 0 guarded, stored in q's dtype.  Beyond the Pallas mask
 // (col < kv_len; col <= row when causal) it takes the sliding window of
 // the models' mea_attention (col > row - window when window > 0), and
-// skips every kv tile wholly outside the causal triangle or the window band,
-// as the Pallas kernel skips tiles above the diagonal.
+// skips every kv tile wholly outside the causal triangle or the window band
+// of a 64-row group of queries, as the Pallas kernel skips tiles above the
+// diagonal.  GQA maps q head h to kv head h / (Hq / Hkv) in the kernel, so K
+// and V are never repeated.  No atomics, no split over kv: a launch is
+// bitwise repeatable.
 //
 // What bounds it on the H100: operations.  At hymba-1.5b's eval shape
-// (B 2, 25 q heads over 5 kv heads, S 2048, d 64, window 1024) a head does
-// ~391 visited (64 x 64) tile pairs of 2 x 64 x 64 x 64 x 2 flops, 20.5
-// GFLOP in all, against 31.5 MB of q, k, v and o.
+// (B 2, 25 q heads over 5 kv heads, S 2048, d 64, window 1024) the masks
+// keep 1.57M (q, k) pairs per head, 20.1 GFLOP in all (20.4 us at 989
+// TFLOP/s), against 31.5 MB of q, k, v and o (9.4 us at 3.35 TB/s).
 //
-// Design, simple first: one CTA of 128 threads per (batch, q head, 64-row q
-// tile).  The q tile and each 64-row K and V tile are widened to f32 in
-// shared memory; thread (tr, tc) owns rows 4tr..4tr+3 and score columns
-// tc + 8j, so each row's softmax reductions are a 3-step shuffle among 8
-// lanes of one warp and P never leaves that warp.  QK^T and PV are scalar
-// f32 FMAs from shared memory (no tensor cores yet: wgmma, TMA and bf16
-// mma are later work).  GQA maps q head h to kv head h / (Hq / Hkv) in the
-// kernel, so K and V are never repeated.  No atomics: a launch is bitwise
-// repeatable.
+// bf16 inputs: flash_attn_wgmma_kernel, on the tensor cores.  One CTA of two
+// consumer warpgroups per (batch, q head, 128 q rows); each warpgroup owns 64
+// rows, the M of wgmma.  The Q tile comes in once by TMA; 64-row K and V
+// tiles come in by TMA into a ring of two stages, each guarded by an
+// mbarrier that counts the copy's bytes, and thread 0 issues tile j + 1
+// before the warpgroups start on tile j, so the copy overlaps the compute.
+// S = Q K^T is wgmma m64n64k16 with Q and K both K-major from 128-byte
+// swizzled shared memory (hopper.cuh); the mask and the online softmax work
+// on the f32 accumulator fragments, whose (row, col) follow from the wgmma
+// layout; P, as bf16 pairs in registers, is the register A operand of
+// O += P V (the accumulator layout of one m64n64k16 is the A-fragment
+// layout of the next), with V read as the transposed (MN-major)
+// B operand straight from its TMA tile.  O accumulates in f32 registers and
+// is rounded once to bf16.  The softmax runs in base 2: the scores carry
+// scale * log2(e) and ex2.approx (2 ulp, subnormals flushed) takes the place
+// of expf.  Only a tile on an edge of a warpgroup's band (the diagonal, the
+// window's lower edge, Skv) is masked.
+// P goes in as two bf16 parts, P_hi = bf16(p) and P_lo = bf16(p - P_hi),
+// two register-A products on the same V tile: P rounded once to bf16 is off
+// by up to 2^-8 p, which puts an output over n keys off by ~2^-8 |v| /
+// sqrt(3n) (~7e-5 at 1024 keys) and fails the bf16 limit the kernel is held
+// to (rtol 1e-2, atol 1e-4) wherever |o| is small: 3 % of the outputs at a
+// reduced eval shape (tests/test_torch_models.py); the two parts carry 16
+// bits of p and fail none, for 1.5x the tensor-core work.  l sums the f32 p.
+// Ragged Sq and Skv: TMA fills rows past the end with zeros, the col < skv
+// mask drops their scores, and rows >= Sq are not stored.
+//
+// f32 inputs: flash_attn_kernel<float, D>, the scalar kernel, kept because
+// wgmma on f32 is TF32 (about three digits), looser than the f32 checks
+// (the kernel at 2e-3, a full-width f32 forward's logits at 1e-3).  One CTA
+// of 128 threads per (batch, q head, 64-row q tile); q, K and V tiles
+// widened to f32 in shared memory; thread (tr, tc) owns rows 4tr..4tr+3 and
+// score columns tc + 8j, so each row's softmax reductions are a 3-step
+// shuffle among 8 lanes of one warp; QK^T and PV are f32 FMAs.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "../../csrc/float_io.cuh"
+#include "../../csrc/hopper.cuh"
 
 namespace repro_torch {
 
@@ -38,6 +67,16 @@ constexpr int kBQ = 64;
 constexpr int kBK = 64;
 constexpr int kFlashThreads = 128;
 constexpr float kNegInf = -1e30f;
+
+// the kv tiles [lo, hi] that query rows [r0, r_end) visit: none wholly past
+// the diagonal of row r_end - 1 (causal) or wholly before the window of row r0
+__device__ __forceinline__ void kv_tiles(int r0, int r_end, int skv, int causal,
+                                         int window, int& lo, int& hi) {
+  int last_col = skv - 1;
+  if (causal) last_col = min(last_col, r_end - 1);
+  hi = last_col >= 0 ? last_col / kBK : -1;
+  lo = window > 0 ? max(0, r0 - window + 1) / kBK : 0;
+}
 
 template <int D>
 struct FlashSmem {
@@ -86,12 +125,8 @@ __global__ void __launch_bounds__(kFlashThreads)
     for (int jj = 0; jj < kCols; ++jj) acc[ii][jj] = 0.0f;
   }
 
-  // the kv tiles this q tile can see: none wholly past the diagonal (causal)
-  // or wholly before the window of the tile's first row
-  int last_col = skv - 1;
-  if (causal) last_col = min(last_col, i0 + kBQ - 1);
-  const int j_hi = last_col >= 0 ? last_col / kBK : -1;
-  const int j_lo = window > 0 ? max(0, i0 - window + 1) / kBK : 0;
+  int j_lo, j_hi;
+  kv_tiles(i0, i0 + kBQ, skv, causal, window, j_lo, j_hi);
 
   for (int jt = j_lo; jt <= j_hi; ++jt) {
     const int j0 = jt * kBK;
@@ -198,6 +233,310 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// ---- bf16: the tensor-core kernel -------------------------------------------
+
+constexpr int kWgRows = 64;                    // q rows per warpgroup (wgmma M)
+constexpr int kWgBQ = 2 * kWgRows;             // q rows per CTA
+constexpr int kWgThreads = 256;                // two consumer warpgroups
+constexpr int kStages = 2;                     // K/V ring depth
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory of one CTA, in bytes from a 1024-aligned base: Q as D / 64
+// pieces of 128 rows x 64 columns, then per stage K and V as D / 64 pieces
+// of 64 rows x 64 columns each, then the mbarriers (Q, then one per stage).
+template <int D>
+struct WgSmem {
+  static constexpr int kPieces = D / 64;
+  static constexpr int kQPiece = kWgBQ * 128;
+  static constexpr int kKVPiece = kBK * 128;
+  static constexpr int kQ = kPieces * kQPiece;
+  static constexpr int kStage = 2 * kPieces * kKVPiece;
+  static constexpr int kBars = kQ + kStages * kStage;
+  static constexpr size_t kBytes = kBars + 8 * (1 + kStages) + 1024;  // + alignment
+};
+
+// (a, b) as bf16 pairs hi = round(a, b) and lo = round((a, b) - hi): hi + lo
+// carries 16 significant bits of each
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// thread 0: K and V tile ``jt`` of kv head ``bkv`` into the stage of the
+// ring's n-th tile, counted on that stage's barrier
+template <int D>
+__device__ __forceinline__ void load_kv(uint8_t* smem, uint64_t* bars, const CUtensorMap* tk,
+                                        const CUtensorMap* tv, int n, int jt, int bkv) {
+  using S = WgSmem<D>;
+  uint8_t* st = smem + S::kQ + (n % kStages) * S::kStage;
+  uint64_t* bar = &bars[1 + n % kStages];
+  hopper::mbar_arrive_expect_tx(bar, S::kStage);
+#pragma unroll
+  for (int p = 0; p < S::kPieces; ++p) {
+    hopper::tma_load_3d(st + p * S::kKVPiece, tk, bar, 64 * p, jt * kBK, bkv);
+    hopper::tma_load_3d(st + (S::kPieces + p) * S::kKVPiece, tv, bar, 64 * p, jt * kBK, bkv);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, D == 64 ? 2 : 1)
+    flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            bf16* __restrict__ o, int hq, int hkv, int sq,
+                            int skv, float scale_log2, int causal, int window) {
+  using S = WgSmem<D>;
+  constexpr int P = S::kPieces;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
+  uint8_t* qs = smem;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::kBars);
+
+  const int i0 = blockIdx.x * kWgBQ;
+  const int bq = blockIdx.z * hq + blockIdx.y;
+  const int bkv = blockIdx.z * hkv + blockIdx.y / (hq / hkv);
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+
+  // the CTA loads the tiles any of its rows below sq can see; each
+  // warpgroup computes on the tiles its own 64 rows can see
+  const int r_wg = i0 + wg * kWgRows;
+  const bool wg_rows = r_wg < sq;
+  int lo, hi, my_lo, my_hi;
+  kv_tiles(i0, min(i0 + kWgBQ, sq), skv, causal, window, lo, hi);
+  kv_tiles(r_wg, min(r_wg + kWgRows, sq), skv, causal, window, my_lo, my_hi);
+  const int n_tiles = hi - lo + 1;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < 1 + kStages; ++i) hopper::mbar_init(&bars[i], 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_arrive_expect_tx(&bars[0], S::kQ);
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      hopper::tma_load_3d(qs + p * S::kQPiece, &tq, &bars[0], 64 * p, i0, bq);
+    for (int n = 0; n < kStages - 1 && n < n_tiles; ++n)
+      load_kv<D>(smem, bars, &tk, &tv, n, lo + n, bkv);
+  }
+  __syncwarp();
+
+  // accumulator fragment (i, c, e) of register 4c + 2i + e: row
+  // 16 warp + lane / 4 + 8i of the warpgroup's 64, column 8c + 2 (lane % 4) + e
+  float oacc[P][32];
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int r = 0; r < 32; ++r) oacc[p][r] = 0.0f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.0f, 0.0f};
+  const int row0 = r_wg + warp * 16 + lane / 4;
+  const int col0 = 2 * (lane % 4);
+  hopper::mbar_wait(&bars[0], 0);
+
+  for (int n = 0; n < n_tiles; ++n) {
+    // the stage tile n + 1 goes into held tile n - 1, which every thread
+    // finished with before the barrier that closed the last iteration
+    if (tid == 0 && n + kStages - 1 < n_tiles)
+      load_kv<D>(smem, bars, &tk, &tv, n + kStages - 1, lo + n + kStages - 1, bkv);
+    __syncwarp();
+    hopper::mbar_wait(&bars[1 + n % kStages], (n / kStages) & 1);
+    const int jt = lo + n;
+    if (wg_rows && jt >= my_lo && jt <= my_hi) {
+      const uint8_t* ks = smem + S::kQ + (n % kStages) * S::kStage;
+      const uint8_t* vs = ks + P * S::kKVPiece;
+
+      // S = Q K^T over D / 16 k16 steps, 4 per 64-column piece
+      float sacc[32];
+#pragma unroll
+      for (int r = 0; r < 32; ++r) sacc[r] = 0.0f;
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint64_t da = hopper::desc_sw128(qs + (kk / 4) * S::kQPiece +
+                                               wg * kWgRows * 128 + (kk % 4) * 32);
+        const uint64_t db = hopper::desc_sw128(ks + (kk / 4) * S::kKVPiece + (kk % 4) * 32);
+        hopper::wgmma_m64n64k16_ss(sacc, da, db);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_all();
+      hopper::fence_regs(sacc);
+
+      // mask (a tile inside the band of all 64 rows needs none), then the
+      // online softmax of each of the thread's two rows; a row's 64 columns
+      // live on the 4 lanes of one quad
+      const int j0 = jt * kBK;
+      float mc[2] = {kNegInf, kNegInf};
+      const bool inside = j0 + kBK <= skv && (!causal || j0 + kBK - 1 <= r_wg) &&
+                          (window <= 0 || j0 > r_wg + kWgRows - 1 - window);
+      if (inside) {
+#pragma unroll
+        for (int r = 0; r < 32; ++r) {
+          sacc[r] *= scale_log2;
+          mc[(r / 2) % 2] = fmaxf(mc[(r / 2) % 2], sacc[r]);
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int row = row0 + 8 * i;
+              const int col = j0 + 8 * c + col0 + e;
+              bool keep = col < skv;
+              if (causal) keep = keep && col <= row;
+              if (window > 0) keep = keep && col > row - window;
+              float& x = sacc[4 * c + 2 * i + e];
+              x = keep ? x * scale_log2 : kNegInf;
+              mc[i] = fmaxf(mc[i], x);
+            }
+      }
+      float alpha[2], rs[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mc[i] = fmaxf(mc[i], __shfl_xor_sync(0xffffffffu, mc[i], 1));
+        mc[i] = fmaxf(mc[i], __shfl_xor_sync(0xffffffffu, mc[i], 2));
+        const float m_new = fmaxf(m[i], mc[i]);
+        alpha[i] = ex2(m[i] - m_new);
+        m[i] = m_new;
+      }
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+        sacc[r] = ex2(sacc[r] - m[(r / 2) % 2]);
+        rs[(r / 2) % 2] += sacc[r];
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
+        rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
+        l[i] = l[i] * alpha[i] + rs[i];
+      }
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+#pragma unroll
+        for (int r = 0; r < 32; ++r) oacc[p][r] *= alpha[(r / 2) % 2];
+
+      // O += P V with P = P_hi + P_lo, two bf16 parts: k16 step kk takes P's
+      // columns 16kk..16kk+15, which are the registers 8kk..8kk+7 of the
+      // score fragments, in order
+      uint32_t p_hi[4][4], p_lo[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          split_bf16(sacc[8 * kk + 2 * r], sacc[8 * kk + 2 * r + 1], p_hi[kk][r],
+                     p_lo[kk][r]);
+#pragma unroll
+      for (int p = 0; p < P; ++p) hopper::fence_regs(oacc[p]);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          const uint64_t dv = hopper::desc_sw128(vs + p * S::kKVPiece + kk * 16 * 128);
+          hopper::wgmma_m64n64k16_rs_tb(oacc[p], p_hi[kk], dv);
+          hopper::wgmma_m64n64k16_rs_tb(oacc[p], p_lo[kk], dv);
+        }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_all();
+#pragma unroll
+      for (int p = 0; p < P; ++p) hopper::fence_regs(oacc[p]);
+    }
+    __syncthreads();  // both warpgroups are done with this stage
+  }
+
+  if (!wg_rows) return;
+  bf16* ob = o + static_cast<int64_t>(bq) * sq * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    if (row >= sq) continue;
+    const float den = l[i] > 0.0f ? l[i] : 1.0f;
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const __nv_bfloat162 v2 = __floats2bfloat162_rn(oacc[p][4 * c + 2 * i] / den,
+                                                        oacc[p][4 * c + 2 * i + 1] / den);
+        *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<int64_t>(row) * D + 64 * p +
+                                           8 * c + col0) = v2;
+      }
+  }
+}
+
+// cuTensorMapEncodeTiled of libcuda, looked up through the CUDA runtime's
+// entry-point query, so the library links no libcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+static EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a (heads, rows, d) bf16 tensor as a 3-d map read in boxes of 64 columns x
+// box_rows rows of one head, 128-byte swizzled, zeros past the ends
+static bool make_map(CUtensorMap* map, const void* base, int heads, int rows, int d,
+                     int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * sizeof(bf16),
+                                 static_cast<cuuint64_t>(rows) * d * sizeof(bf16)};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch_flash_wgmma(const void* q, const void* k, const void* v, void* o,
+                               int batch, int hq, int hkv, int sq, int skv, float scale,
+                               int causal, int window, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, batch * hq, sq, D, kWgBQ) ||
+      !make_map(&tk, k, batch * hkv, skv, D, kBK) ||
+      !make_map(&tv, v, batch * hkv, skv, D, kBK))
+    return cudaErrorInvalidValue;
+  const size_t smem = WgSmem<D>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(flash_attn_wgmma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((sq + kWgBQ - 1) / kWgBQ, hq, batch);
+  flash_attn_wgmma_kernel<D><<<grid, kWgThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), hq, hkv, sq, skv, scale * kLog2e, causal, window);
+  return cudaGetLastError();
+}
+
 }  // namespace repro_torch
 
 // q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D), o like q: contiguous, one
@@ -211,9 +550,9 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
   if (batch <= 0 || hq <= 0 || sq <= 0) return static_cast<int>(cudaGetLastError());
   const auto st = static_cast<cudaStream_t>(stream);
   if (dtype == kDtypeBF16 && head_dim == 64)
-    return launch_flash<bf16, 64>(q, k, v, o, batch, hq, hkv, sq, skv, scale, causal, window, st);
+    return launch_flash_wgmma<64>(q, k, v, o, batch, hq, hkv, sq, skv, scale, causal, window, st);
   if (dtype == kDtypeBF16 && head_dim == 128)
-    return launch_flash<bf16, 128>(q, k, v, o, batch, hq, hkv, sq, skv, scale, causal, window, st);
+    return launch_flash_wgmma<128>(q, k, v, o, batch, hq, hkv, sq, skv, scale, causal, window, st);
   if (dtype == kDtypeF32 && head_dim == 64)
     return launch_flash<float, 64>(q, k, v, o, batch, hq, hkv, sq, skv, scale, causal, window, st);
   if (dtype == kDtypeF32 && head_dim == 128)

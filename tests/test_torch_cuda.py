@@ -176,13 +176,17 @@ def _normal(rng, shape, dev, dtype, scale=1.0):
 
 
 # (B, Hq, Hkv, Sq, Skv, d, dtype, causal, window): hymba's GQA and window at
-# a short sequence, internlm2's d 128, ragged and non-causal, f32 and bf16
+# a short sequence and at the eval shape, internlm2's d 128, ragged and
+# non-causal (bf16: Sq and Skv off the tiles, for TMA's zero fill), f32 and
+# bf16
 FLASH_CASES = [
     (2, 10, 2, 300, 300, 64, torch.bfloat16, True, 128),
     (1, 4, 4, 200, 200, 64, torch.float32, True, 0),
     (1, 8, 2, 100, 150, 128, torch.float32, False, 0),
     (2, 4, 2, 130, 130, 128, torch.bfloat16, True, 0),
     (1, 5, 1, 257, 257, 64, torch.float32, False, 64),
+    (2, 25, 5, 2048, 2048, 64, torch.bfloat16, True, 1024),
+    (1, 6, 2, 201, 333, 128, torch.bfloat16, False, 0),
 ]
 
 
@@ -211,12 +215,15 @@ def test_flash_attention_matches_plain_version_on_the_card(cuda, case):
 
 
 # (B, H, T, dk, dv, dtype): hymba's (16, 64) and rwkv6's (64, 64), T off the
-# chunk, f32 and bf16
+# chunk, f32 and bf16; hymba's eval shape (32 chunks) and a ragged tail after
+# 15 chunks
 GLA_CASES = [
     (2, 5, 200, 16, 64, torch.bfloat16),
     (1, 3, 130, 64, 64, torch.float32),
     (2, 2, 256, 16, 64, torch.float32),
     (1, 2, 100, 64, 64, torch.bfloat16),
+    (2, 25, 2048, 16, 64, torch.bfloat16),
+    (1, 3, 1000, 64, 64, torch.float32),
 ]
 
 
@@ -234,7 +241,7 @@ def test_gla_chunked_matches_plain_version_on_the_card(cuda, case):
     g = torch.from_numpy(-rng.uniform(0.0, 0.3, (b, h, t, dk)).astype(np.float32))
     g[..., :3, :] = -9.0                              # clamped to -8
     g = g.to(cuda).to(dtype)
-    before = gla_chunked.launches
+    before = gla_chunked.launches  # one per call: three kernels each
     o, s = gla_chunked(q, k, v, g)
     o2, s2 = gla_chunked(q, k, v, g)
     torch.cuda.synchronize()
