@@ -9,14 +9,22 @@ Phases, each printing its own lines:
 1. device  — ``nvidia-smi`` name and power limit, ``torch.cuda`` device name.
 2. build   — ``nvcc`` builds every kernel from the checkout's sources, all
              started together; build seconds and, per kernel, the registers,
-             spills and static shared memory that ptxas reports.
+             spills and static shared memory that ptxas reports; and, from
+             ``cuobjdump -sass``, the column kernels' load rounds
+             (``repro_torch.kernels.sass``: the LDGs issued before each first
+             use of a loaded register).
 3. kernels — each hand-written kernel against its plain PyTorch version on
              the card (block_rows 32 / 100 / 256; empty blocks, padding ids,
              an int32 filter column, rows on a bound): counts exact, sums
-             within rtol 1e-5, two launches bitwise equal.  The batched
+             within rtol 1e-5, two launches bitwise equal.  The solo column
+             kernels at every blocks-per-warp k they can take must give
+             bitwise the same output (Q6's aliased columns, y absent, a bool
+             x, COUNT-only; 1,027 ids with zero padding, a multiple of no
+             k x 8).  The batched
              kernels run B = 3 lanes (own ids and bounds per lane) and each
              lane must also be bitwise a solo launch on that lane's ids and
-             bounds.
+             bounds.  The launch floor: an empty kernel on grids of 1 to
+             8,192 CTAs of 256 threads, timed like the kernels.
 4. main    — the port's main path at TPC-H SF10 lineitem cardinality
              (60M rows, block_rows 32, 1.875M blocks, ~2.2 GB on the card):
              Session.sql for the quickstart Q6 query and a filterless
@@ -34,8 +42,11 @@ Phases, each printing its own lines:
              inputs, first call per shape) and replayed: the kernel against
              its plain version (counts exact, sums rtol 1e-5), then timed
              with CUDA events, L2 flushed before every launch, beside its
-             plain version and its bytes bound computed from those inputs;
-             and once more at n_phys = 65,536 as a scaling point.
+             plain version, its bytes bound computed from those inputs and
+             the launch floor of its grid; and once more at n_phys = 65,536
+             as a scaling point.  Then each solo kernel at every k on 1,024
+             to 262,144 sampled blocks of the SF10 table (the k sweep that
+             kernels/column_launch.py's choice rests on).
 5. devices — at 200k rows a CUDA session and a ``device="cpu"`` session of
              the port, equal seeds, result cache off: equal pilot draws,
              final block ids and fallback; rates within rtol 1e-6; answers
@@ -109,6 +120,8 @@ BLOCK_ROWS = 32
 SCALE_N_PHYS = 65_536            # a large final: the kernels' scaling point
 SCALE_BATCH = 8                  # lanes of the batched scaling points
 SCALE_BATCH_N_PHYS = (512, SCALE_N_PHYS)  # a herd-sized final bucket; a large one
+# the solo kernels at every blocks-per-warp k, on this many sampled blocks
+K_SWEEP_N_PHYS = (1_024, 2_048, 4_096, 8_192, 16_384, 32_768, SCALE_N_PHYS, 262_144)
 WARM_RUNS = 5
 
 Q6 = ("SELECT SUM(l_extendedprice * l_discount) AS revenue FROM lineitem "
@@ -339,11 +352,12 @@ def moved_bytes(np, name, args, out):
     return rows * sum(cols.values()) + sum(t.numel() * t.element_size() for t in small)
 
 
-def time_kernel(torch, np, name, fn, ref, solo, args, smi):
+def time_kernel(torch, np, name, fn, ref, solo, args, smi, floor):
     """Hold one kernel call against its plain version (and, batched, each
     lane against a solo launch, bitwise), then time the kernel, its plain
-    version and (batched) B solo launches with L2 flushed.  Returns the
-    row of the ``kernels`` line for these inputs."""
+    version and (batched) B solo launches with L2 flushed, and the launch
+    floor of its grid (``floor(name, args)``).  Returns the row of the
+    ``kernels`` line for these inputs."""
     at = IDS_AT[name]
     ids = args[at]
     shape = "x".join(str(d) for d in ids.shape)
@@ -363,19 +377,22 @@ def time_kernel(torch, np, name, fn, ref, solo, args, smi):
         row["solo_ms"] = time_cold(torch, lambda: [solo(*lane) for lane in lanes])
     ms = time_cold(torch, lambda: fn(*args))
     plain_ms = time_cold(torch, lambda: ref(*args))
+    floor_ms, grid, per_warp = floor(name, args)
     nbytes = moved_bytes(np, name, args, got)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     solo_txt = (f"{ids.shape[0]} solo launches {row['solo_ms'] * 1e3:.2f} us, "
                 if solo is not None else "")
     print(f"[kernels] {name} ids {shape}: {ms * 1e3:.2f} us ({solo_txt}plain "
           f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.3f} us = {nbytes:,} B "
-          f"/ 3.35 TB/s, {bound_ms / ms:.1%} of bound); max |kernel - plain| "
-          f"{err:.3g}  [{smi}]")
+          f"/ 3.35 TB/s, {bound_ms / ms:.1%} of bound; launch floor "
+          f"{floor_ms * 1e3:.2f} us on grid {grid}, {per_warp} block(s) per warp); "
+          f"max |kernel - plain| {err:.3g}  [{smi}]")
     return {"ids_shape": list(ids.shape), "ms": ms, **row, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bytes": nbytes, "max_abs_err": err}
+            "bound_ms": bound_ms, "bytes": nbytes, "floor_ms": floor_ms,
+            "grid": list(grid), "blocks_per_warp": per_warp, "max_abs_err": err}
 
 
-def time_recorded(torch, np, recorder, kernels, scale_args, smi):
+def time_recorded(torch, np, recorder, kernels, scale_args, smi, floor):
     """``time_kernel`` of every recorded call of ``kernels`` (name -> (fn,
     ref, solo)), then of each scaling point in ``scale_args[name]``.  The
     headline is the recorded call with the most blocks."""
@@ -383,13 +400,38 @@ def time_recorded(torch, np, recorder, kernels, scale_args, smi):
     for name, (fn, ref, solo) in kernels.items():
         calls = recorder.calls[name]
         check(bool(calls), f"{name}: no call of the main path was recorded")
-        rows = [time_kernel(torch, np, name, fn, ref, solo, args, smi)
+        rows = [time_kernel(torch, np, name, fn, ref, solo, args, smi, floor)
                 for args, _ in calls.values()]
         head = max(rows, key=lambda r: (np.prod(r["ids_shape"]), r["ids_shape"]))
-        scale = [time_kernel(torch, np, name, fn, ref, solo, args, smi)
+        scale = [time_kernel(torch, np, name, fn, ref, solo, args, smi, floor)
                  for args in scale_args[name]]
         timed[name] = {"headline": head, "main_path": rows, "scaling_points": scale}
     return timed
+
+
+def every_k_agrees(torch, name, launch, args, ks):
+    """The solo launch at each blocks-per-warp k in ``ks``: all bitwise the
+    output at the first k.  Returns that output."""
+    outs = [launch(*args, k) for k in ks]
+    for k, out in zip(ks[1:], outs[1:]):
+        check(bitwise_equal(torch, out, outs[0]),
+              f"{name}: {k} blocks per warp differ bitwise from {ks[0]}")
+    return outs[0]
+
+
+def k_sweep(torch, name, launch, args_at, sizes, ks, choose, smi):
+    """Each solo launch at every k in ``ks`` on ``args_at(n)`` for n in
+    ``sizes``: {n: {k: ms}}, one printed line per n with the wrapper's own
+    choice ``choose(n)``."""
+    table = {}
+    for n in sizes:
+        args = args_at(n)
+        table[n] = {k: time_cold(torch, lambda: launch(*args, k)) for k in ks}
+        best = min(table[n], key=table[n].get)
+        print(f"[main] k sweep {name} n_phys {n:,}: "
+              + ", ".join(f"k={k} {ms * 1e3:.2f} us" for k, ms in table[n].items())
+              + f"; fastest k={best}, chosen k={choose(n)}  [{smi}]")
+    return table
 
 
 # ---------------------------------------------------------------------------
@@ -897,10 +939,12 @@ def main() -> int:
     from repro_torch.api import Session, SessionConfig
     from repro_torch.engine import physical
     from repro_torch.engine.datagen import tpch_catalog
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, column_launch, sass
+    from repro_torch.kernels.block_agg import ops as block_agg_ops
     from repro_torch.kernels.block_agg import (block_agg, block_agg_batched,
                                                block_agg_batched_ref,
                                                block_agg_ref)
+    from repro_torch.kernels.filtered_agg import ops as filtered_agg_ops
     from repro_torch.kernels.filtered_agg import (filtered_agg,
                                                   filtered_agg_batched,
                                                   filtered_agg_batched_ref,
@@ -938,6 +982,29 @@ def main() -> int:
         print(f"[build] {k}: {_build.build_seconds[k]:.2f} s")
         for line in ptxas_lines(log):
             print(f"[build]   {line}")
+    for k in ("filtered_agg", "block_agg"):
+        for line in sass.report(paths[k]):
+            print(f"[build] load rounds (cuobjdump -sass) {line}")
+
+    # the launch floor: an empty kernel on a column kernel's grid
+    floor_lib = _build.load("filtered_agg")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ks = column_launch.BLOCKS_PER_WARP
+
+    def launch_floor(gx, gy):
+        rc = floor_lib.column_floor_launch(gx, gy, torch.cuda.current_stream().cuda_stream)
+        _build.check(floor_lib, "filtered_agg", rc)
+
+    def floor(name, args):
+        """(launch floor ms, grid, blocks per warp) of a column kernel call."""
+        ids = args[IDS_AT[name]]
+        if name.endswith("_batched"):
+            per_warp = 1
+            grid = (-(-ids.shape[1] // column_launch.WARPS_PER_CTA), ids.shape[0])
+        else:
+            per_warp = column_launch.blocks_per_warp(ids.shape[0], sms)
+            grid = (column_launch.grid(ids.shape[0], per_warp), 1)
+        return time_cold(torch, lambda: launch_floor(*grid)), grid, per_warp
 
     # -- 3. kernels against their plain versions -------------------------------
     bounds = torch.tensor([100.0, 1500.0, 0.02, 0.08, 24.0],
@@ -959,6 +1026,31 @@ def main() -> int:
             check(bool(torch.isnan(a[900, 3])), "empty block lacks the NaN sentinel")
         print(f"[kernels] block_rows={br}: filtered_agg and block_agg (f32, "
               "int32, bool values) match their plain versions; bitwise stable")
+
+        # every blocks-per-warp k of the solo kernels: bitwise one output
+        # (Q6's aliased columns, y absent, COUNT-only; 1,027 ids, zero padded)
+        check(c["ids"].shape[0] % (column_launch.WARPS_PER_CTA * 2) != 0,
+              "the ids fill whole CTAs at some k")
+        q6_cols = (c["price"], c["discount"], c["shipdate"], c["discount"],
+                   c["shipdate"], c["valid"], br, c["ids"], bounds)
+        sum_cols = (c["price"], None, *q6_cols[2:])
+        bool_cols = (c["valid"], c["price"], *q6_cols[2:])
+        for what, args in (("q6", q6_cols), ("sum", sum_cols), ("phase 3", fa_args),
+                           ("bool x", bool_cols)):
+            got = every_k_agrees(torch, f"filtered_agg br={br} {what}",
+                                 filtered_agg_ops.launch, args, ks)
+            check(bitwise_equal(torch, got, filtered_agg(*args)),
+                  f"filtered_agg br={br} {what}: the wrapper's k differs")
+            compare(torch, f"filtered_agg br={br} {what}", got, filtered_agg_ref(*args), 1)
+        for vname in ("price", "shipdate", "valid"):
+            args = (c[vname], c["valid"], br, c["ids"])
+            got = every_k_agrees(torch, f"block_agg br={br} {vname}",
+                                 block_agg_ops.launch, args, ks)
+            check(bitwise_equal(torch, got, block_agg(*args)),
+                  f"block_agg br={br} {vname}: the wrapper's k differs")
+        print(f"[kernels] block_rows={br}: filtered_agg (Q6 aliasing, y absent, bool x) "
+              f"and block_agg (f32, int32, COUNT-only) bitwise equal at every "
+              f"blocks-per-warp k {list(ks)} on {c['ids'].shape[0]:,} ids")
 
         # the batched kernels: 3 lanes, each with its own ids and bounds
         lanes = torch.stack([
@@ -996,6 +1088,11 @@ def main() -> int:
               "block_agg_batched (3 lanes, per-lane bounds) match their plain "
               "versions; every lane bitwise the solo kernel; bitwise stable")
     torch.cuda.synchronize()
+    floors = {g: time_cold(torch, lambda: launch_floor(g, 1))
+              for g in (1, 64, 128, 1_024, 8_192)}
+    print("[kernels] launch floor (empty kernel, 256 threads per CTA, L2 flushed): "
+          + ", ".join(f"{g:,} CTAs {ms * 1e3:.2f} us" for g, ms in floors.items())
+          + f"  [{smi}]")
 
     # -- 3b. the model kernels at fixed scaling points ---------------------------
     model_scale = {k: [time_model_kernel(torch, np, k, *model_kernels[k], args, kw, smi)
@@ -1042,7 +1139,25 @@ def main() -> int:
         "filtered_agg": (filtered_agg, filtered_agg_ref, None),
         "block_agg": (block_agg, block_agg_ref, None)}, {
         "filtered_agg": [(*q6_cols, ids, q6_bounds)],
-        "block_agg": [(cols["l_extendedprice"], li.valid, BLOCK_ROWS, ids)]}, smi)
+        "block_agg": [(cols["l_extendedprice"], li.valid, BLOCK_ROWS, ids)]}, smi, floor)
+
+    # each solo kernel at every k, sorted distinct ids of the SF10 table
+    sweep_rng = np.random.default_rng(11)
+
+    def sweep_ids(n):
+        return torch.from_numpy(np.sort(sweep_rng.choice(li.num_blocks, n, replace=False))
+                                .astype(np.int32)).to(dev)
+    choose = lambda n: column_launch.blocks_per_warp(n, sms)
+    sweep_args = {n: sweep_ids(n) for n in K_SWEEP_N_PHYS}
+    sweep = {
+        "filtered_agg": k_sweep(torch, "filtered_agg", filtered_agg_ops.launch,
+                                lambda n: (*q6_cols, sweep_args[n], q6_bounds),
+                                K_SWEEP_N_PHYS, ks, choose, smi),
+        "block_agg": k_sweep(torch, "block_agg", block_agg_ops.launch,
+                             lambda n: (cols["l_extendedprice"], li.valid, BLOCK_ROWS,
+                                        sweep_args[n]),
+                             K_SWEEP_N_PHYS, ks, choose, smi)}
+    del sweep_args
 
     # correctness of the exact route at full size: f64 numpy over the same data
     price = cols["l_extendedprice"].cpu().numpy().astype(np.float64)
@@ -1133,7 +1248,7 @@ def main() -> int:
         "filtered_agg_batched": [(*q6_cols, ids, lane_bounds) for ids in lanes],
         "block_agg_batched": [(cols["l_extendedprice"], li.valid, BLOCK_ROWS, ids)
                               for ids in lanes]},
-        smi))
+        smi, floor))
     torch.cuda.synchronize()
     for fn in wrappers:
         recorder.calls[fn.__name__].clear()
@@ -1208,10 +1323,12 @@ def main() -> int:
             "launches_by_path": {"sql": launches[k], "drain": drain["launches"][k]},
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": "bytes", "library_ms": None,
+            "bound_by": "bytes", "library_ms": None, "floor_ms": t["floor_ms"],
+            "blocks_per_warp": t["blocks_per_warp"],
             "ids_shape": t["ids_shape"], "solo_ms": t.get("solo_ms"),
             "main_path": timed[k]["main_path"],
             "scaling_points": timed[k]["scaling_points"],
+            **({} if path == "drain" else {"k_sweep": sweep[k]}),
         })
     model_sources = {
         "flash_attention": ("src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",

@@ -11,6 +11,7 @@ built at import time: :func:`load` builds on a kernel's first launch, and
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -55,12 +56,13 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "filtered_agg": {
         "filtered_agg_launch": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _I,
-                                _P, _P, _I, _I, _P, _P, _P],
+                                _P, _P, _I, _I, _I, _P, _P, _P],
         "filtered_agg_batched_launch": [_P, _I, _P, _I, _P, _I, _P, _I, _P,
                                         _I, _P, _P, _I, _I, _I, _P, _P, _P],
+        "column_floor_launch": [_I, _I, _P],
     },
     "block_agg": {
-        "block_agg_launch": [_P, _I, _P, _P, _I, _I, _P, _P],
+        "block_agg_launch": [_P, _I, _P, _P, _I, _I, _I, _P, _P],
         "block_agg_batched_launch": [_P, _I, _P, _P, _I, _I, _I, _P, _P],
     },
     "flash_attn": {
@@ -80,6 +82,12 @@ _count_lock = threading.Lock()
 
 # the batched kernels' grid carries the lane in blockIdx.y
 MAX_BATCH = 65_535
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def count(fn, attr: str) -> None:

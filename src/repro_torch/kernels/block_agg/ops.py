@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, column_launch
 from repro_torch.kernels.block_agg.ref import block_agg_batched_ref, block_agg_ref
 
 
@@ -50,6 +50,26 @@ def block_agg(values: torch.Tensor, valid: torch.Tensor, block_rows: int,
         return block_agg_ref(values, valid, block_rows, ids)
     if values.device.type != "cuda":
         raise ValueError(f"block_agg runs on cuda or cpu, not {values.device}")
+    k = column_launch.blocks_per_warp(ids.shape[0], _build.sm_count(values.device.index))
+    return _launch(values, valid, block_rows, ids, k)
+
+
+def launch(values: torch.Tensor, valid: torch.Tensor, block_rows: int,
+           ids: torch.Tensor, blocks_per_warp: int) -> torch.Tensor:
+    """The CUDA launch of :func:`block_agg` with ``blocks_per_warp`` sampled
+    blocks per warp (one of ``column_launch.BLOCKS_PER_WARP``); the output
+    is bitwise the same for each.  :func:`block_agg` picks it from n_phys;
+    a caller names it only to compare or time the choices."""
+    _check(values, valid, block_rows, ids)
+    if values.device.type != "cuda":
+        raise ValueError(f"block_agg launches on cuda, not {values.device}")
+    if blocks_per_warp not in column_launch.BLOCKS_PER_WARP:
+        raise ValueError(f"blocks_per_warp {blocks_per_warp} not in "
+                         f"{column_launch.BLOCKS_PER_WARP}")
+    return _launch(values, valid, block_rows, ids, blocks_per_warp)
+
+
+def _launch(values, valid, block_rows, ids, blocks_per_warp):
     lib = _build.load("block_agg")
     n_phys = ids.shape[0]
     out = torch.empty((n_phys, 5), dtype=torch.float32, device=values.device)
@@ -57,7 +77,8 @@ def block_agg(values: torch.Tensor, valid: torch.Tensor, block_rows: int,
         rc = lib.block_agg_launch(
             values.data_ptr(), _build.dtype_code(values, "values"),
             valid.data_ptr(), ids.data_ptr(), n_phys, block_rows,
-            out.data_ptr(), torch.cuda.current_stream(values.device).cuda_stream)
+            blocks_per_warp, out.data_ptr(),
+            torch.cuda.current_stream(values.device).cuda_stream)
     _build.check(lib, "block_agg", rc)
     _build.count(block_agg, "launches")
     return out

@@ -11,7 +11,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, column_launch
 from repro_torch.kernels.filtered_agg.ref import (filtered_agg_batched_ref,
                                                   filtered_agg_ref)
 
@@ -75,14 +75,37 @@ def filtered_agg(x: torch.Tensor, y: Optional[torch.Tensor], f1, f2, f3,
         return filtered_agg_ref(x, y, f1, f2, f3, valid, block_rows, ids, bounds)
     if x.device.type != "cuda":
         raise ValueError(f"filtered_agg runs on cuda or cpu, not {x.device}")
+    k = column_launch.blocks_per_warp(ids.shape[0], _build.sm_count(x.device.index))
+    return _launch(x, y, f1, f2, f3, valid, block_rows, ids, bounds, k)
+
+
+def launch(x: torch.Tensor, y: Optional[torch.Tensor], f1, f2, f3, valid,
+           block_rows: int, ids: torch.Tensor, bounds: torch.Tensor,
+           blocks_per_warp: int) -> torch.Tensor:
+    """The CUDA launch of :func:`filtered_agg` with ``blocks_per_warp``
+    sampled blocks per warp (one of ``column_launch.BLOCKS_PER_WARP``); the
+    output is bitwise the same for each.  :func:`filtered_agg` picks it
+    from n_phys; a caller names it only to compare or time the choices."""
+    _check(x, y, f1, f2, f3, valid, block_rows, ids, bounds)
+    if x.device.type != "cuda":
+        raise ValueError(f"filtered_agg launches on cuda, not {x.device}")
+    if blocks_per_warp not in column_launch.BLOCKS_PER_WARP:
+        raise ValueError(f"blocks_per_warp {blocks_per_warp} not in "
+                         f"{column_launch.BLOCKS_PER_WARP}")
+    return _launch(x, y, f1, f2, f3, valid, block_rows, ids, bounds,
+                   blocks_per_warp)
+
+
+def _launch(x, y, f1, f2, f3, valid, block_rows, ids, bounds,
+            blocks_per_warp):
     lib = _build.load("filtered_agg")
     n_phys = ids.shape[0]
     out = torch.empty((n_phys, 3), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         rc = lib.filtered_agg_launch(
             *_column_args(x, y, f1, f2, f3), valid.data_ptr(), ids.data_ptr(),
-            n_phys, block_rows, bounds.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            n_phys, block_rows, blocks_per_warp, bounds.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, "filtered_agg", rc)
     _build.count(filtered_agg, "launches")
     return out

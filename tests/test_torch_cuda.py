@@ -119,6 +119,67 @@ def test_batched_kernels_match_plain_and_solo_on_the_card(cuda, block_rows):
         (before[0] + 2, before[1] + 6)
 
 
+# n_phys: one block; fewer than a warp's slots; a ragged tail of k-blocks
+# (101 = 3 CTAs of 4 x 8 blocks and 5); a large final (65,536)
+@pytest.mark.parametrize("block_rows", [32, 100, 256])
+@pytest.mark.parametrize("n_phys", [1, 7, 101, 65_536])
+def test_solo_kernels_agree_at_every_blocks_per_warp(cuda, n_phys, block_rows):
+    """The redesigned solo kernels at every blocks-per-warp k: bitwise one
+    output, bitwise a lane of the batched kernel (the same per-row step and
+    butterflies), and against the plain versions (counts exact, sums rtol
+    1e-5, min/max exact with the NaN sentinel).  Covers Q6's aliasing (f1
+    and f3 one int32 column, f2 = y), y absent (SUM(col)), a bool x,
+    COUNT-only (valid as the value column), an empty block, repeated ids
+    and zero padding."""
+    from repro_torch.kernels import column_launch
+    from repro_torch.kernels.block_agg import ops as block_ops
+    from repro_torch.kernels.filtered_agg import ops as filtered_ops
+    price, discount, shipdate, valid, _ = _columns(block_rows, 500, cuda, 4)
+    rng = np.random.default_rng(n_phys + block_rows)
+    ids = rng.integers(0, 500, n_phys).astype(np.int32)
+    ids[0] = 0                                      # the empty block
+    if n_phys >= 7:
+        ids[1:3] = ids[3]                           # repeated ids
+        ids[-2:] = 0                                # zero padding
+    ids = torch.from_numpy(ids).to(cuda)
+    bounds = torch.tensor([100.0, 1500.0, 0.02, 0.08, 2000.0],
+                          dtype=torch.float32, device=cuda)
+    q6 = (price, discount, shipdate, discount, shipdate, valid, block_rows)
+    sum_x = (price, None, shipdate, discount, shipdate, valid, block_rows)
+    bool_x = (valid, price, shipdate, discount, shipdate, valid, block_rows)
+    ks = column_launch.BLOCKS_PER_WARP
+    for cols in (q6, sum_x, bool_x):
+        outs = [filtered_ops.launch(*cols, ids, bounds, k) for k in ks]
+        for out in outs[1:]:
+            assert torch.equal(_bits(out), _bits(outs[0]))
+        lane = filtered_agg_batched(*cols, ids[None].contiguous(), bounds[None].contiguous())
+        assert torch.equal(_bits(lane[0]), _bits(outs[0]))
+        ref = filtered_agg_ref(*cols, ids, bounds)
+        assert torch.equal(outs[0][:, 0], ref[:, 0])
+        torch.testing.assert_close(outs[0][:, 1:], ref[:, 1:], rtol=1e-5, atol=0)
+    for col in (price, shipdate, valid):
+        outs = [block_ops.launch(col, valid, block_rows, ids, k) for k in ks]
+        for out in outs[1:]:
+            assert torch.equal(_bits(out), _bits(outs[0]))
+        lane = block_agg_batched(col, valid, block_rows, ids[None].contiguous())
+        assert torch.equal(_bits(lane[0]), _bits(outs[0]))
+        ref = block_agg_ref(col, valid, block_rows, ids)
+        assert torch.equal(outs[0][:, 0], ref[:, 0])
+        torch.testing.assert_close(outs[0][:, 1:3], ref[:, 1:3], rtol=1e-5, atol=0)
+        torch.testing.assert_close(outs[0][:, 3:], ref[:, 3:], rtol=0, atol=0,
+                                   equal_nan=True)
+        assert bool(torch.isnan(outs[0][0, 3]))     # block 0 has no valid row
+
+
+def test_solo_kernels_refuse_an_uninstantiated_blocks_per_warp(cuda):
+    from repro_torch.kernels.filtered_agg import ops as filtered_ops
+    price, discount, shipdate, valid, ids = _columns(32, 50, cuda, 5)
+    bounds = torch.zeros(5, dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="blocks_per_warp"):
+        filtered_ops.launch(price, discount, shipdate, discount, shipdate,
+                            valid, 32, ids, bounds, 3)
+
+
 def test_cuda_drain_matches_cuda_serial_session(cuda):
     """Submit + drain on the card (threads, shared pilots, batched finals)
     answers bitwise like an equal-seed serial session's Session.sql, and
