@@ -12,7 +12,11 @@ Phases, each printing its own lines:
              spills and static shared memory that ptxas reports; and, from
              ``cuobjdump -sass``, the column kernels' load rounds
              (``repro_torch.kernels.sass``: the LDGs issued before each first
-             use of a loaded register).
+             use of a loaded register).  Each op has one kernel, instantiated
+             for k = 1, 2, 4 blocks per warp and for bool columns or none,
+             that serves solo and batched calls; the script fails if a
+             library holds another column kernel or an instantiation waits
+             more than two rounds.
 3. kernels — each hand-written kernel against its plain PyTorch version on
              the card (block_rows 32 / 100 / 256; empty blocks, padding ids,
              an int32 filter column, rows on a bound): counts exact, sums
@@ -21,9 +25,9 @@ Phases, each printing its own lines:
              bitwise the same output (Q6's aliased columns, y absent, a bool
              x, COUNT-only; 1,027 ids with zero padding, a multiple of no
              k x 8).  The batched
-             kernels run B = 3 lanes (own ids and bounds per lane) and each
-             lane must also be bitwise a solo launch on that lane's ids and
-             bounds.  The launch floor: an empty kernel on grids of 1 to
+             calls run B = 3 lanes (own ids and bounds per lane): bitwise one
+             output at every k, and each lane bitwise a solo launch on that
+             lane's ids and bounds.  The launch floor: an empty kernel on grids of 1 to
              8,192 CTAs of 256 threads, timed like the kernels.
 4. main    — the port's main path at TPC-H SF10 lineitem cardinality
              (60M rows, block_rows 32, 1.875M blocks, ~2.2 GB on the card):
@@ -65,7 +69,9 @@ Phases, each printing its own lines:
              replayed as in phase 4: against its plain version, each lane
              bitwise a solo launch on that lane's ids and bounds, timed
              beside B solo launches, its plain version and its bytes bound;
-             and once more at B = 8 lanes of n_phys = 512 and of 65,536.  Then the
+             and once more at B = 8 lanes of n_phys = 512 and of 65,536; then
+             each batched kernel at every k on 8 lanes of 512, 4,096 and
+             65,536 blocks (the batched k sweep).  Then the
              herd's wall four ways, in turns, 5 times each, cache off: the
              default drain (group worker threads), the same with a 4-thread
              pilot pool, the drain inline (no worker threads), and the
@@ -120,6 +126,8 @@ BLOCK_ROWS = 32
 SCALE_N_PHYS = 65_536            # a large final: the kernels' scaling point
 SCALE_BATCH = 8                  # lanes of the batched scaling points
 SCALE_BATCH_N_PHYS = (512, SCALE_N_PHYS)  # a herd-sized final bucket; a large one
+# the batched kernels at every k, SCALE_BATCH lanes of this many sampled blocks
+K_SWEEP_BATCH_N_PHYS = (512, 4_096, SCALE_N_PHYS)
 # the solo kernels at every blocks-per-warp k, on this many sampled blocks
 K_SWEEP_N_PHYS = (1_024, 2_048, 4_096, 8_192, 16_384, 32_768, SCALE_N_PHYS, 262_144)
 WARM_RUNS = 5
@@ -419,16 +427,18 @@ def every_k_agrees(torch, name, launch, args, ks):
     return outs[0]
 
 
-def k_sweep(torch, name, launch, args_at, sizes, ks, choose, smi):
-    """Each solo launch at every k in ``ks`` on ``args_at(n)`` for n in
-    ``sizes``: {n: {k: ms}}, one printed line per n with the wrapper's own
-    choice ``choose(n)``."""
+def k_sweep(torch, name, launch, args_at, sizes, ks, choose, smi, lanes=None):
+    """Each launch at every k in ``ks`` on ``args_at(n)`` for n in ``sizes``
+    (n_phys; of each of ``lanes`` id rows for a batched launch): {n: {k:
+    ms}}, one printed line per n with the wrapper's own choice
+    ``choose(n)``."""
     table = {}
     for n in sizes:
         args = args_at(n)
         table[n] = {k: time_cold(torch, lambda: launch(*args, k)) for k in ks}
         best = min(table[n], key=table[n].get)
-        print(f"[main] k sweep {name} n_phys {n:,}: "
+        size = f"n_phys {n:,}" if lanes is None else f"{lanes} x {n:,}"
+        print(f"[main] k sweep {name} {size}: "
               + ", ".join(f"k={k} {ms * 1e3:.2f} us" for k, ms in table[n].items())
               + f"; fastest k={best}, chosen k={choose(n)}  [{smi}]")
     return table
@@ -982,14 +992,24 @@ def main() -> int:
         print(f"[build] {k}: {_build.build_seconds[k]:.2f} s")
         for line in ptxas_lines(log):
             print(f"[build]   {line}")
-    for k in ("filtered_agg", "block_agg"):
-        for line in sass.report(paths[k]):
-            print(f"[build] load rounds (cuobjdump -sass) {line}")
+    # every column-kernel instantiation (solo and batched calls share them)
+    # waits at most two memory rounds: ids and bounds, then every column
+    ks = column_launch.BLOCKS_PER_WARP
+    for op in ("filtered_agg", "block_agg"):
+        want = {f"{op}_kernel<{k}, {b}>" for k in ks for b in ("false", "true")}
+        rounds = sass.kernel_rounds(paths[op])
+        for name, r in rounds.items():
+            print(f"[build] load rounds (cuobjdump -sass) {name}: {sum(r)} LDG in "
+                  f"{len(r)} rounds {r}")
+        check(want <= set(rounds) <= want | {"column_floor_kernel"},
+              f"{op}: kernels {sorted(rounds)}, expected {sorted(want)}")
+        for name in sorted(want):
+            check(len(rounds[name]) <= 2,
+                  f"{name}: {len(rounds[name])} load rounds {rounds[name]}, at most 2")
 
     # the launch floor: an empty kernel on a column kernel's grid
     floor_lib = _build.load("filtered_agg")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    ks = column_launch.BLOCKS_PER_WARP
 
     def launch_floor(gx, gy):
         rc = floor_lib.column_floor_launch(gx, gy, torch.cuda.current_stream().cuda_stream)
@@ -998,12 +1018,9 @@ def main() -> int:
     def floor(name, args):
         """(launch floor ms, grid, blocks per warp) of a column kernel call."""
         ids = args[IDS_AT[name]]
-        if name.endswith("_batched"):
-            per_warp = 1
-            grid = (-(-ids.shape[1] // column_launch.WARPS_PER_CTA), ids.shape[0])
-        else:
-            per_warp = column_launch.blocks_per_warp(ids.shape[0], sms)
-            grid = (column_launch.grid(ids.shape[0], per_warp), 1)
+        batch, n_phys = (1, ids.shape[0]) if ids.dim() == 1 else tuple(ids.shape)
+        per_warp = column_launch.blocks_per_warp(n_phys, sms, batch)
+        grid = (column_launch.grid(n_phys, per_warp), batch)
         return time_cold(torch, lambda: launch_floor(*grid)), grid, per_warp
 
     # -- 3. kernels against their plain versions -------------------------------
@@ -1066,6 +1083,14 @@ def main() -> int:
         a = filtered_agg_batched(*fb, lanes, lane_bounds)
         check(bitwise_equal(torch, a, filtered_agg_batched(*fb, lanes, lane_bounds)),
               f"filtered_agg_batched br={br}: launches differ bitwise")
+        for what, args in (("phase 3", (*fb, lanes, lane_bounds)),
+                           ("q6", (*q6_cols[:7], lanes, lane_bounds)),
+                           ("sum", (*sum_cols[:7], lanes, lane_bounds)),
+                           ("bool x", (*bool_cols[:7], lanes, lane_bounds))):
+            got = every_k_agrees(torch, f"filtered_agg_batched br={br} {what}",
+                                 filtered_agg_ops.launch, args, ks)
+            check(bitwise_equal(torch, got, filtered_agg_batched(*args)),
+                  f"filtered_agg_batched br={br} {what}: the wrapper's k differs")
         want = filtered_agg_batched_ref(*fb, lanes, lane_bounds)
         compare(torch, f"filtered_agg_batched br={br}", a.reshape(-1, 3),
                 want.reshape(-1, 3), 1)
@@ -1078,6 +1103,9 @@ def main() -> int:
             a = block_agg_batched(*bb)
             check(bitwise_equal(torch, a, block_agg_batched(*bb)),
                   f"block_agg_batched br={br} {vname}: launches differ")
+            check(bitwise_equal(torch, a, every_k_agrees(
+                torch, f"block_agg_batched br={br} {vname}", block_agg_ops.launch, bb, ks)),
+                f"block_agg_batched br={br} {vname}: the wrapper's k differs")
             compare(torch, f"block_agg_batched br={br} {vname}", a.reshape(-1, 5),
                     block_agg_batched_ref(*bb).reshape(-1, 5), 1)
             for b in range(lanes.shape[0]):
@@ -1086,7 +1114,8 @@ def main() -> int:
                       f"block_agg_batched br={br} {vname} lane {b}: not bitwise solo")
         print(f"[kernels] block_rows={br}: filtered_agg_batched and "
               "block_agg_batched (3 lanes, per-lane bounds) match their plain "
-              "versions; every lane bitwise the solo kernel; bitwise stable")
+              "versions; every lane bitwise the solo kernel; bitwise equal at "
+              f"every blocks-per-warp k {list(ks)}; bitwise stable")
     torch.cuda.synchronize()
     floors = {g: time_cold(torch, lambda: launch_floor(g, 1))
               for g in (1, 64, 128, 1_024, 8_192)}
@@ -1249,6 +1278,20 @@ def main() -> int:
         "block_agg_batched": [(cols["l_extendedprice"], li.valid, BLOCK_ROWS, ids)
                               for ids in lanes]},
         smi, floor))
+    # each batched kernel at every k, SCALE_BATCH lanes of sorted distinct ids
+    sweep_lanes = {n: torch.from_numpy(lane_ids(np, sweep_rng, li.num_blocks, n,
+                                                SCALE_BATCH)).to(dev)
+                   for n in K_SWEEP_BATCH_N_PHYS}
+    choose = lambda n: column_launch.blocks_per_warp(n, sms, SCALE_BATCH)
+    sweep["filtered_agg_batched"] = k_sweep(
+        torch, "filtered_agg_batched", filtered_agg_ops.launch,
+        lambda n: (*q6_cols, sweep_lanes[n], lane_bounds), K_SWEEP_BATCH_N_PHYS,
+        ks, choose, smi, lanes=SCALE_BATCH)
+    sweep["block_agg_batched"] = k_sweep(
+        torch, "block_agg_batched", block_agg_ops.launch,
+        lambda n: (cols["l_extendedprice"], li.valid, BLOCK_ROWS, sweep_lanes[n]),
+        K_SWEEP_BATCH_N_PHYS, ks, choose, smi, lanes=SCALE_BATCH)
+    del sweep_lanes
     torch.cuda.synchronize()
     for fn in wrappers:
         recorder.calls[fn.__name__].clear()
@@ -1324,11 +1367,10 @@ def main() -> int:
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "library_ms": None, "floor_ms": t["floor_ms"],
-            "blocks_per_warp": t["blocks_per_warp"],
+            "blocks_per_warp": t["blocks_per_warp"], "grid": t["grid"],
             "ids_shape": t["ids_shape"], "solo_ms": t.get("solo_ms"),
             "main_path": timed[k]["main_path"],
-            "scaling_points": timed[k]["scaling_points"],
-            **({} if path == "drain" else {"k_sweep": sweep[k]}),
+            "scaling_points": timed[k]["scaling_points"], "k_sweep": sweep[k],
         })
     model_sources = {
         "flash_attention": ("src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",

@@ -56,14 +56,11 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "filtered_agg": {
         "filtered_agg_launch": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _I,
-                                _P, _P, _I, _I, _I, _P, _P, _P],
-        "filtered_agg_batched_launch": [_P, _I, _P, _I, _P, _I, _P, _I, _P,
-                                        _I, _P, _P, _I, _I, _I, _P, _P, _P],
+                                _P, _P, _I, _I, _I, _I, _P, _P, _P],
         "column_floor_launch": [_I, _I, _P],
     },
     "block_agg": {
-        "block_agg_launch": [_P, _I, _P, _P, _I, _I, _I, _P, _P],
-        "block_agg_batched_launch": [_P, _I, _P, _P, _I, _I, _I, _P, _P],
+        "block_agg_launch": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P],
     },
     "flash_attn": {
         "flash_attn_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -80,7 +77,7 @@ _SIGNATURES = {
 # that would lose updates between them.
 _count_lock = threading.Lock()
 
-# the batched kernels' grid carries the lane in blockIdx.y
+# the column kernels' grid carries the lane (id row) in blockIdx.y
 MAX_BATCH = 65_535
 
 

@@ -3,39 +3,36 @@
 //
 // Replaces the TPU kernels src/repro/kernels/block_agg/kernel.py
 // block_agg_kernel (body _kernel, :92) and block_agg_batched_kernel (body
-// _kernel_batched, :63).  A sampled block with no valid row gives
-// count = sum = sumsq = 0 and min = max = NaN, the reference's sentinel.
+// _kernel_batched, :63) with ONE kernel, block_agg_kernel: lane b of a
+// launch reads its own ids row.  A solo call is the launch with one lane; a
+// drain group's batched final is the launch with B lanes.  A sampled block
+// with no valid row gives count = sum = sumsq = 0 and min = max = NaN, the
+// reference's sentinel.
 //
 // What bounds it on the H100.  On paper, device-memory bytes: per sampled
 // block it reads block_rows rows of one 4-byte value column and the 1-byte
-// validity column and does a few f32 operations per row: the bound is
-// n_phys * block_rows * (4 + 1) bytes at 3.35 TB/s.  In practice, memory
-// latency paid per warp: a 32-row block is 160 bytes, and a warp that owns
-// one block and reads its value behind its validity byte waits on DRAM in
-// several dependent rounds with a few hundred bytes in flight.
+// validity column and does a few f32 operations per row: the bound is the
+// distinct sampled rows times (4 + 1) bytes, plus the ids and output, at
+// 3.35 TB/s.  In practice, memory latency paid per warp: a 32-row block is
+// 160 bytes, and a warp that owns one block and reads its value behind its
+// validity byte waits on DRAM in several dependent rounds with a few
+// hundred bytes in flight.
 //
-// Design against that, in the solo kernel: a warp owns K = 1, 2 or 4
-// consecutive sampled blocks (template parameter; the wrapper picks K from
-// n_phys, kernels/column_launch.py) and works in two rounds of memory: (1)
-// its K ids in one coalesced load, shuffled to every lane; (2) the value
-// and validity loads of all K blocks, one unconditional load_row each (no
-// branch on the dtype), before the first instruction that uses one.
-// Blocks longer than 32 rows are read one row step (32 rows of each of the
-// K blocks) at a time.  Lane l accumulates rows l, l+32, ... of each block
-// in that order through block_row and reduces through block_total, so the
-// output is bitwise the same for every K.  The value column is read in its stored
-// dtype (f32, int32, or the bool validity column itself for a COUNT-only
-// query) and widened in registers, so a call moves no full-table cast or
-// pad.  Padding ids (zeros past n_real) are computed like any block and
-// masked by the caller.
-//
-// The batched kernel runs B lanes (id rows ids[b, :]) of a drain group's
-// final scans in ONE launch over a (ceil(n_phys / warps-per-CTA), B) grid,
-// one block per warp, read through block_stats.  Its bound is the same bytes
-// count summed over lanes plus the (B, n_phys) ids and (B, n_phys, 5)
-// output; over B solo launches it saves B - 1 launch latencies.  block_stats
-// runs the same block_row and block_total as the solo kernel, so lane b is
-// bitwise the solo kernel on ids[b, :].
+// Design against that: a warp owns K = 1, 2 or 4 consecutive sampled
+// blocks of one lane (template parameter; the wrapper picks K from the
+// launch's whole CTA count, kernels/column_launch.py) and works in two
+// rounds of memory: (1) its K ids in one coalesced load, shuffled to every
+// lane; (2) the value and validity loads of all K blocks, one unconditional
+// load_row each (no branch on the dtype), before the first instruction
+// that uses one.  Blocks longer than 32 rows are read one row step (32 rows
+// of each of the K blocks) at a time.  Lane l of a warp accumulates rows l,
+// l+32, ... of each block in that order through block_row and reduces
+// through block_total, so the output is bitwise the same for every K and
+// every batch: lane b of a batched launch is bitwise the solo launch on
+// ids[b, :].  The value column is read in its stored dtype (f32, int32, or
+// the bool validity column itself for a COUNT-only query) and widened in
+// registers, so a call moves no full-table cast or pad.  Padding ids (zeros
+// past n_real) are computed like any block and masked by the caller.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -48,7 +45,7 @@ struct BlockStats {
   float cnt, s, ss, mn, mx;
 };
 
-// The per-row step both kernels run.
+// The per-row step.
 __device__ __forceinline__ void block_row(BlockStats& a, float x, bool ok) {
   const float m = ok ? 1.0f : 0.0f;
   a.cnt = __fadd_rn(a.cnt, m);
@@ -71,22 +68,10 @@ __device__ __forceinline__ BlockStats block_total(BlockStats a) {
   return st;
 }
 
-// The per-block body of the batched kernel (one block per warp, loads
-// through load_f32).
-__device__ __forceinline__ BlockStats block_stats(Column v,
-                                                  const uint8_t* valid,
-                                                  int64_t base, int block_rows,
-                                                  int lane) {
-  BlockStats a{0.0f, 0.0f, 0.0f, kBig, -kBig};
-  for (int r = lane; r < block_rows; r += kWarpSize) {
-    const int64_t i = base + r;
-    block_row(a, load_f32(v, i), valid[i] != 0);
-  }
-  return block_total(a);
-}
-
-// grid ceil(n_phys / (K * kWarpsPerCta)): warp w owns sampled blocks
-// K*w .. K*w + K - 1 (those below n_phys), kernels/column_launch.py's
+// grid (ceil(n_phys / (K * kWarpsPerCta)), batch): blockIdx.y is the lane,
+// which reads ids[lane, :] ((batch, n_phys) row-major) and writes
+// out[lane, :, :] ((batch, n_phys, 5)).  Within a lane, warp w owns sampled
+// blocks K*w .. K*w + K - 1 (those below n_phys), kernels/column_launch.py's
 // assignment.  kBytes: the value column is bool (load_row).
 template <int K, bool kBytes>
 __global__ void __launch_bounds__(kWarpsPerCta * kWarpSize)
@@ -97,6 +82,10 @@ __global__ void __launch_bounds__(kWarpsPerCta * kWarpSize)
   const int lane = threadIdx.x % kWarpSize;
   const int first = warp * K;
   if (first >= n_phys) return;  // whole warps exit together
+  // this CTA's id row: its ids and its output
+  const int64_t row = blockIdx.y;
+  ids += row * n_phys;
+  out += row * n_phys * 5;
   // round 1: this warp's K ids, one load per lane
   int64_t base[K];
   bool live[K];
@@ -140,37 +129,17 @@ __global__ void __launch_bounds__(kWarpsPerCta * kWarpSize)
   }
 }
 
-// grid (ceil(n_phys / kWarpsPerCta), batch): blockIdx.y is the lane.
-__global__ void __launch_bounds__(kWarpsPerCta * kWarpSize)
-    block_agg_batched_kernel(Column v, const uint8_t* __restrict__ valid,
-                             const int32_t* __restrict__ ids, int n_phys,
-                             int block_rows, float* __restrict__ out) {
-  const int warp = blockIdx.x * kWarpsPerCta + (threadIdx.x / kWarpSize);
-  const int lane = threadIdx.x % kWarpSize;
-  if (warp >= n_phys) return;  // whole warps exit together
-  const int64_t slot = static_cast<int64_t>(blockIdx.y) * n_phys + warp;
-  const int64_t base = static_cast<int64_t>(ids[slot]) * block_rows;
-  const BlockStats st = block_stats(v, valid, base, block_rows, lane);
-  if (lane == 0) {
-    float* o = out + 5 * slot;
-    o[0] = st.cnt;
-    o[1] = st.s;
-    o[2] = st.ss;
-    o[3] = st.mn;
-    o[4] = st.mx;
-  }
-}
-
 }  // namespace repro_torch
 
 namespace {
 
 template <int K>
-void launch_solo(repro_torch::RawColumn v, const void* valid, const void* ids,
-                 int n_phys, int block_rows, void* out, cudaStream_t stream) {
+void launch_k(repro_torch::RawColumn v, const void* valid, const void* ids,
+              int batch, int n_phys, int block_rows, void* out,
+              cudaStream_t stream) {
   using namespace repro_torch;
   constexpr int per_cta = K * kWarpsPerCta;
-  const dim3 grid((n_phys + per_cta - 1) / per_cta);
+  const dim3 grid((n_phys + per_cta - 1) / per_cta, batch);
   auto kernel = v.dtype == kBool ? block_agg_kernel<K, true> : block_agg_kernel<K, false>;
   kernel<<<grid, kWarpsPerCta * kWarpSize, 0, stream>>>(
       v, static_cast<const uint8_t*>(valid), static_cast<const int32_t*>(ids),
@@ -179,38 +148,24 @@ void launch_solo(repro_torch::RawColumn v, const void* valid, const void* ids,
 
 }  // namespace
 
-// blocks_per_warp is K: 1, 2 or 4 (anything else: cudaErrorInvalidValue)
+// ids (batch, n_phys) int32 and out (batch, n_phys, 5) f32, row-major; a
+// solo call passes batch 1.  blocks_per_warp is K: 1, 2 or 4 (anything
+// else: cudaErrorInvalidValue); batch at most 65,535 (the grid's y extent).
 extern "C" int block_agg_launch(const void* values, int values_dtype,
-                                const void* valid, const void* ids, int n_phys,
-                                int block_rows, int blocks_per_warp, void* out,
-                                void* stream) {
+                                const void* valid, const void* ids, int batch,
+                                int n_phys, int block_rows, int blocks_per_warp,
+                                void* out, void* stream) {
   using namespace repro_torch;
-  if (n_phys <= 0) return static_cast<int>(cudaGetLastError());
+  if (batch <= 0 || n_phys <= 0) return static_cast<int>(cudaGetLastError());
   const Column col{values, values_dtype};
   const RawColumn v = raw_column(col, col, ids);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (blocks_per_warp) {
-    case 1: launch_solo<1>(v, valid, ids, n_phys, block_rows, out, s); break;
-    case 2: launch_solo<2>(v, valid, ids, n_phys, block_rows, out, s); break;
-    case 4: launch_solo<4>(v, valid, ids, n_phys, block_rows, out, s); break;
+    case 1: launch_k<1>(v, valid, ids, batch, n_phys, block_rows, out, s); break;
+    case 2: launch_k<2>(v, valid, ids, batch, n_phys, block_rows, out, s); break;
+    case 4: launch_k<4>(v, valid, ids, batch, n_phys, block_rows, out, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int block_agg_batched_launch(const void* values, int values_dtype,
-                                        const void* valid, const void* ids,
-                                        int batch, int n_phys, int block_rows,
-                                        void* out, void* stream) {
-  using namespace repro_torch;
-  if (batch <= 0 || n_phys <= 0) return static_cast<int>(cudaGetLastError());
-  const dim3 grid((n_phys + kWarpsPerCta - 1) / kWarpsPerCta, batch);
-  const dim3 block(kWarpsPerCta * kWarpSize);
-  block_agg_batched_kernel<<<grid, block, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      Column{values, values_dtype}, static_cast<const uint8_t*>(valid),
-      static_cast<const int32_t*>(ids), n_phys, block_rows,
-      static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,4 +1,5 @@
-"""Wrappers of the block_agg CUDA kernels (``csrc/block_agg.cu``).
+"""Wrappers of the block_agg CUDA kernel (``csrc/block_agg.cu``): one kernel
+serves the solo call and the batched one.
 
 A CUDA tensor launches the hand-written kernel, or raises; a CPU tensor runs
 the plain PyTorch version (``ref.py``).  The tensors' device alone decides:
@@ -56,11 +57,14 @@ def block_agg(values: torch.Tensor, valid: torch.Tensor, block_rows: int,
 
 def launch(values: torch.Tensor, valid: torch.Tensor, block_rows: int,
            ids: torch.Tensor, blocks_per_warp: int) -> torch.Tensor:
-    """The CUDA launch of :func:`block_agg` with ``blocks_per_warp`` sampled
-    blocks per warp (one of ``column_launch.BLOCKS_PER_WARP``); the output
-    is bitwise the same for each.  :func:`block_agg` picks it from n_phys;
-    a caller names it only to compare or time the choices."""
-    _check(values, valid, block_rows, ids)
+    """The CUDA launch of :func:`block_agg` ((n_phys,) ids) or of
+    :func:`block_agg_batched` ((B, n_phys) ids) with ``blocks_per_warp``
+    sampled blocks per warp (one of ``column_launch.BLOCKS_PER_WARP``); the
+    output is bitwise the same for each.  The wrappers pick it from the
+    launch's size; a caller names it only to compare or time the choices."""
+    _check(values, valid, block_rows, ids, ids_dim=2 if ids.dim() == 2 else 1)
+    if ids.dim() == 2 and not 1 <= ids.shape[0] <= _build.MAX_BATCH:
+        raise ValueError(f"batch {ids.shape[0]} outside [1, {_build.MAX_BATCH}]")
     if values.device.type != "cuda":
         raise ValueError(f"block_agg launches on cuda, not {values.device}")
     if blocks_per_warp not in column_launch.BLOCKS_PER_WARP:
@@ -70,17 +74,19 @@ def launch(values: torch.Tensor, valid: torch.Tensor, block_rows: int,
 
 
 def _launch(values, valid, block_rows, ids, blocks_per_warp):
+    """One launch of the kernel over every id row of ``ids`` (1-D: one
+    row), counted on the wrapper whose call it serves."""
     lib = _build.load("block_agg")
-    n_phys = ids.shape[0]
-    out = torch.empty((n_phys, 5), dtype=torch.float32, device=values.device)
+    batch, n_phys = (1, ids.shape[0]) if ids.dim() == 1 else ids.shape
+    out = torch.empty((*ids.shape, 5), dtype=torch.float32, device=values.device)
     with torch.cuda.device(values.device):
         rc = lib.block_agg_launch(
             values.data_ptr(), _build.dtype_code(values, "values"),
-            valid.data_ptr(), ids.data_ptr(), n_phys, block_rows,
+            valid.data_ptr(), ids.data_ptr(), batch, n_phys, block_rows,
             blocks_per_warp, out.data_ptr(),
             torch.cuda.current_stream(values.device).cuda_stream)
     _build.check(lib, "block_agg", rc)
-    _build.count(block_agg, "launches")
+    _build.count(block_agg if ids.dim() == 1 else block_agg_batched, "launches")
     return out
 
 
@@ -88,8 +94,8 @@ def block_agg_batched(values: torch.Tensor, valid: torch.Tensor,
                       block_rows: int, ids: torch.Tensor) -> torch.Tensor:
     """:func:`block_agg` for B lanes in ONE launch: lane b reads id row
     ``ids[b]`` ((B, n_phys) int32); returns (B, n_phys, 5) f32 with the NaN
-    sentinel for empty blocks, each lane bitwise the solo kernel on its row
-    (the same per-block device function).  Ids must lie in
+    sentinel for empty blocks, each lane bitwise the solo call on its row
+    (the same kernel, launched over B id rows).  Ids must lie in
     ``[0, num_blocks)``: the caller checks them on the host.
     """
     _check(values, valid, block_rows, ids, ids_dim=2)
@@ -102,18 +108,9 @@ def block_agg_batched(values: torch.Tensor, valid: torch.Tensor,
     if values.device.type != "cuda":
         raise ValueError(
             f"block_agg_batched runs on cuda or cpu, not {values.device}")
-    lib = _build.load("block_agg")
-    n_phys = ids.shape[1]
-    out = torch.empty((batch, n_phys, 5), dtype=torch.float32,
-                      device=values.device)
-    with torch.cuda.device(values.device):
-        rc = lib.block_agg_batched_launch(
-            values.data_ptr(), _build.dtype_code(values, "values"),
-            valid.data_ptr(), ids.data_ptr(), batch, n_phys, block_rows,
-            out.data_ptr(), torch.cuda.current_stream(values.device).cuda_stream)
-    _build.check(lib, "block_agg", rc)
-    _build.count(block_agg_batched, "launches")
-    return out
+    k = column_launch.blocks_per_warp(
+        ids.shape[1], _build.sm_count(values.device.index), batch)
+    return _launch(values, valid, block_rows, ids, k)
 
 
 # ``calls`` counts every call on either device; ``launches`` counts CUDA

@@ -5,17 +5,14 @@
 // one 128-byte segment of each 4-byte column (32 bytes of the bool validity
 // column).  Lane partials are combined by a fixed __shfl_xor_sync butterfly:
 // the reduction order is a function of block_rows alone, so results are
-// bitwise equal run to run, between the solo kernels and the batched ones,
-// and whatever number of blocks a warp owns.  No atomics, no shared memory.
+// bitwise equal run to run, whatever number of blocks a warp owns and
+// whatever number of lanes (id rows) a launch carries.  No atomics, no
+// shared memory.
 //
-// Two ways to read a row, one arithmetic.  The batched kernels (one block
-// per warp) still read through load_f32, which branches on the column's
-// dtype at each load.  The solo kernels (several blocks per warp) issue
-// every load of a row step first through load_row, with no branch, and
-// widen the raw rows afterwards; widen(load_row(raw_column(c, ..), i),
-// c.dtype) is bitwise load_f32(c, i).
-// Both hand the f32 values to the same per-row step of their .cu
-// (filtered_row, block_row) and the same warp_sum / warp_min / warp_max.
+// Each kernel issues every load of a row step first through load_row, with
+// no branch on the dtype, and widens the raw rows afterwards, then hands
+// the f32 values to the per-row step of its .cu (filtered_row, block_row)
+// and reduces through warp_sum / warp_min / warp_max.
 #pragma once
 
 #include <cstdint>
@@ -29,22 +26,16 @@ constexpr unsigned kFullMask = 0xffffffffu;
 // dtype codes shared with the Python wrappers (kernels/_build.py DTYPE_CODES)
 enum : int { kF32 = 0, kI32 = 1, kBool = 2, kAbsent = -1 };
 
-// A column in its stored dtype.  Values are widened to f32 in registers,
-// exactly like the reference's per-block ``.astype(jnp.float32)``: the wrapper
-// never materialises a cast, padded or ones column.
+// A column in its stored dtype, as the host describes it to raw_column.
+// Values are widened to f32 in registers, exactly like the reference's
+// per-block ``.astype(jnp.float32)``: the wrapper never materialises a cast,
+// padded or ones column.
 struct Column {
   const void* ptr;
   int dtype;
 };
 
-__device__ __forceinline__ float load_f32(Column c, int64_t i) {
-  if (c.dtype == kF32) return static_cast<const float*>(c.ptr)[i];
-  if (c.dtype == kI32) return __int2float_rn(static_cast<const int32_t*>(c.ptr)[i]);
-  if (c.dtype == kBool) return static_cast<const uint8_t*>(c.ptr)[i] ? 1.0f : 0.0f;
-  return 1.0f;  // kAbsent: SUM(col) has no second factor
-}
-
-// A column as the solo kernels read it: row i is words[i & word_mask] for
+// A column as the kernels read it: row i is words[i & word_mask] for
 // a 4-byte dtype (f32, int32) and bytes[i & byte_mask] for bool, each mask
 // all ones or zero.  The other pointer of the pair reads the call's ids at
 // row 0 (a mask of zero), so every load a kernel issues is in bounds and
@@ -93,9 +84,9 @@ __device__ __forceinline__ RawRow load_row(RawColumn c, int64_t i) {
   }
 }
 
-// The f32 that load_f32 gives for a raw row of a column of ``dtype``,
-// selected without a branch: a bool row is 0 or nonzero, an int32 is
-// rounded to nearest, an absent column is 1.0.
+// The f32 value of a raw row of a column of ``dtype``, selected without a
+// branch: a bool row is 0 or nonzero (1.0 or 0.0), an int32 is rounded to
+// nearest, an absent column (SUM(col) has no second factor) is 1.0.
 __device__ __forceinline__ float widen(RawRow r, int dtype) {
   const float f = dtype == kF32 ? __uint_as_float(r.word)
                                 : __int2float_rn(static_cast<int32_t>(r.word));
@@ -126,10 +117,11 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// The first round of a solo kernel's warp that owns K consecutive sampled
-// blocks first, first+1, ...: one 4-byte load per lane, lane j < K
-// loading ids[first + j] and lane K + t loading extra[t] for t < n_extra
-// (the bounds), so the ids and the bounds arrive in one memory round.
+// The first round of a kernel's warp that owns K consecutive sampled
+// blocks first, first+1, ... of one id row ``ids`` (its CTA's blockIdx.y
+// row): one 4-byte load per lane of the warp, lane j < K loading
+// ids[first + j] and lane K + t loading extra[t] for t < n_extra (that id
+// row's bounds), so the ids and the bounds arrive in one memory round.
 // Every lane then receives block j's first row, base[j], by shuffle; the
 // word this lane loaded is returned, for the caller to shuffle the extra
 // words from lanes K, K+1, ...  live[j] is false for a slot past n_phys;

@@ -1,4 +1,5 @@
-"""Wrappers of the filtered_agg CUDA kernels (``csrc/filtered_agg.cu``).
+"""Wrappers of the filtered_agg CUDA kernel (``csrc/filtered_agg.cu``): one
+kernel serves the solo call and the batched one.
 
 A CUDA tensor launches the hand-written kernel, or raises; a CPU tensor runs
 the plain PyTorch version (``ref.py``).  The tensors' device alone decides:
@@ -18,8 +19,8 @@ from repro_torch.kernels.filtered_agg.ref import (filtered_agg_batched_ref,
 
 def _check(x, y, f1, f2, f3, valid, block_rows, ids, bounds,
            batch: Optional[int] = None) -> None:
-    """Columns, ids and bounds as the kernels take them: ``batch=None`` for
-    the solo kernel ((n,) ids, (5,) bounds), else (batch, n) ids and
+    """Columns, ids and bounds as the kernel takes them: ``batch=None`` for
+    a solo call ((n,) ids, (5,) bounds), else (batch, n) ids and
     (batch, 5) bounds."""
     dev = x.device
     n = x.shape[0] if x.dim() == 1 else -1
@@ -82,11 +83,16 @@ def filtered_agg(x: torch.Tensor, y: Optional[torch.Tensor], f1, f2, f3,
 def launch(x: torch.Tensor, y: Optional[torch.Tensor], f1, f2, f3, valid,
            block_rows: int, ids: torch.Tensor, bounds: torch.Tensor,
            blocks_per_warp: int) -> torch.Tensor:
-    """The CUDA launch of :func:`filtered_agg` with ``blocks_per_warp``
-    sampled blocks per warp (one of ``column_launch.BLOCKS_PER_WARP``); the
-    output is bitwise the same for each.  :func:`filtered_agg` picks it
-    from n_phys; a caller names it only to compare or time the choices."""
-    _check(x, y, f1, f2, f3, valid, block_rows, ids, bounds)
+    """The CUDA launch of :func:`filtered_agg` ((n_phys,) ids, (5,) bounds)
+    or of :func:`filtered_agg_batched` ((B, n_phys) ids, (B, 5) bounds) with
+    ``blocks_per_warp`` sampled blocks per warp (one of
+    ``column_launch.BLOCKS_PER_WARP``); the output is bitwise the same for
+    each.  The wrappers pick it from the launch's size; a caller names it
+    only to compare or time the choices."""
+    batch = ids.shape[0] if ids.dim() == 2 else None
+    _check(x, y, f1, f2, f3, valid, block_rows, ids, bounds, batch=batch)
+    if batch is not None and not 1 <= batch <= _build.MAX_BATCH:
+        raise ValueError(f"batch {batch} outside [1, {_build.MAX_BATCH}]")
     if x.device.type != "cuda":
         raise ValueError(f"filtered_agg launches on cuda, not {x.device}")
     if blocks_per_warp not in column_launch.BLOCKS_PER_WARP:
@@ -98,16 +104,19 @@ def launch(x: torch.Tensor, y: Optional[torch.Tensor], f1, f2, f3, valid,
 
 def _launch(x, y, f1, f2, f3, valid, block_rows, ids, bounds,
             blocks_per_warp):
+    """One launch of the kernel over every id row of ``ids`` (1-D: one
+    row), counted on the wrapper whose call it serves."""
     lib = _build.load("filtered_agg")
-    n_phys = ids.shape[0]
-    out = torch.empty((n_phys, 3), dtype=torch.float32, device=x.device)
+    batch, n_phys = (1, ids.shape[0]) if ids.dim() == 1 else ids.shape
+    out = torch.empty((*ids.shape, 3), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         rc = lib.filtered_agg_launch(
             *_column_args(x, y, f1, f2, f3), valid.data_ptr(), ids.data_ptr(),
-            n_phys, block_rows, blocks_per_warp, bounds.data_ptr(),
+            batch, n_phys, block_rows, blocks_per_warp, bounds.data_ptr(),
             out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, "filtered_agg", rc)
-    _build.count(filtered_agg, "launches")
+    _build.count(filtered_agg if ids.dim() == 1 else filtered_agg_batched,
+                 "launches")
     return out
 
 
@@ -116,8 +125,8 @@ def filtered_agg_batched(x: torch.Tensor, y: Optional[torch.Tensor], f1, f2,
                          bounds: torch.Tensor) -> torch.Tensor:
     """:func:`filtered_agg` for B lanes in ONE launch: lane b reads id row
     ``ids[b]`` ((B, n_phys) int32) and bounds row ``bounds[b]`` ((B, 5)
-    f32); returns (B, n_phys, 3) f32, each lane bitwise the solo kernel on
-    its row (the same per-block device function).  Ids must lie in
+    f32); returns (B, n_phys, 3) f32, each lane bitwise the solo call on
+    its row (the same kernel, launched over B id rows).  Ids must lie in
     ``[0, num_blocks)``: the caller checks them on the host.
     """
     batch = ids.shape[0] if ids.dim() == 2 else -1
@@ -131,17 +140,9 @@ def filtered_agg_batched(x: torch.Tensor, y: Optional[torch.Tensor], f1, f2,
     if x.device.type != "cuda":
         raise ValueError(
             f"filtered_agg_batched runs on cuda or cpu, not {x.device}")
-    lib = _build.load("filtered_agg")
-    n_phys = ids.shape[1]
-    out = torch.empty((batch, n_phys, 3), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = lib.filtered_agg_batched_launch(
-            *_column_args(x, y, f1, f2, f3), valid.data_ptr(), ids.data_ptr(),
-            batch, n_phys, block_rows, bounds.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, "filtered_agg", rc)
-    _build.count(filtered_agg_batched, "launches")
-    return out
+    k = column_launch.blocks_per_warp(ids.shape[1], _build.sm_count(x.device.index),
+                                      batch)
+    return _launch(x, y, f1, f2, f3, valid, block_rows, ids, bounds, k)
 
 
 # ``calls`` counts every call on either device; ``launches`` counts CUDA

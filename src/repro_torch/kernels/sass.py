@@ -102,24 +102,31 @@ def readable(mangled: str) -> str:
     return f"{name}<{', '.join(args)}>"
 
 
+def split_functions(text: str) -> Dict[str, str]:
+    """Each kernel of ``cuobjdump -sass`` output and its SASS text, keyed by
+    its readable name."""
+    parts = re.split(r"\n\s*Function : (\S+)\n", text)
+    return {readable(parts[i]): parts[i + 1] for i in range(1, len(parts) - 1, 2)}
+
+
 def functions(library: Path) -> Dict[str, str]:
     """Each kernel of a built library and its SASS text."""
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     text = subprocess.run([str(cuobjdump), "-sass", str(library)], check=True,
                           capture_output=True, text=True, timeout=120).stdout
-    parts = re.split(r"\n\s*Function : (\S+)\n", text)
-    return {readable(parts[i]): parts[i + 1] for i in range(1, len(parts) - 1, 2)}
+    return split_functions(text)
+
+
+def kernel_rounds(library: Path) -> Dict[str, List[int]]:
+    """Each kernel of a built library and its load rounds, as LDG counts."""
+    return {name: [n for n, _ in load_rounds(sass)]
+            for name, sass in sorted(functions(library).items())}
 
 
 def report(library: Path) -> List[str]:
     """One line per kernel: its load rounds, as LDG counts."""
-    lines = []
-    for name, sass in sorted(functions(library).items()):
-        rounds = load_rounds(sass)
-        total = sum(n for n, _ in rounds)
-        lines.append(f"{name}: {total} LDG in {len(rounds)} rounds "
-                     f"{[n for n, _ in rounds]}")
-    return lines
+    return [f"{name}: {sum(rounds)} LDG in {len(rounds)} rounds {rounds}"
+            for name, rounds in kernel_rounds(library).items()]
 
 
 if __name__ == "__main__":

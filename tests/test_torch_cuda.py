@@ -171,6 +171,66 @@ def test_solo_kernels_agree_at_every_blocks_per_warp(cuda, n_phys, block_rows):
         assert bool(torch.isnan(outs[0][0, 3]))     # block 0 has no valid row
 
 
+# batch 1 (a solo call's shape), 3 and 8 lanes; n_phys as above
+@pytest.mark.parametrize("block_rows", [32, 100, 256])
+@pytest.mark.parametrize("n_phys", [1, 7, 101, 65_536])
+@pytest.mark.parametrize("batch", [1, 3, 8])
+def test_batched_kernels_agree_at_every_blocks_per_warp(cuda, batch, n_phys,
+                                                        block_rows):
+    """One kernel serves solo and batched calls: a (B, n_phys) launch at
+    every blocks-per-warp k is bitwise one output, each lane is bitwise the
+    solo launch on its ids and bounds, and the result holds to the plain
+    version (counts exact, sums rtol 1e-5, min/max exact with the NaN
+    sentinel).  Covers Q6's aliasing, y absent, a bool x, COUNT-only, an
+    empty block, repeated ids and zero padding; each lane its own bounds."""
+    from repro_torch.kernels import column_launch
+    from repro_torch.kernels.block_agg import ops as block_ops
+    from repro_torch.kernels.filtered_agg import ops as filtered_ops
+    price, discount, shipdate, valid, _ = _columns(block_rows, 500, cuda, 6)
+    rng = np.random.default_rng(batch * n_phys + block_rows)
+    ids = rng.integers(0, 500, (batch, n_phys)).astype(np.int32)
+    ids[:, 0] = 0                                   # the empty block
+    if n_phys >= 7:
+        ids[:, 1:3] = ids[:, 3:4]                   # repeated ids
+        ids[-1, -2:] = 0                            # zero padding
+    ids = torch.from_numpy(ids).to(cuda)
+    lo = rng.uniform(0.0, 0.03, batch)
+    bounds = torch.from_numpy(np.stack(
+        [np.full(batch, 100.0), np.full(batch, 1500.0), lo, lo + 0.05,
+         rng.uniform(500.0, 2500.0, batch)], axis=1).astype(np.float32)).to(cuda)
+    ks = column_launch.BLOCKS_PER_WARP
+    q6 = (price, discount, shipdate, discount, shipdate, valid, block_rows)
+    sum_x = (price, None, shipdate, discount, shipdate, valid, block_rows)
+    bool_x = (valid, price, shipdate, discount, shipdate, valid, block_rows)
+    for cols in (q6, sum_x, bool_x):
+        outs = [filtered_ops.launch(*cols, ids, bounds, k) for k in ks]
+        for out in outs[1:]:
+            assert torch.equal(_bits(out), _bits(outs[0]))
+        assert torch.equal(_bits(filtered_agg_batched(*cols, ids, bounds)),
+                           _bits(outs[0]))
+        for b in range(batch):
+            solo = filtered_agg(*cols, ids[b].contiguous(), bounds[b].contiguous())
+            assert torch.equal(_bits(outs[0][b]), _bits(solo))
+        ref = filtered_agg_batched_ref(*cols, ids, bounds)
+        assert torch.equal(outs[0][..., 0], ref[..., 0])
+        torch.testing.assert_close(outs[0][..., 1:], ref[..., 1:], rtol=1e-5, atol=0)
+    for col in (price, shipdate, valid):
+        outs = [block_ops.launch(col, valid, block_rows, ids, k) for k in ks]
+        for out in outs[1:]:
+            assert torch.equal(_bits(out), _bits(outs[0]))
+        assert torch.equal(_bits(block_agg_batched(col, valid, block_rows, ids)),
+                           _bits(outs[0]))
+        for b in range(batch):
+            solo = block_agg(col, valid, block_rows, ids[b].contiguous())
+            assert torch.equal(_bits(outs[0][b]), _bits(solo))
+        ref = block_agg_batched_ref(col, valid, block_rows, ids)
+        assert torch.equal(outs[0][..., 0], ref[..., 0])
+        torch.testing.assert_close(outs[0][..., 1:3], ref[..., 1:3], rtol=1e-5, atol=0)
+        torch.testing.assert_close(outs[0][..., 3:], ref[..., 3:], rtol=0, atol=0,
+                                   equal_nan=True)
+        assert bool(torch.isnan(outs[0][:, 0, 3]).all())  # block 0 has no valid row
+
+
 def test_solo_kernels_refuse_an_uninstantiated_blocks_per_warp(cuda):
     from repro_torch.kernels.filtered_agg import ops as filtered_ops
     price, discount, shipdate, valid, ids = _columns(32, 50, cuda, 5)
@@ -178,6 +238,9 @@ def test_solo_kernels_refuse_an_uninstantiated_blocks_per_warp(cuda):
     with pytest.raises(ValueError, match="blocks_per_warp"):
         filtered_ops.launch(price, discount, shipdate, discount, shipdate,
                             valid, 32, ids, bounds, 3)
+    with pytest.raises(ValueError, match="blocks_per_warp"):
+        filtered_ops.launch(price, discount, shipdate, discount, shipdate,
+                            valid, 32, ids[None].contiguous(), bounds[None].contiguous(), 8)
 
 
 def test_cuda_drain_matches_cuda_serial_session(cuda):

@@ -153,3 +153,30 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
     if bad != "bounds":
         with pytest.raises((ValueError, TypeError)):
             block_agg(_t(price), v, 32, ids)
+
+
+@pytest.mark.parametrize("ids_shape, bounds_shape, match", [
+    ((200,), (5,), "launches on cuda"),          # a solo launch, CPU tensors
+    ((3, 200), (3, 5), "launches on cuda"),      # a batched launch, CPU tensors
+    ((0, 200), (0, 5), "batch 0"),               # no lane
+    ((3, 200), (5,), "bounds"),                  # batched ids, solo bounds
+    ((2, 3, 200), (2, 3, 5), "ids"),             # neither solo nor batched
+])
+def test_launch_takes_solo_or_batched_ids_and_runs_on_cuda_only(ids_shape,
+                                                                 bounds_shape,
+                                                                 match):
+    """``ops.launch`` (the one kernel at a named blocks-per-warp) takes
+    (n_phys,) ids with (5,) bounds or (B, n_phys) ids with (B, 5) bounds,
+    and launches only: a CPU tensor raises rather than take the plain
+    version."""
+    from repro_torch.kernels.block_agg import ops as block_ops
+    from repro_torch.kernels.filtered_agg import ops as filtered_ops
+    price, discount, shipdate, quantity, valid = _lineitem_like(32, 10)
+    ids = torch.zeros(ids_shape, dtype=torch.int32)
+    bounds = torch.zeros(bounds_shape, dtype=torch.float32)
+    with pytest.raises(ValueError, match=match):
+        filtered_ops.launch(_t(price), _t(discount), _t(shipdate), _t(discount),
+                            _t(quantity), _t(valid), 32, ids, bounds, 1)
+    if match != "bounds":
+        with pytest.raises(ValueError, match=match):
+            block_ops.launch(_t(price), _t(valid), 32, ids, 1)
