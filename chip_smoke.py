@@ -77,6 +77,32 @@ Phases, each printing its own lines:
              pilot pool, the drain inline (no worker threads), and the
              serial Session.sql loop; and the device idle share of one drain
              under torch.profiler.
+8. gather  — the gather route (run right after phase 6 on its SF10
+             catalog, lineitem 60M rows and orders 15M): Session.sql with
+             the result cache off for the grouped Q1, the join with orders
+             and the Q14 ratio of examples/aqp_analytics.py, exact and at
+             ERROR 5% CONFIDENCE 95% (and, where 5% falls back, at the
+             smallest of 10 / 15 % that reaches a sampled final).  The
+             segment_sum counter is zeroed just before and read just
+             after: each of the three paths must have launched it, and
+             every approximate answer must lie within its error of the
+             exact one for every group present, or carry a fallback.
+             Prints plan or fallback, pilot / rate-solve / final and exact
+             walls (median of 5 warm runs, 3 for the join), the scanned
+             fraction, the device idle share of each query under
+             torch.profiler (not of the approximate join), and for the join
+             the pair tensor's bytes on the card and the host's peak RSS.  A grouped drain herd (4
+             constant-varied WHERE l_shipdate < X GROUP BY l_returnflag):
+             one solo pilot per member, its finals take
+             gather_batched, and each answer is bitwise an equal-seed
+             serial session's Session.sql.  Every segment_sum input of
+             the first pass (first call per shape) is replayed: bitwise
+             equal across two launches, empty segments exactly 0, within
+             rtol 1e-5 of an f64 sum, and held to its plain version
+             (index_add_) within the f32 summation bound of both; then
+             timed (CUDA events, L2 flushed) beside its bytes bound, the
+             launch floor of its six grids, the stable sort alone, the
+             plain version and index_add_ alone.
 3b. model kernels — flash_attention and gla_chunked (run right after phase
              3) at fixed scaling points in bf16: flash at hymba's width (2 x 25
              q heads over 5 kv heads, 2048 tokens, d 64) causal without a
@@ -144,6 +170,20 @@ HERD = ([f"SELECT SUM(l_extendedprice * l_discount) AS revenue FROM lineitem "
         + [SUM_COUNT + f" ERROR {e}% CONFIDENCE 95%" for e in (5, 6, 7, 8)])
 HERD_PILOTS = 9                  # 8 Q6 constants + 1 shared SUM/COUNT pilot
 REPS = 5                         # timed repetitions of each drain mode
+# phase 8: the three gather-route queries of examples/aqp_analytics.py
+GATHER_QUERIES = {
+    "q1": ("SELECT SUM(l_quantity) AS qty, AVG(l_extendedprice) AS avg_price, "
+           "COUNT(*) AS orders FROM lineitem GROUP BY l_returnflag"),
+    "join": ("SELECT SUM(l_extendedprice) AS rev FROM lineitem "
+             "JOIN orders ON l_orderkey = o_orderkey WHERE o_orderdate < 1200"),
+    "q14": ("SELECT SUM(l_extendedprice * l_discount * l_linestatus) / "
+            "SUM(l_extendedprice * l_discount) AS promo_share FROM lineitem "
+            "WHERE l_shipdate BETWEEN 400 AND 2200"),
+}
+GATHER_ERRORS = (5, 10, 15)      # ERROR e% tried in turn until a sampled final
+GATHER_WARM = {"q1": 5, "join": 3, "q14": 5}
+GATHER_HERD = [f"SELECT SUM(l_quantity) AS qty, COUNT(*) AS n FROM lineitem "
+               f"WHERE l_shipdate < {x} GROUP BY l_returnflag" for x in (1800, 2000, 2200, 2400)]
 # dense peaks of one H100 SXM at 700 W (data sheet): bf16 tensor cores, f32
 # without them
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
@@ -613,6 +653,248 @@ def run_drain(torch, np, catalog, Session, SessionConfig, wrappers, recorder,
 
 
 # ---------------------------------------------------------------------------
+# phase 8 helpers: the gather route and segment_sum
+# ---------------------------------------------------------------------------
+
+def segment_key(args):
+    """Recording key of a segment_sum call: (channels, rows, segments)."""
+    return (*args[0].shape, args[2])
+
+
+def peak_rss_gb():
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6  # KiB -> GB
+
+
+def relative_errors(np, approx, exact):
+    """|approx - exact| / |exact| over the groups present in the exact
+    answer (every composite), as one flat array."""
+    present = exact.answer.group_present
+    e = exact.answer.values[:, present]
+    a = approx.answer.values[:, present]
+    return (np.abs(a - e) / np.abs(e)).ravel()
+
+
+def check_segment_sum(torch, fn, ref, args, slice_cols=1 << 26):
+    """Hold one segment_sum call to an f64 sum of the same values (rtol
+    1e-5 of the segment's absolute sum) and to its plain version within the
+    f32 summation bound of both (2 n u sum|x| for a segment of n rows, u =
+    2^-24); empty segments exactly 0; two launches bitwise equal.  Segments
+    are checked in slices of ``slice_cols`` so the f64 sums of a join
+    pilot's 480M-segment output fit beside the catalog.  Returns (output,
+    max |kernel - plain|)."""
+    vals, seg, nseg = args
+    got = fn(*args)
+    check(bitwise_equal(torch, got, fn(*args)), "segment_sum: launches differ bitwise")
+    plain = ref(*args)
+    err = float((got - plain).abs().max()) if got.numel() else 0.0
+    for a in range(0, nseg, slice_cols):
+        b = min(a + slice_cols, nseg)
+        m = (seg >= a) & (seg < b)
+        sub, vs = seg[m] - a, vals[:, m].double()
+        f64 = lambda v, n=b - a: torch.zeros((v.shape[0], n), dtype=torch.float64,
+                                             device=v.device).index_add_(1, sub, v)
+        want, absum = f64(vs), f64(vs.abs())
+        rows = f64(torch.ones((1, vs.shape[1]), dtype=torch.float64, device=vs.device))
+        g = got[:, a:b].double()
+        check(bool(((g - want).abs() <= 1e-5 * absum).all()),
+              f"segment_sum {segment_key(args)}: beyond rtol 1e-5 of the f64 sum")
+        bound = 2.0 * rows * 2.0 ** -24 * absum
+        check(bool(((g - plain[:, a:b].double()).abs() <= bound).all()),
+              f"segment_sum {segment_key(args)}: beyond the f32 bound of its plain version")
+        check(not bool(torch.where(rows == 0, g, 0.0).any()),
+              f"segment_sum {segment_key(args)}: an empty segment is not 0")
+        del want, absum, rows, g, bound
+    return got, err
+
+
+def segment_sum_grids(rows, channels, nseg):
+    """The CTA counts of segment_sum's six kernels (csrc/segment_sum.cu)."""
+    from repro_torch.kernels.segment_sum.ops import chunk_rows
+    tiles = -(-rows // chunk_rows(rows))
+    cap = min(rows, tiles + min(rows, nseg))
+    return [min(-(-rows // 256), 65_536), -(-tiles // 8), 1, -(-tiles // 8),
+            min(-(-cap // 8), 4096), min(-(-cap // 8), 4096)]
+
+
+def time_segment_sum(torch, fn, ref, args, smi, launch_floor, iters=10):
+    """Check one recorded segment_sum input, then time it with CUDA events
+    and L2 flushed beside its bytes bound, the launch floor of its six
+    grids, the stable sort of its keys alone, its plain version and
+    index_add_ alone.  Returns its row of the ``kernels`` line."""
+    vals, seg, nseg = args
+    channels, rows = vals.shape
+    _, err = check_segment_sum(torch, fn, ref, args)
+    ms = time_cold(torch, lambda: fn(*args), iters)
+    plain_ms = time_cold(torch, lambda: ref(*args), iters)
+    out = torch.zeros((channels, nseg), dtype=torch.float32, device=vals.device)
+    library_ms = time_cold(torch, lambda: out.index_add_(1, seg, vals), iters)
+    del out
+    keys = seg.to(torch.int32)
+    sort_ms = time_cold(torch, lambda: torch.sort(keys, stable=True), iters)
+    del keys
+    grids = segment_sum_grids(rows, channels, nseg)
+    floor_ms = time_cold(torch, lambda: [launch_floor(g, 1) for g in grids], iters)
+    # where one call's device time goes: the sort's kernels and the six
+    # passes (the profiler now and then returns no events: ask again)
+    top = []
+    for _ in range(3):
+        top = top or device_profile(torch, lambda: fn(*args), top=10)[2]
+    parts = [(name.split("(")[0].split("<")[0].split("::")[-1][:48], ms, n)
+             for name, ms, n in top]
+    nbytes = rows * channels * 4 + rows * 8 + nseg * channels * 4
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"[gather] segment_sum (C, R, S) {segment_key(args)}: {ms * 1e3:.2f} us "
+          f"(bound {bound_ms * 1e3:.3f} us = {nbytes:,} B / 3.35 TB/s, "
+          f"{bound_ms / ms:.1%} of bound; launch floor of its 6 grids "
+          f"{floor_ms * 1e3:.2f} us; stable sort alone {sort_ms * 1e3:.2f} us; "
+          f"plain {plain_ms * 1e3:.2f} us; index_add_ {library_ms * 1e3:.2f} us); "
+          f"max |kernel - plain| {err:.3g}  [{smi}]")
+    print("[gather]   its device kernels under torch.profiler (L2 warm): "
+          + "; ".join(f"{name} {ms * 1e3:.2f} us x{n}" for name, ms, n in parts))
+    return {"shape": list(segment_key(args)), "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "sort_ms": sort_ms, "bound_ms": bound_ms,
+            "bytes": nbytes, "floor_ms": floor_ms, "grids": grids,
+            "max_abs_err": err, "device_kernels": parts}
+
+
+def run_gather(torch, np, catalog, Session, SessionConfig, segment_sum, recorder,
+               smi):
+    """Phase 8: the three analytics queries through Session.sql on the SF10
+    catalog, then the grouped drain herd."""
+    t_phase = time.perf_counter()
+    session = Session(catalog, seed=42, config=SessionConfig(result_cache_size=0))
+    zero_counters([segment_sum])
+    recorder.active = {"segment_sum"}
+    first, per_query, chosen = {}, {}, {}
+    for qn, sql in GATHER_QUERIES.items():
+        before = segment_sum.launches
+        exact, _ = run_sql(torch, session, sql)
+        for err_pct in GATHER_ERRORS:
+            approx, _ = run_sql(torch, session, sql + f" ERROR {err_pct}% CONFIDENCE 95%")
+            r = approx.report
+            rel = relative_errors(np, approx, exact)
+            check(np.all(np.isfinite(exact.answer.values[:, exact.answer.group_present])),
+                  f"{qn}: non-finite exact answer")
+            check(bool(np.all(rel <= err_pct / 100)) or r.fallback is not None,
+                  f"{qn} at {err_pct}%: error {rel} above the bound without a fallback")
+            print(f"[gather] {qn} at ERROR {err_pct}%: plan "
+                  f"{r.plan.rates if r.plan else None}, fallback {r.fallback}, "
+                  f"pilot {r.pilot_table} {r.n_pilot_blocks} blocks (theta "
+                  f"{r.theta_pilot:.6g}), max error {rel.max():.4%} "
+                  f"(exact {exact.answer.values.ravel().tolist()}, approx "
+                  f"{approx.answer.values.ravel().tolist()})")
+            if r.plan is not None:
+                break
+        chosen[qn] = err_pct
+        first[qn] = (exact, approx)
+        per_query[qn] = segment_sum.launches - before
+    recorder.active = set()
+    launches = segment_sum.launches
+    print(f"[gather] segment_sum launches: {per_query} (total {launches}); "
+          f"recorded inputs (C, R, S): {sorted(recorder.calls['segment_sum'])}")
+    for qn, n in per_query.items():
+        check(n > 0, f"the {qn} path never launched segment_sum")
+    for qn, (_, approx) in first.items():
+        check(approx.report.plan is not None,
+              f"{qn}: no error of {GATHER_ERRORS} reached a sampled final")
+
+    summary = {"launches": launches, "launches_by_query": per_query,
+               "error_pct": chosen}
+    for qn, sql in GATHER_QUERIES.items():
+        text = sql + f" ERROR {chosen[qn]}% CONFIDENCE 95%"
+        walls, exact_walls = [], []
+        stage = {"pilot": [], "rate_solve": [], "final": []}
+        rss0 = peak_rss_gb()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(GATHER_WARM[qn]):
+            eh, ew = run_sql(torch, session, sql)
+            ah, aw = run_sql(torch, session, text)
+            exact_walls.append(ew)
+            walls.append(aw)
+            stage["pilot"].append(ah.report.pilot_time_s)
+            stage["rate_solve"].append(ah.report.plan_time_s)
+            stage["final"].append(ah.report.final_time_s)
+        r = ah.report
+        scanned = (r.pilot_scanned_bytes + r.final_scanned_bytes) / r.exact_scanned_bytes
+        med = {k: statistics.median(v) * 1e3 for k, v in stage.items()}
+        row = dict(approx_ms=statistics.median(walls) * 1e3,
+                   exact_ms=statistics.median(exact_walls) * 1e3,
+                   scanned_fraction=scanned, plan=r.plan.rates if r.plan else None,
+                   fallback=r.fallback, error_pct=chosen[qn],
+                   **{f"{k}_ms": v for k, v in med.items()},
+                   device_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   host_peak_rss_gb=peak_rss_gb())
+        extra = ""
+        if qn == "join":
+            pair = [k for k in recorder.calls["segment_sum"] if k[2] > 10 ** 8]
+            row["pair_tensor_bytes"] = [c * sgm * 4 for c, _, sgm in pair]
+            extra = (f"; pair tensor {row['pair_tensor_bytes']} B on the card, "
+                     f"device peak {row['device_peak_gb']:.2f} GB, host peak RSS "
+                     f"{rss0:.2f} -> {row['host_peak_rss_gb']:.2f} GB")
+        # device busy share under the profiler (the approximate join's
+        # seconds of host work are left out: its card idles through them)
+        for kind, q in (("exact", sql), ("approx", text)):
+            if qn == "join" and kind == "approx":
+                continue
+            busy, pwall = device_busy_ms(torch, lambda: session.sql(q))
+            row[f"{kind}_device_busy_ms"], row[f"{kind}_profiled_wall_ms"] = busy, pwall
+            share = "not measured" if busy is None else f"{1 - busy / pwall:.1%}"
+            print(f"[gather] {qn} {kind} under torch.profiler: device kernels "
+                  f"{busy if busy is None else round(busy, 4)} ms of {pwall:.2f} ms "
+                  f"wall; device idle share {share}  [{smi}]")
+        summary[qn] = row
+        print(f"[gather] {qn} at ERROR {chosen[qn]}% (median of {GATHER_WARM[qn]} warm "
+              f"runs): approx {row['approx_ms']:.2f} ms = pilot {med['pilot']:.2f} + rate "
+              f"solve {med['rate_solve']:.2f} + final {med['final']:.2f} ms; exact "
+              f"{row['exact_ms']:.2f} ms; scanned {scanned:.4%} of the exact bytes; plan "
+              f"{row['plan']}{extra}  [{smi}]")
+    session.close()
+
+    # the grouped drain herd: one solo pilot per member, gather_batched
+    # finals, each answer bitwise the serial session's
+    herd_err = chosen["q1"]
+    herd = [q + f" ERROR {herd_err}% CONFIDENCE 95%" for q in GATHER_HERD]
+    drain = Session(catalog, seed=42, config=SessionConfig(result_cache_size=0))
+    routes = []
+    compile_batched = drain.executor.physical.compile_batched_query
+
+    def spy_compile(*a, **kw):
+        c = compile_batched(*a, **kw)
+        routes.append(c.route)
+        return c
+
+    drain.executor.physical.compile_batched_query = spy_compile
+    t0 = time.perf_counter()
+    hs = [drain.submit(q) for q in herd]
+    drain.drain()
+    torch.cuda.synchronize()
+    herd_ms = (time.perf_counter() - t0) * 1e3
+    serial = Session(catalog, seed=42, config=SessionConfig(
+        async_workers=0, share_pilots=False, result_cache_size=0))
+    for h in hs:
+        check(h.status == "done", f"herd: {h.error}\n{h.sql}")
+        r, _ = run_sql(torch, serial, h.sql)
+        check(np.array_equal(h.answer.values, r.answer.values),
+              f"herd answer {h.answer.values.ravel()} is not bitwise the serial "
+              f"session's {r.answer.values.ravel()}\n{h.sql}")
+    check("gather_batched" in routes, f"the herd's finals took {routes}, not gather_batched")
+    pilots = drain.scheduler.last_drain.pilots_run
+    check(pilots == len(herd), f"the herd ran {pilots} pilots, not {len(herd)}")
+    print(f"[gather] grouped herd of {len(herd)} at ERROR {herd_err}%: drain "
+          f"{herd_ms:.2f} ms; pilots {pilots}; final routes {routes}; "
+          f"plans {[h.report.plan.rates if h.report.plan else h.fallback for h in hs]}; "
+          f"every answer bitwise the serial session's Session.sql  [{smi}]")
+    drain.close()
+    serial.close()
+    summary["herd"] = {"wall_ms": herd_ms, "pilots": pilots, "routes": routes,
+                       "error_pct": herd_err}
+    summary["phase_s"] = time.perf_counter() - t_phase
+    print(f"[gather] phase 8 queries and herd in {summary['phase_s']:.1f} s")
+    return summary
+
+
+# ---------------------------------------------------------------------------
 # phase 3b / 7 helpers: the model kernels and the eval slice
 # ---------------------------------------------------------------------------
 
@@ -961,11 +1243,13 @@ def main() -> int:
                                                   filtered_agg_ref)
     from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
     from repro_torch.kernels.gla_chunk import gla_chunked, gla_chunked_ref
+    from repro_torch.kernels.segment_sum import segment_sum, segment_sum_ref
     from repro_torch.models import layers, linear_attn
     wrappers = (filtered_agg, block_agg, filtered_agg_batched, block_agg_batched)
     model_wrappers = (flash_attention, gla_chunked)
     recorder = CallRecorder(
         [(physical, fn.__name__, ids_shape(fn.__name__)) for fn in wrappers]
+        + [(physical, "segment_sum", segment_key)]
         + [(layers, "flash_attention", q_shape), (linear_attn, "_gla_kernel", q_shape)])
     model_kernels = {"flash_attention": (flash_attention, flash_attention_ref),
                      "gla_chunked": (gla_chunked, gla_chunked_ref)}
@@ -1292,6 +1576,16 @@ def main() -> int:
         lambda n: (cols["l_extendedprice"], li.valid, BLOCK_ROWS, sweep_lanes[n]),
         K_SWEEP_BATCH_N_PHYS, ks, choose, smi, lanes=SCALE_BATCH)
     del sweep_lanes
+
+    # -- 8. the gather route: grouped, join and Q14 queries, a grouped herd ------
+    gather = run_gather(torch, np, catalog, Session, SessionConfig, segment_sum,
+                        recorder, smi)
+    ss_calls = recorder.calls["segment_sum"]
+    check(bool(ss_calls), "segment_sum: no call of the gather route was recorded")
+    gather["segment_sum"] = [
+        time_segment_sum(torch, segment_sum, segment_sum_ref, args, smi, launch_floor)
+        for args, _ in ss_calls.values()]
+    ss_calls.clear()
     torch.cuda.synchronize()
     for fn in wrappers:
         recorder.calls[fn.__name__].clear()
@@ -1372,6 +1666,23 @@ def main() -> int:
             "main_path": timed[k]["main_path"],
             "scaling_points": timed[k]["scaling_points"], "k_sweep": sweep[k],
         })
+    # segment_sum's headline: its recorded input with the most work (the
+    # largest bytes bound)
+    head = max(gather["segment_sum"], key=lambda r: r["bound_ms"])
+    kernels.append({
+        "name": "segment_sum", "route": "cuda",
+        "source": "src/repro_torch/kernels/segment_sum/csrc/segment_sum.cu",
+        "replaces": "src/repro/engine/physical.py:877",
+        "replaces_note": "the gather route's XLA scatter-add (.at[:, seg].add, "
+                         "physical.py:256, :276, :877-878, :1072-1082); no Pallas original",
+        "launches": gather["launches"],
+        "launches_by_path": {"gather": gather["launches_by_query"]},
+        "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": "bytes", "library_ms": head["library_ms"],
+        "floor_ms": head["floor_ms"], "sort_ms": head["sort_ms"],
+        "shape": head["shape"], "main_path": gather["segment_sum"],
+    })
     model_sources = {
         "flash_attention": ("src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",
                             "src/repro/kernels/flash_attn/kernel.py:76"),
@@ -1391,6 +1702,7 @@ def main() -> int:
             "scaling_points": model_timed[k]["scaling_points"],
         })
     summary["drain"] = drain
+    summary["gather"] = gather
     summary["eval"] = evaluation
     print(f"[done] {time.perf_counter() - t_start:.1f} s; main path {json.dumps(summary)}")
     print(json.dumps({"kernels": kernels}))

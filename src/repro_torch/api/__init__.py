@@ -1,7 +1,9 @@
 """The user-facing front door: SQL extended with ``ERROR e% CONFIDENCE p%``,
-a Session answering it synchronously (``sql``) or through its scheduler
-(``submit`` / ``drain``)."""
+a typed fluent builder, and a Session answering either synchronously
+(``sql``, ``table(...).run()``) or through its scheduler (``submit`` /
+``drain``)."""
 
+from repro_torch.api.builder import QueryBuilder, avg_, count_, sum_
 from repro_torch.api.scheduler import DrainStats, QueryScheduler
 from repro_torch.api.session import (QueryFailedError, QueryHandle, QueryStatus,
                                      Session, SessionConfig)
@@ -11,6 +13,10 @@ from repro_torch.api.sql import (HavingClause, LimitClause, ParsedQuery,
 
 __all__ = [
     "Session",
+    "QueryBuilder",
+    "sum_",
+    "count_",
+    "avg_",
     "SessionConfig",
     "QueryHandle",
     "QueryStatus",

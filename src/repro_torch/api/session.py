@@ -6,12 +6,15 @@ repeated structurally-identical queries run warm, a result cache of
 finished answers, the scheduler and worker pool behind ``submit`` /
 ``drain``, and deterministic seed derivation.
 
-Two front doors:
+Three front doors:
 
 * ``session.sql(...)`` parses dialect SQL, runs TAQA's two stages (pilot on
   the device → f64 rate solve on the host → final on the device) and
   returns a finished :class:`QueryHandle` carrying status, the answer, the
   :class:`TaqaReport` and any fallback reason;
+* ``session.table(...)`` starts a fluent :class:`QueryBuilder` that lowers
+  to the same :class:`Query` as the SQL and runs (``run``) or queues
+  (``submit``) it;
 * ``session.submit(...)`` queues a handle and ``session.drain()`` runs the
   queue: grouped by template signature, one pilot per pilot-sharing
   subgroup, finals of one bucket in one batched kernel launch, answers
@@ -24,10 +27,11 @@ tunables)``, both through ``blake2b(repr(parts))`` of the frozen plan and
 spec dataclasses.  Equal-seed sessions of the two packages therefore draw
 the same pilot and final blocks.
 
-The session runs on the CUDA card by default and raises where there is
-none; ``device="cpu"`` runs the kernels' plain PyTorch versions.  The
-staging, sharding, fused, streaming and observability hooks of the
-reference wait for later slices.
+Grouped, joined, unioned and row-sampled queries run through the physical
+layer's gather route.  The session runs on the CUDA card by default and
+raises where there is none; ``device="cpu"`` runs the kernels' plain
+PyTorch versions.  The staging, sharding, fused, streaming and
+observability hooks of the reference wait for later slices.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.api.builder import QueryBuilder
 from repro_torch.api.scheduler import QueryScheduler
 from repro_torch.api.sql import (HavingClause, LimitClause, UnsupportedSqlError,
                                  parse_sql, resolve_string_literals)
@@ -177,6 +182,8 @@ class QueryHandle:
 @dataclasses.dataclass(frozen=True)
 class SessionConfig:
     large_table_rows: int = 50_000     # sampling threshold (§3.1)
+    default_error: float = 0.05        # builder .error() defaults
+    default_confidence: float = 0.95
     spec_kwargs: Optional[Dict] = None  # TAQA tunable overrides for SQL specs
     # The physical layer sizes dense per-(block, group) buffers by
     # max_groups; an id-cardinality GROUP BY would otherwise allocate
@@ -224,7 +231,8 @@ class Session:
         self.device = resolve_device(device)
         if config.spec_kwargs:
             # fail at construction, not on every client's ERROR clause
-            dataclasses.replace(ErrorSpec(error=0.05, confidence=0.95),
+            dataclasses.replace(ErrorSpec(error=config.default_error,
+                                          confidence=config.default_confidence),
                                 **config.spec_kwargs)
         self.executor = Executor(catalog or {}, device=self.device)
         self.db = PilotDB(self.executor,
@@ -349,6 +357,13 @@ class Session:
         return int(seq.generate_state(1, dtype=np.uint32)[0])
 
     # -- front doors ----------------------------------------------------------
+    def table(self, name: str) -> QueryBuilder:
+        """A fluent builder over table ``name`` (see :mod:`repro_torch.api.builder`)."""
+        if name not in self.executor.catalog:
+            raise KeyError(f"unknown table {name!r}; registered: "
+                           f"{self.tables()}")
+        return QueryBuilder(self, name)
+
     def sql(self, text: str) -> QueryHandle:
         """Parse and execute dialect SQL synchronously.
 
@@ -374,7 +389,8 @@ class Session:
 
     def execute(self, query: Query,
                 spec: Optional[ErrorSpec] = None) -> QueryHandle:
-        """Execute an already-lowered query synchronously."""
+        """Execute an already-lowered query synchronously (the builder's
+        ``run``)."""
         handle = self._make_handle(query, spec)
         self._run_handle(handle)
         return handle

@@ -9,14 +9,14 @@ the channels into user-facing estimates.  Any failure (too-few pilot blocks,
 non-positive L_μ, no feasible plan, plan costlier than exact) falls back to
 exact execution — PilotDB never returns an unguaranteed estimate.
 
-The pilot and the final each run as one compiled dispatch on the device
-(the hand-written kernels for the single-table shapes), and the rate solve
-runs on the host in f64, exactly as in the reference.  A drain group's
-finals run through :meth:`PilotDB.run_finals_batched` (one batched kernel
-launch per same-signature bucket); its pilots through
-:meth:`PilotDB.run_pilots_batched`, where every member takes the solo pilot,
-as the reference's kernel routes do.  The stacked pilot, fused and advisory
-paths wait for later slices of the port.
+The pilot and the final each run as one compiled call on the device (the
+hand-written column kernels for the single-table shapes, the gather route
+and its segmented-sum kernel for GROUP BY, joins, unions and the rest), and
+the rate solve runs on the host in f64, exactly as in the reference.  A
+drain group's finals run through :meth:`PilotDB.run_finals_batched` (one
+batched call per same-signature bucket); its pilots through
+:meth:`PilotDB.run_pilots_batched`, which runs each member's solo pilot.
+The fused and advisory paths wait for later slices of the port.
 """
 
 from __future__ import annotations
@@ -367,9 +367,10 @@ class PilotDB:
         leader; the returned list is position-aligned and each entry is the
         :class:`PilotOutcome` :meth:`run_pilot` would have produced, or the
         exception it would have raised (captured per member, so one failing
-        subgroup cannot sink its siblings).  The port's pilots run on the
-        kernel routes, where the reference runs every member's solo pilot
-        too; the stacked pilot of its gather route waits for a later slice.
+        subgroup cannot sink its siblings).  Every member runs its solo
+        pilot: the reference stacks same-shape gather-route pilots into one
+        ``lax.map`` dispatch, but here a stacked lane would run the same
+        launches as the solo pilot, so stacking would save only host syncs.
         """
         results: List[object] = []
         for q, spec, pseed in reqs:

@@ -1,18 +1,22 @@
-"""Plan executor (the port's single-table slice).
+"""Plan executor.
 
 Executes logical plans through the compiled physical layer
-(:mod:`repro_torch.engine.physical`): block-sampled scans route through the
-hand-written kernels, exact scans through one pass of plain tensor ops, and
-repeated structurally-identical queries hit the signature cache.  The scan
-cost (bytes moved) is attributed by that layer: block-sampled scans pay only
-for sampled slabs, exact scans stream everything.
+(:mod:`repro_torch.engine.physical`): block-sampled single-table scans route
+through the hand-written column kernels, exact single-table ungrouped scans
+through one pass of plain tensor ops, and everything else (GROUP BY, joins,
+unions, row sampling, predicates or channels the kernels cannot take)
+through the gather route and its segmented-sum kernel; repeated
+structurally-identical queries hit the signature cache.  The scan cost
+(bytes moved) is attributed by that layer: block-sampled scans pay only for
+sampled slabs, row-sampled and exact scans stream everything.
 
-Besides plain execution it produces the artifact TAQA's pilot needs
-(``execute_pilot``: per-block sums of every simple aggregate), and runs a
-drain group's finals in batches (``execute_batch``: members that share a
-compile key run as one batched kernel launch).  A sampled scan that draws
-zero blocks raises :class:`EmptySampleError` instead of fabricating an
-upscale factor — callers take their exact fallback.
+Besides plain execution it produces the artifacts TAQA's pilot needs
+(``execute_pilot``: per-block sums of every simple aggregate and, for a
+join's pair table, per-block-pair sums), and runs a drain group's finals in
+batches (``execute_batch``: members that share a compile key run as one
+batched call).  A sampled scan that draws zero blocks or rows raises
+:class:`EmptySampleError` instead of fabricating an upscale factor — callers
+take their exact fallback.
 
 Each query (each batch) crosses the device→host boundary once, where its
 sums are widened to f64 for the host-side upscale and rate solve.
@@ -31,7 +35,8 @@ from repro_torch.device import resolve_device
 from repro_torch.engine import logical as L
 from repro_torch.engine.physical import (PhysicalCompiler, ScanRuntime,
                                          plan_constants, scan_cost_bytes)
-from repro_torch.engine.sampling import SampleInfo, draw_block_ids, pad_block_ids
+from repro_torch.engine.sampling import (SampleInfo, draw_block_ids,
+                                         draw_row_sample, pad_block_ids)
 from repro_torch.engine.table import BlockTable
 
 
@@ -71,8 +76,7 @@ class PilotStats:
 
     block_sums: (n_p, max_groups, num_aggs) — sum of each simple aggregate's
         expression within each sampled origin block of the pilot table.
-    pair_sums: optional {right_table: (n_p, N_right, num_aggs)} for Lemma 4.8
-        (always empty in this slice).
+    pair_sums: optional {right_table: (n_p, N_right, num_aggs)} for Lemma 4.8.
     """
 
     table: str
@@ -164,9 +168,9 @@ class Executor:
                     table.num_blocks, ids,
                     scanned_bytes=scan_cost_bytes(table, "block", n_real))
             else:
-                raise NotImplementedError(
-                    "row (TABLESAMPLE BERNOULLI) sampling waits for a later "
-                    "slice of the port (ROADMAP queue 1, item 4)")
+                keep, infos[s.table] = draw_row_sample(
+                    table, s.sample.rate, s.sample.seed)
+                runtimes[s.table] = ScanRuntime("row", keep_mask=keep)
         return runtimes, infos
 
     @staticmethod
@@ -271,9 +275,8 @@ class Executor:
         Buckets split greedily into power-of-two chunks (5 members run as
         4 + 1), so batch callables recur in log-many sizes with no padded
         lanes; a chunk of one runs solo on the sample already drawn.  Plans
-        with an unsampled scan (a final at rate 1) run solo: only the kernel
-        routes batch.  A failing batched call raises to the caller — it is
-        never re-run as solo launches.
+        that sample no table run solo.  A failing batched call raises to the
+        caller — it is never re-run as solo launches.
         """
         results: List[object] = [None] * len(plans)
 
@@ -298,7 +301,7 @@ class Executor:
                 self._count("queries_run")
                 land(i, e)
                 continue
-            if any(r.method != "block" for r in runtimes.values()):
+            if all(r.method == "none" for r in runtimes.values()):
                 self._count("queries_run")
                 land(i, self._execute_drawn(plan, runtimes, infos, t0))
                 continue
@@ -360,7 +363,9 @@ class Executor:
         pair_tables: Tuple[str, ...] = (),
     ) -> PilotStats:
         """Run the pilot query: block-sample ``pilot_table`` at theta_p and
-        compute per-block sums of each simple aggregate plus ``__rows``.
+        compute per-block sums of each simple aggregate plus ``__rows`` and,
+        when ``pair_tables[0]`` sits alone on the right of a join, the
+        per-(pilot block, right block) sums Lemma 4.8 needs.
 
         Not counted here: ``pilots_run`` counts pilot *stages* and is
         incremented by :meth:`repro_torch.core.taqa.PilotDB.run_pilot`.
@@ -389,10 +394,17 @@ class Executor:
         compiled = self.physical.compile_pilot(plan, pilot_table, runtime,
                                                pair_table)
         self._count("device_dispatches")
-        bs_d, present_d = compiled({pilot_table: runtime}, plan_constants(plan))
-        # the pilot's single device→host boundary
+        bs_d, present_d, pair_d = compiled({pilot_table: runtime},
+                                           plan_constants(plan))
+        # the pilot's device→host boundary; the pair sums are sliced to the
+        # real blocks on the device, then widened on the host
         block_sums = bs_d.double().cpu().numpy()[:n_real]
         present = present_d.cpu().numpy().astype(bool)
+        pair_sums: Dict[str, np.ndarray] = {}
+        right_total: Dict[str, int] = {}
+        if pair_d is not None:
+            pair_sums[pair_table] = pair_d[:n_real].cpu().double().numpy()
+            right_total[pair_table] = self.catalog[pair_table].num_blocks
         return PilotStats(
             table=pilot_table,
             theta_p=theta_p,
@@ -402,8 +414,8 @@ class Executor:
             agg_names=names,
             block_sums=block_sums,
             group_present=present,
-            pair_sums={},
-            right_total_blocks={},
+            pair_sums=pair_sums,
+            right_total_blocks=right_total,
             scanned_bytes=compiled.scanned_bytes({pilot_table: runtime}),
             wall_time_s=time.perf_counter() - t0,
         )

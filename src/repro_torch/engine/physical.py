@@ -1,41 +1,54 @@
-"""Physical plans: compiled single-table query pipelines over the kernels.
+"""Physical plans: compiled query pipelines over the kernels.
 
 ``PhysicalCompiler`` lowers a :class:`logical.Aggregate` to a callable and
 caches it under a *plan signature* — the operator tree with sampling
 rates/seeds stripped AND predicate/expression constants hoisted
 (:func:`logical.extract_constants`), the referenced columns and dtypes,
-``block_rows``, and the bucketed sampled-block count.  Constants reach the
-callable as a runtime ``params`` vector on the device, so one entry serves
-every constant variant of a shape.
+``block_rows`` and the geometry of every scanned table, ``max_groups``, and
+the bucketed sampled-block count.  Constants reach the callable as a runtime
+``params`` vector on the device, so one entry serves every constant variant
+of a shape.
 
-Routes (this slice of the port: one table, no GROUP BY):
+Routes:
 
-* ``filtered_agg`` — ``Aggregate(Filter+(Scan))`` over a block-sampled
-  table with a conjunctive range predicate and COUNT / SUM(col) /
-  SUM(a*b) channels lowers onto :func:`repro_torch.kernels.filtered_agg`
-  (the TPC-H Q6 shape).
-* ``block_agg``    — filterless ``Aggregate(Scan)`` over a block-sampled
-  table with COUNT / SUM(col) channels lowers onto
+* ``filtered_agg`` — ``Aggregate(Filter+(Scan))`` over one block-sampled
+  table, no GROUP BY, with a conjunctive range predicate and COUNT /
+  SUM(col) / SUM(a*b) channels lowers onto
+  :func:`repro_torch.kernels.filtered_agg` (the TPC-H Q6 shape).
+* ``block_agg``    — filterless ``Aggregate(Scan)`` over one block-sampled
+  table, no GROUP BY, with COUNT / SUM(col) channels lowers onto
   :func:`repro_torch.kernels.block_agg`.
 * ``torch_scan``   — an exact (unsampled) ungrouped ``Aggregate(Filter*(Scan))``
   is one pass of plain tensor ops over the whole table.
+* ``gather``       — everything else: GROUP BY, joins, unions, row sampling
+  (TABLESAMPLE BERNOULLI), and predicates or channels the kernels cannot
+  take.  The plan is traced over the tables' tensors (:class:`_Tracer`: a
+  slab gather for block-sampled scans, a stable sort-and-search for equi
+  joins, concatenation for unions) and reduced per group by ONE call of
+  :func:`repro_torch.kernels.segment_sum`, the reference's ``xla_gather``
+  route and its scatter-add.
 * ``filtered_agg_batched`` / ``block_agg_batched`` — a drain group's final
   scans that share one compile key (:meth:`PhysicalCompiler.query_signature`)
-  run as ONE launch of the batched kernel over B lanes, each lane with its
-  own block-id row and bounds row (:meth:`PhysicalCompiler.compile_batched_query`).
-  Each lane's stats and its reduction over blocks are the solo route's own
-  calls on the solo route's shapes, so lane b is bitwise member b run alone.
+  and whose solo route is a kernel run as ONE launch of the batched kernel
+  over B lanes (:meth:`PhysicalCompiler.compile_batched_query`).  Each
+  lane's stats and its reduction over blocks are the solo route's own calls
+  on the solo route's shapes, so lane b is bitwise member b run alone.
+* ``gather_batched`` — the other shapes' batch: ONE callable that runs each
+  lane through the solo gather body, in lane order (the reference's
+  ``lax.map``), so each lane is bitwise the solo run.
+
+Pilots (per sampled block and group, each channel's sum) take the kernels
+where the plan has one group and no join-pair statistics, and the traced
+pipeline otherwise, with per-(pilot block, right block) pair sums for a
+join's pair table.
 
 The route depends on the plan's shape alone, never on the device: a CUDA
 table runs the hand-written kernels, a CPU table runs their plain PyTorch
-versions through the same wrappers.  Sums over blocks are ``torch.sum`` over
-fixed shapes — no atomics, so answers are deterministic run to run.  Joins,
-unions, GROUP BY, row sampling, pair tables and predicates or channels the
-kernels cannot take raise :class:`NotImplementedError` naming the later
-slice that ports them.
+versions through the same wrappers.  No reduction uses atomics, so answers
+are the same bits run to run.
 
 Scan-cost attribution lives here too: ``n_real · block_rows · row_bytes``
-for block-sampled scans, full table bytes for exact scans.
+for block-sampled scans, full table bytes for row-sampled and exact scans.
 """
 
 from __future__ import annotations
@@ -54,16 +67,10 @@ from repro_torch.engine.expr import And, Between, BinOp, Cmp, Col, Expr, eval_ex
 from repro_torch.engine.table import BlockTable
 from repro_torch.kernels.block_agg import block_agg, block_agg_batched
 from repro_torch.kernels.filtered_agg import filtered_agg, filtered_agg_batched
+from repro_torch.kernels.segment_sum import segment_sum
 
 _BIG_BOUND = 3.0e38       # "unbounded" predicate slot, f32-safe
-
-_LATER = ("the port's single-table slice takes Aggregate(Filter*(Scan)) "
-          "without GROUP BY; {what} waits for the gather route of a later "
-          "slice (ROADMAP queue 1, item 4)")
-
-
-def _not_yet(what: str) -> NotImplementedError:
-    return NotImplementedError(_LATER.format(what=what))
+_INT_MAX = 2 ** 31 - 1    # join key of an invalid right row
 
 
 # ---------------------------------------------------------------------------
@@ -88,14 +95,16 @@ class ScanRuntime:
     """Per-table runtime inputs of a compiled callable.
 
     ``ids`` is the host draw padded to the bucketed length ``n_phys`` with
-    zeros; rows past ``n_real`` are masked out after the kernels, so nearby
-    sample sizes share one cache entry.
+    zeros; rows past ``n_real`` are masked out, so nearby sample sizes share
+    one cache entry.  ``keep_mask`` is a row-sampled scan's draw over every
+    padded row, on the host or already on the table's device.
     """
 
-    method: str                             # "none" | "block"
+    method: str                             # "none" | "block" | "row"
     n_real: int = 0                         # real sampled blocks (block)
     n_phys: int = 0                         # bucketed physical block count
     ids: Optional[np.ndarray] = None        # (n_phys,) int32, zero-padded
+    keep_mask: Optional[np.ndarray | torch.Tensor] = None  # (padded_rows,) bool
 
     def sig(self) -> tuple:
         if self.method == "block":
@@ -172,6 +181,176 @@ def _needed_by_table(plan: L.Plan, catalog: Dict[str, BlockTable]) -> Dict[str, 
         tab = catalog[s.table]
         needed[s.table] = tuple(sorted(referenced.intersection(tab.columns)))
     return needed
+
+
+# ---------------------------------------------------------------------------
+# The gather route: per-row channels, per-group keys, a traced pipeline
+# ---------------------------------------------------------------------------
+
+def channel_matrix(columns: Dict[str, torch.Tensor], valid: torch.Tensor,
+                   exprs: Sequence[Optional[Expr]], params=None) -> torch.Tensor:
+    """Every aggregate channel's per-row values: (num_channels, rows) f32.
+
+    ``None`` channels are COUNT (ones).  Invalid rows contribute zeros, so
+    one segmented sum over the stacked matrix reduces every channel.
+    ``params`` resolves hoisted-constant Param slots of template exprs.
+    """
+    rows = valid.shape[0]
+    zero = torch.zeros((), dtype=torch.float32, device=valid.device)
+    outs = []
+    for e in exprs:
+        if e is None:
+            v = torch.ones(rows, dtype=torch.float32, device=valid.device)
+        else:
+            v = torch.as_tensor(eval_expr(e, columns, params),
+                                device=valid.device).to(torch.float32)
+            v = v.expand(rows)
+        outs.append(torch.where(valid, v, zero))
+    return torch.stack(outs)
+
+
+def _group_ids(columns: Dict[str, torch.Tensor], rows: int,
+               group_by: Optional[str], max_groups: int,
+               device) -> torch.Tensor:
+    """Each row's group id in ``[0, max_groups)`` (int64): the group
+    column cut to int32 and clipped, as the reference's segment key."""
+    if group_by is None:
+        return torch.zeros(rows, dtype=torch.int64, device=device)
+    return columns[group_by].to(torch.int32).clamp(0, max_groups - 1).to(torch.int64)
+
+
+@dataclasses.dataclass
+class _Traced:
+    columns: Dict[str, torch.Tensor]
+    valid: torch.Tensor
+    block_id: torch.Tensor          # origin block id per row
+    pblock: Optional[torch.Tensor]  # compact pilot-block index (pilot lowering)
+    block_rows: int
+    num_origin_blocks: int
+
+
+class _Tracer:
+    """Evaluates a logical plan over the tables' tensors and one call's
+    runtime inputs (block ids, row masks, params).
+
+    The catalog is read when the callable runs, not when it is built: a
+    replacement table of the same geometry (same cache key) is read, not
+    the old data.  ``rt`` holds ``ids`` / ``nreal`` / ``mask`` per table and
+    ``params``.
+    """
+
+    def __init__(self, catalog: Dict[str, BlockTable],
+                 needed: Dict[str, Tuple[str, ...]],
+                 methods: Dict[str, str],
+                 pilot_table: Optional[str] = None,
+                 n_phys_pilot: int = 0,
+                 pair_table: Optional[str] = None):
+        self.catalog = catalog
+        self.needed = needed
+        self.methods = methods            # table -> "none" | "block" | "row"
+        self.pilot_table = pilot_table
+        self.n_phys_pilot = n_phys_pilot  # scratch pblock value == n_phys_pilot
+        self.pair_table = pair_table
+
+    # -- scans ---------------------------------------------------------------
+    def _scratch_pblock(self, rows: int, device) -> Optional[torch.Tensor]:
+        if self.pilot_table is None:
+            return None
+        return torch.full((rows,), self.n_phys_pilot, dtype=torch.int64,
+                          device=device)
+
+    def _trace_scan(self, plan: L.Scan, rt) -> _Traced:
+        name = plan.table
+        tab = self.catalog[name]
+        dev = tab.device
+        cols = {c: tab.columns[c] for c in self.needed[name]}
+        valid, bid = tab.valid, tab.block_id
+        method = self.methods.get(name, "none")
+        br = tab.block_rows
+        if method == "block":
+            ids = rt["ids"][name]
+            n_phys = ids.shape[0]
+            slab = torch.arange(br, dtype=torch.int64, device=dev)
+            row_idx = (ids.to(torch.int64)[:, None] * br + slab[None, :]).reshape(-1)
+            cols = {c: v[row_idx] for c, v in cols.items()}
+            real = (torch.arange(n_phys, device=dev) < rt["nreal"][name]
+                    ).repeat_interleave(br)
+            valid = valid[row_idx] & real
+            bid = bid[row_idx]
+            if name == self.pilot_table:
+                pblock = torch.arange(n_phys, dtype=torch.int64,
+                                      device=dev).repeat_interleave(br)
+            else:
+                pblock = self._scratch_pblock(n_phys * br, dev)
+            return _Traced(cols, valid, bid, pblock, br, tab.num_origin_blocks)
+        if method == "row":
+            valid = valid & rt["mask"][name]
+        return _Traced(cols, valid, bid, self._scratch_pblock(tab.padded_rows, dev),
+                       br, tab.num_origin_blocks)
+
+    # -- composite operators -------------------------------------------------
+    def trace(self, plan: L.Plan, rt) -> _Traced:
+        if isinstance(plan, L.Scan):
+            return self._trace_scan(plan, rt)
+        if isinstance(plan, L.Filter):
+            child = self.trace(plan.child, rt)
+            mask = eval_expr(plan.pred, child.columns, rt["params"])
+            return dataclasses.replace(child, valid=child.valid & mask)
+        if isinstance(plan, L.Join):
+            return self._trace_join(plan, rt)
+        if isinstance(plan, L.Union):
+            return self._trace_union(plan, rt)
+        raise TypeError(plan)
+
+    def _trace_join(self, plan: L.Join, rt) -> _Traced:
+        """Equi join on a unique right key: a stable argsort of the right
+        keys (invalid rows at INT32_MAX) and a left-side search, so a
+        duplicate right key matches the row the reference matches."""
+        left = self.trace(plan.left, rt)
+        right = self.trace(plan.right, rt)
+        lkey = left.columns[plan.left_key].to(torch.int32).contiguous()
+        rkey = torch.where(right.valid, right.columns[plan.right_key].to(torch.int32),
+                           torch.full((), _INT_MAX, dtype=torch.int32,
+                                      device=right.valid.device))
+        order = torch.argsort(rkey, stable=True)
+        sorted_keys = rkey[order]
+        pos = torch.searchsorted(sorted_keys, lkey, side="left")
+        pos_c = pos.clamp(0, sorted_keys.shape[0] - 1)
+        found = sorted_keys[pos_c] == lkey
+        match = order[pos_c]
+        valid = left.valid & found
+        new_cols = dict(left.columns)
+        for cname, col in right.columns.items():
+            if cname == plan.right_key:
+                continue
+            if cname in new_cols:
+                raise ValueError(f"column name collision in join: {cname}")
+            new_cols[cname] = col[match]
+        right_scans = plan.right.scans()
+        if (self.pair_table is not None and len(right_scans) == 1
+                and right_scans[0].table == self.pair_table):
+            new_cols[f"__rblock_{self.pair_table}"] = right.block_id[match].to(torch.int64)
+        return dataclasses.replace(left, columns=new_cols, valid=valid)
+
+    def _trace_union(self, plan: L.Union, rt) -> _Traced:
+        parts = [self.trace(p, rt) for p in plan.inputs]
+        names = set(parts[0].columns)
+        br = parts[0].block_rows
+        offset = 0
+        cols = {c: [] for c in names}
+        valids, bids, pblocks = [], [], []
+        for t in parts:
+            if set(t.columns) != names or t.block_rows != br:
+                raise ValueError("union inputs must share schema and block size")
+            for c in names:
+                cols[c].append(t.columns[c])
+            valids.append(t.valid)
+            bids.append(t.block_id + offset)
+            pblocks.append(t.pblock)
+            offset += t.num_origin_blocks
+        pblock = torch.cat(pblocks) if self.pilot_table is not None else None
+        return _Traced({c: torch.cat(v) for c, v in cols.items()},
+                       torch.cat(valids), torch.cat(bids), pblock, br, offset)
 
 
 # ---------------------------------------------------------------------------
@@ -291,25 +470,38 @@ class _CompiledBase:
     methods: Dict[str, str]
     route: str
 
+    def _device(self) -> torch.device:
+        return next(iter(self.catalog[t] for t in self.needed)).device
+
     def _runtime_args(self, runtimes: Dict[str, ScanRuntime], params=()) -> dict:
         """Host draws and constants as device tensors.  Block ids are range
-        checked here, on the host, because the kernels index with them."""
-        dev = next(iter(self.catalog[t] for t in self.needed)).device
-        rt = {"ids": {}, "nreal": {},
+        checked here, on the host, because the kernels and the gather index
+        with them."""
+        dev = self._device()
+        rt = {"ids": {}, "nreal": {}, "mask": {},
               "params": torch.as_tensor(np.asarray(params, np.float32), device=dev)}
         for name in self.needed:
-            if self.methods.get(name, "none") != "block":
-                continue
-            r = runtimes[name]
-            ids = np.ascontiguousarray(r.ids, dtype=np.int32)
-            nb = self.catalog[name].num_blocks
-            if ids.shape != (r.n_phys,) or (len(ids) and (
-                    ids.min() < 0 or ids.max() >= nb)):
-                raise ValueError(
-                    f"block ids of {name!r} must be ({r.n_phys},) in [0, {nb})")
-            rt["ids"][name] = torch.from_numpy(ids).to(dev)
-            rt["nreal"][name] = r.n_real
+            method = self.methods.get(name, "none")
+            r = runtimes.get(name)
+            if method == "block":
+                ids = np.ascontiguousarray(r.ids, dtype=np.int32)
+                nb = self.catalog[name].num_blocks
+                if ids.shape != (r.n_phys,) or (len(ids) and (
+                        ids.min() < 0 or ids.max() >= nb)):
+                    raise ValueError(
+                        f"block ids of {name!r} must be ({r.n_phys},) in [0, {nb})")
+                rt["ids"][name] = torch.from_numpy(ids).to(dev)
+                rt["nreal"][name] = r.n_real
+            elif method == "row":
+                rt["mask"][name] = self._mask(name, r.keep_mask, dev)
         return rt
+
+    def _mask(self, name: str, keep_mask, dev) -> torch.Tensor:
+        rows = self.catalog[name].padded_rows
+        mask = torch.as_tensor(keep_mask)
+        if mask.dtype != torch.bool or tuple(mask.shape) != (rows,):
+            raise ValueError(f"row mask of {name!r} must be ({rows},) bool")
+        return mask.to(dev)
 
     def __call__(self, runtimes: Dict[str, ScanRuntime], params=()):
         return self.fn(self._runtime_args(runtimes, params))
@@ -326,24 +518,28 @@ class _CompiledBase:
 
 @dataclasses.dataclass
 class CompiledQuery(_CompiledBase):
-    """fn(rt) -> (sums (num_channels, 1), counts (1,)), f32 on the device."""
+    """fn(rt) -> (sums (num_channels, max_groups), counts (max_groups,)),
+    f32 on the device."""
 
 
 @dataclasses.dataclass
 class CompiledPilot(_CompiledBase):
-    """fn(rt) -> (block_sums (n_phys, 1, num_channels), group_present (1,)
-    bool), on the device; rows past n_real are zero."""
+    """fn(rt) -> (block_sums (n_phys, max_groups, num_channels),
+    group_present (max_groups,) bool, pair (n_phys, n_right, num_channels)
+    or None), on the device; rows past n_real are zero."""
 
 
 @dataclasses.dataclass
 class CompiledBatch(_CompiledBase):
     """A drain-group batch callable: B same-signature members per call.
 
-    Lanes differ only in their sampled block ids and their hoisted-constant
-    params row.  ``call_batch`` stacks them (a (B, n_phys) id matrix, the
-    n_real of each lane, a (B, P) params matrix) and returns
-    (sums (B, num_channels, 1), counts (B, 1)) on the device, lane k
-    bitwise member k's solo run.
+    Lanes differ only in their sampled block ids or row masks and their
+    hoisted-constant params row.  ``call_batch`` stacks them (a (B, n_phys)
+    id matrix and the n_real of each lane per block-sampled table, a
+    (B, padded_rows) mask per row-sampled one, a (B, P) params matrix) and
+    returns ``fn``'s outputs with a leading lane axis — for a query
+    (sums (B, num_channels, max_groups), counts (B, max_groups)) — on the
+    device, lane k bitwise member k's solo run.
     """
 
     batch: int = 0
@@ -354,18 +550,23 @@ class CompiledBatch(_CompiledBase):
             raise ValueError(
                 f"batch callable built for {self.batch} members, got "
                 f"{len(runtimes_list)} runtimes and {len(params_list)} params")
-        dev = next(iter(self.catalog[t] for t in self.needed)).device
-        rt = {"ids": {}, "nreal": {},
+        dev = self._device()
+        rt = {"ids": {}, "nreal": {}, "mask": {},
               "params": torch.as_tensor(np.asarray(params_list, np.float32)
                                         .reshape(self.batch, -1), device=dev)}
         for name in self.needed:
-            if self.methods.get(name, "none") != "block":
+            method = self.methods.get(name, "none")
+            if method == "none":
                 continue
             rows = [r[name] for r in runtimes_list]
+            if method == "row":
+                rt["mask"][name] = torch.stack(
+                    [self._mask(name, r.keep_mask, dev) for r in rows])
+                continue
             n_phys = rows[0].n_phys
             nb = self.catalog[name].num_blocks
             # range-checked on the host, as _runtime_args does: the kernels
-            # index the table with these ids
+            # and the gather index the table with these ids
             shapes_ok = all(np.shape(r.ids) == (n_phys,) for r in rows)
             ids = np.stack([np.asarray(r.ids, np.int32) for r in rows]) \
                 if shapes_ok else None
@@ -375,6 +576,19 @@ class CompiledBatch(_CompiledBase):
             rt["ids"][name] = torch.from_numpy(ids).to(dev)
             rt["nreal"][name] = [r.n_real for r in rows]
         return self.fn(rt)
+
+
+def _lanes(run: Callable, rt: dict, batch: int) -> List[tuple]:
+    """``run`` on each lane of a stacked runtime dict, in lane order: lane b
+    sees row b of every stacked input, exactly what its solo call sees."""
+    out = []
+    for b in range(batch):
+        member = {"ids": {t: v[b] for t, v in rt["ids"].items()},
+                  "nreal": {t: v[b] for t, v in rt["nreal"].items()},
+                  "mask": {t: v[b] for t, v in rt["mask"].items()},
+                  "params": rt["params"][b]}
+        out.append(run(member))
+    return out
 
 
 @dataclasses.dataclass
@@ -411,6 +625,9 @@ class PhysicalCompiler:
                              self.batched_hits, self.batched_misses)
 
     def _geometry_sig(self, needed) -> tuple:
+        """The geometry of every table the plan scans: the gather route's
+        shapes (a join's right side, a union's offsets) depend on all of
+        them, not only on the sampled table's."""
         out = []
         for t in sorted(needed):
             tab = self.catalog[t]
@@ -468,46 +685,79 @@ class PhysicalCompiler:
     @staticmethod
     def _single_table(template, runtimes):
         """(table, method, predicates, channel exprs) of an ungrouped
-        Aggregate(Filter*(Scan)) plan; raises for the shapes a later slice
-        ports."""
+        Aggregate(Filter*(Scan)) plan, or None for any other shape."""
         if template.max_groups != 1 or template.group_by is not None:
-            raise _not_yet("GROUP BY")
+            return None
         if len(runtimes) != 1:
-            raise _not_yet("a join or union")
+            return None
         (table, runtime), = runtimes.items()
         preds = _single_table_chain(template.child, table)
         if preds is None:
-            raise _not_yet("a join or union")
+            return None
         exprs = tuple(None if a.op == "count" else a.expr for a in template.aggs)
         return table, runtime.method, preds, exprs
 
-    def _build_query(self, template, runtimes, needed) -> CompiledQuery:
-        methods = {t: r.method for t, r in runtimes.items()}
-        table, method, preds, exprs = self._single_table(template, runtimes)
-        if method == "none":
-            run, route = self._exact_scan(table, preds, exprs), "torch_scan"
-        elif method == "block":
-            lowered = self._lower_block_stats(table, preds, exprs)
-            if lowered is None:
-                raise _not_yet("a predicate or aggregate the kernels cannot take")
+    def _kernel_lowering(self, template, runtimes, batched=False):
+        """The kernel lowering of a plan's per-block stats, or None where its
+        shape sends it elsewhere: the kernels take one block-sampled table,
+        no GROUP BY, Filter*(Scan) and the channels they compute."""
+        st = self._single_table(template, runtimes)
+        if st is None or st[1] != "block":
+            return None
+        table, _, preds, exprs = st
+        return self._lower_block_stats(table, preds, exprs, batched=batched)
+
+    def _query_run(self, template, runtimes, needed):
+        """The solo lowering of a (template) query plan: (run, route), where
+        ``run(rt)`` gives (sums (num_channels, max_groups), counts
+        (max_groups,))."""
+        lowered = self._kernel_lowering(template, runtimes)
+        if lowered is not None:
             stats_fn, route = lowered
 
             def run(rt):
                 ch, cnt = stats_fn(rt)      # (n_phys, n_ch), (n_phys,)
                 return ch.sum(dim=0)[:, None], cnt.sum()[None]
-        else:
-            raise _not_yet(f"{method!r} sampling")
+
+            return run, route
+        st = self._single_table(template, runtimes)
+        if st is not None and st[1] == "none":
+            table, _, preds, exprs = st
+            return self._exact_scan(table, preds, exprs), "torch_scan"
+        return self._gather_run(template, runtimes, needed), "gather"
+
+    def _build_query(self, template, runtimes, needed) -> CompiledQuery:
+        run, route = self._query_run(template, runtimes, needed)
         return CompiledQuery(fn=run, catalog=self.catalog, needed=needed,
-                             methods=methods, route=route)
+                             methods={t: r.method for t, r in runtimes.items()},
+                             route=route)
+
+    def _gather_run(self, template, runtimes, needed):
+        """The gather route's body: trace the plan, then ONE segmented sum
+        of every channel and of the row count per group."""
+        methods = {t: r.method for t, r in runtimes.items()}
+        exprs = tuple(None if a.op == "count" else a.expr for a in template.aggs)
+        mg = template.max_groups
+        tracer = _Tracer(self.catalog, needed, methods)
+
+        def run(rt):
+            tt = tracer.trace(template.child, rt)
+            gid = _group_ids(tt.columns, tt.valid.shape[0], template.group_by,
+                             mg, tt.valid.device)
+            vals = channel_matrix(tt.columns, tt.valid, exprs, rt["params"])
+            rows = torch.cat([vals, tt.valid.to(torch.float32)[None]])
+            out = segment_sum(rows, gid, mg)
+            return out[:-1], out[-1]
+
+        return run
 
     # -- batched drain-group queries -----------------------------------------
     def compile_batched_query(self, plan: L.Aggregate,
                               runtimes: Dict[str, ScanRuntime],
                               batch: int) -> CompiledBatch:
         """One callable running ``batch`` members of ``plan``'s
-        :meth:`query_signature` per call, through one batched kernel launch.
-        Callers split buckets into powers of two, so batch sizes recur in
-        log-many values."""
+        :meth:`query_signature` per call.  Callers split buckets into powers
+        of two, so batch sizes recur in log-many values."""
         if batch < 1:
             raise ValueError(f"batch must be >= 1, got {batch}")
         needed = _needed_by_table(plan, self.catalog)
@@ -517,27 +767,32 @@ class PhysicalCompiler:
             plan_template(plan), runtimes, needed, batch))
 
     def _build_batched(self, template, runtimes, needed, batch) -> CompiledBatch:
-        """The batched kernel route; it admits exactly the plans the solo
-        route sends to a kernel: one block-sampled table, no GROUP BY,
-        Filter*(Scan), kernel-computable channels."""
+        """A plan whose solo route is a kernel takes the batched kernel (one
+        launch over B id rows); any other runs each lane through its solo
+        body, in lane order."""
         methods = {t: r.method for t, r in runtimes.items()}
-        table, method, preds, exprs = self._single_table(template, runtimes)
-        if method != "block":
-            raise _not_yet(f"a batched final over a {method!r} scan")
-        lowered = self._lower_block_stats(table, preds, exprs, batched=True)
-        if lowered is None:
-            raise _not_yet("a predicate or aggregate the kernels cannot take")
-        lanes_fn, route = lowered
+        lowered = self._kernel_lowering(template, runtimes, batched=True)
+        if lowered is not None:
+            lanes_fn, route = lowered
 
-        def run_batched(rt):
-            # each lane: the solo route's (n_phys, n_ch) channel tensor and
-            # (n_phys,) count, built fresh by the solo route's own calls, and
-            # the solo route's own reductions over them — one reduction over
-            # a (B, n_phys, n_ch) tensor may split its sum in another order
-            lanes = lanes_fn(rt)
-            sums = torch.stack([ch.sum(dim=0) for ch, _ in lanes])
-            counts = torch.stack([cnt.sum() for _, cnt in lanes])
-            return sums[:, :, None], counts[:, None]
+            def run_batched(rt):
+                # each lane: the solo route's (n_phys, n_ch) channel tensor
+                # and (n_phys,) count, built fresh by the solo route's own
+                # calls, and the solo route's own reductions over them — one
+                # reduction over a (B, n_phys, n_ch) tensor may split its sum
+                # in another order
+                lanes = lanes_fn(rt)
+                sums = torch.stack([ch.sum(dim=0) for ch, _ in lanes])
+                counts = torch.stack([cnt.sum() for _, cnt in lanes])
+                return sums[:, :, None], counts[:, None]
+        else:
+            run, solo_route = self._query_run(template, runtimes, needed)
+            route = f"{solo_route}_batched"
+
+            def run_batched(rt):
+                lanes = _lanes(run, rt, batch)
+                return (torch.stack([s for s, _ in lanes]),
+                        torch.stack([c for _, c in lanes]))
 
         return CompiledBatch(fn=run_batched, catalog=self.catalog,
                              needed=needed, methods=methods, route=route,
@@ -574,36 +829,90 @@ class PhysicalCompiler:
     def compile_pilot(self, plan: L.Aggregate, pilot_table: str,
                       runtime: ScanRuntime,
                       pair_table: Optional[str] = None) -> CompiledPilot:
-        if pair_table is not None:
-            raise _not_yet("join-pair pilot statistics")
         needed = _needed_by_table(plan, self.catalog)
-        key = ("pilot", pilot_table,
+        key = ("pilot", pilot_table, pair_table,
                plan_signature(plan, {pilot_table: runtime},
                               self._geometry_sig(needed)))
         return self._lookup(key, lambda: self._build_pilot(
-            plan_template(plan), pilot_table, needed))
+            plan_template(plan), pilot_table, runtime.n_phys, pair_table,
+            needed))
 
-    def _build_pilot(self, plan, pilot_table, needed) -> CompiledPilot:
-        # One channel per simple aggregate plus the trailing "__rows" channel
-        # (group presence + COUNT/AVG planning), matching PilotStats.
-        exprs = tuple([None if a.op == "count" else a.expr for a in plan.aggs] + [None])
-        if plan.max_groups != 1 or plan.group_by is not None:
-            raise _not_yet("GROUP BY")
+    @staticmethod
+    def _has_pair(plan, pair_table: Optional[str]) -> bool:
+        """Whether a join of ``plan`` has ``pair_table`` alone on its right:
+        the shape whose pilot also gives per-block-pair sums."""
+        return pair_table is not None and any(
+            isinstance(p, L.Join) and [s.table for s in p.right.scans()] == [pair_table]
+            for p in _walk(plan))
+
+    def _pilot_kernel(self, plan, pilot_table, pair_table):
+        """The kernel lowering of a pilot, or None: the kernels take a pilot
+        with one group and no pair statistics over Filter*(Scan)."""
+        if plan.max_groups != 1 or self._has_pair(plan, pair_table):
+            return None
         preds = _single_table_chain(plan.child, pilot_table)
         if preds is None:
-            raise _not_yet("a join or union")
-        lowered = self._lower_block_stats(pilot_table, preds, exprs)
-        if lowered is None:
-            raise _not_yet("a predicate or aggregate the kernels cannot take")
-        stats_fn, route = lowered
+            return None
+        # one channel per simple aggregate plus the trailing "__rows" channel
+        exprs = tuple([None if a.op == "count" else a.expr for a in plan.aggs] + [None])
+        return self._lower_block_stats(pilot_table, preds, exprs)
+
+    def _build_pilot(self, plan, pilot_table, n_phys, pair_table,
+                     needed) -> CompiledPilot:
+        methods = {pilot_table: "block"}
+        lowered = self._pilot_kernel(plan, pilot_table, pair_table)
+        if lowered is not None:
+            stats_fn, route = lowered
+
+            def run(rt):
+                ch, _ = stats_fn(rt)               # (n_phys, n_ch)
+                present = (ch[:, -1].sum() > 0)[None]
+                return ch[:, None, :], present, None
+
+            return CompiledPilot(fn=run, catalog=self.catalog, needed=needed,
+                                 methods=methods, route=route)
+        run = self._pilot_tracer_run(plan, pilot_table, n_phys, pair_table,
+                                     needed)
+        return CompiledPilot(fn=run, catalog=self.catalog, needed=needed,
+                             methods=methods, route="gather")
+
+    def _pilot_tracer_run(self, plan, pilot_table, n_phys, pair_table, needed):
+        """The gather-route pilot body: rt -> (block_sums, present, pair).
+
+        One segmented sum gives every channel's sum per (pilot block,
+        group); rows that belong to no pilot block (another table's, on the
+        pilot table's right or in a union) go to the scratch block n_phys and
+        are sliced away.  With a pair table a second one gives the sums per
+        (pilot block, right block), the reference's dense layout.
+        """
+        mg = plan.max_groups
+        exprs = tuple([None if a.op == "count" else a.expr for a in plan.aggs] + [None])
+        has_pair = self._has_pair(plan, pair_table)
+        tracer = _Tracer(self.catalog, needed, {pilot_table: "block"},
+                         pilot_table=pilot_table, n_phys_pilot=n_phys,
+                         pair_table=pair_table)
+        n_right = self.catalog[pair_table].num_blocks if has_pair else 0
+        rcol = f"__rblock_{pair_table}"
+        n_ch = len(exprs)
 
         def run(rt):
-            ch, _ = stats_fn(rt)               # (n_phys, n_ch)
-            present = (ch[:, -1].sum() > 0)[None]
-            return ch[:, None, :], present
+            tt = tracer.trace(plan.child, rt)
+            gid = _group_ids(tt.columns, tt.valid.shape[0], plan.group_by, mg,
+                             tt.valid.device)
+            vals = channel_matrix(tt.columns, tt.valid, exprs, rt["params"])
+            dense = segment_sum(vals, tt.pblock * mg + gid, (n_phys + 1) * mg)
+            block_sums = dense[:, : n_phys * mg].reshape(n_ch, n_phys, mg).permute(1, 2, 0)
+            present = block_sums[:, :, -1].sum(dim=0) > 0
+            pair = None
+            if has_pair:
+                rb = torch.where(tt.valid, tt.columns[rcol], 0)
+                pdense = segment_sum(vals, tt.pblock * n_right + rb,
+                                     (n_phys + 1) * n_right)
+                pair = pdense[:, : n_phys * n_right].reshape(
+                    n_ch, n_phys, n_right).permute(1, 2, 0)
+            return block_sums, present, pair
 
-        return CompiledPilot(fn=run, catalog=self.catalog, needed=needed,
-                             methods={pilot_table: "block"}, route=route)
+        return run
 
     # -- kernel lowering of per-block stats ----------------------------------
     def _lower_block_stats(self, table: str, preds: List[Expr],
@@ -705,3 +1014,12 @@ def _mask_padding(chans: torch.Tensor, cnt: torch.Tensor, n_real: int):
     n_phys = chans.shape[0]
     mask = (torch.arange(n_phys, device=chans.device) < n_real).to(torch.float32)
     return chans * mask[:, None], cnt * mask
+
+
+def _walk(plan: L.Plan):
+    yield plan
+    if isinstance(plan, L.Aggregate):
+        yield from _walk(plan.child)
+    else:
+        for c in plan.children():
+            yield from _walk(c)

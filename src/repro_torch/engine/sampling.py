@@ -4,10 +4,12 @@ Sampling *decisions* are host-side (numpy RNG) — exactly as a DBMS's
 TABLESAMPLE decides pages before scanning them — and data movement is
 device-side: the kernels read only the sampled blocks (cost ∝ θ · bytes).
 
-The draw is the reference's bit for bit (``rng.random(N) < rate`` under
-``np.random.default_rng(seed)``), so equal seeds give equal block ids in both
-packages.  Row sampling and the staged / distributed sub-draws wait for later
-slices of the port.
+The draws are the reference's bit for bit (``rng.random(N) < rate`` under
+``np.random.default_rng(seed)``, over blocks for TABLESAMPLE SYSTEM and over
+every padded row for TABLESAMPLE BERNOULLI), so equal seeds give equal block
+ids and row masks in both packages.  The staged and distributed sub-draws
+(``restrict_block_ids``, ``subdraw_positions``) wait for the slices that
+port their consumers.
 """
 
 from __future__ import annotations
@@ -16,6 +18,9 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
+
+from repro_torch.engine.table import BlockTable
 
 
 @dataclasses.dataclass
@@ -61,3 +66,32 @@ def pad_block_ids(ids: np.ndarray, num_blocks: int) -> tuple[np.ndarray, int, in
     pad = max(n_phys - n_real, 0)
     phys = np.concatenate([ids, np.zeros(pad, np.int32)]) if pad else ids
     return phys, n_real, n_phys
+
+
+def draw_row_mask(padded_rows: int, rate: float, seed: int) -> np.ndarray:
+    """The host-side Bernoulli row draw — the TABLESAMPLE BERNOULLI
+    decision, one uniform per padded row."""
+    rng = np.random.default_rng(seed)
+    return rng.random(padded_rows) < rate
+
+
+def draw_row_sample(table: BlockTable, rate: float,
+                    seed: int) -> tuple[torch.Tensor, SampleInfo]:
+    """One TABLESAMPLE BERNOULLI decision: the keep mask over every padded
+    row, on the table's device, and its :class:`SampleInfo`, whose kept
+    rows are counted on the device; the full scan is paid."""
+    from repro_torch.engine.physical import scan_cost_bytes
+
+    keep = torch.from_numpy(draw_row_mask(table.padded_rows, rate, seed)).to(table.device)
+    info = SampleInfo("row", rate, seed, None, table.num_blocks, None,
+                      scanned_bytes=scan_cost_bytes(table, "row"))
+    info.n_sampled_rows = int((table.valid & keep).sum())
+    info.n_total_rows = table.num_rows
+    return keep, info
+
+
+def row_sample(table: BlockTable, rate: float, seed: int) -> tuple[BlockTable, SampleInfo]:
+    """TABLESAMPLE BERNOULLI analogue: the table with its validity cut by
+    :func:`draw_row_sample`'s mask."""
+    keep, info = draw_row_sample(table, rate, seed)
+    return dataclasses.replace(table, valid=table.valid & keep), info

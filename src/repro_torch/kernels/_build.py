@@ -25,7 +25,8 @@ import torch
 
 # each library and the shared headers of csrc/ that its .cu includes
 HEADERS = {"filtered_agg": ("block_reduce.cuh",), "block_agg": ("block_reduce.cuh",),
-           "flash_attn": ("float_io.cuh", "hopper.cuh"), "gla_chunk": ("float_io.cuh",)}
+           "flash_attn": ("float_io.cuh", "hopper.cuh"), "gla_chunk": ("float_io.cuh",),
+           "segment_sum": ("block_reduce.cuh",)}
 KERNELS = tuple(HEADERS)
 
 _KERNELS_DIR = Path(__file__).resolve().parent
@@ -50,6 +51,7 @@ build_seconds: Dict[str, float] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_int64
 # Every function each library exports, with its ctypes signature.  Each one
 # needs its argtypes set: without them ctypes passes a Python int as a 32-bit
 # C int, which cuts a device pointer and faults on the card.
@@ -69,6 +71,11 @@ _SIGNATURES = {
     "gla_chunk": {
         "gla_chunk_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _P],
+    },
+    "segment_sum": {
+        "segment_sum_keys_launch": [_P, _L, _L, _P, _P],
+        "segment_sum_launch": [_P, _P, _P, _L, _L, _I, _L, _P, _P, _P, _P,
+                               _P, _L, _P, _P],
     },
 }
 

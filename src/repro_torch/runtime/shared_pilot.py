@@ -12,15 +12,14 @@ optimization from its own ErrorSpec and draws its own final sample from its
 own seed.
 
 Stage 1.  When a group holds two or more pilot subgroups, their pilots run
-through ``PilotDB.run_pilots_batched`` (each a solo kernel pilot, as on the
-reference's kernel routes); the subgroups' stage-2 planning then fans out on
-the runtime's pilot pool and re-joins here.
+through ``PilotDB.run_pilots_batched`` (each a solo pilot); the subgroups'
+stage-2 planning then fans out on the runtime's pilot pool and re-joins here.
 
 Batched finals.  Every subgroup first plans its members' finals, then the
 whole group's pending final scans run through ``PilotDB.run_finals_batched``:
-members sharing a compile key run as ONE launch of the batched kernel.  A
-failing batched launch raises out of the group and fails its unfinished
-members (``AsyncRuntime`` captures it); it is never re-run as solo launches.
+members sharing a compile key run as ONE batched call.  A failing batched
+call raises out of the group and fails its unfinished members
+(``AsyncRuntime`` captures it); it is never re-run as solo calls.
 
 Bit-identity.  The pilot seed derives from (session seed, structural
 signature, pilot params) — not from any member's per-query seed — and the

@@ -28,7 +28,7 @@ from repro_torch.engine import logical as L
 from repro_torch.engine.datagen import tpch_catalog
 from repro_torch.engine.executor import EmptySampleError, Executor
 from repro_torch.engine.expr import And, Col
-from repro_torch.engine.physical import ScanRuntime
+from repro_torch.engine.physical import ScanRuntime, plan_constants
 from repro_torch.kernels.block_agg import block_agg, block_agg_batched
 from repro_torch.kernels.filtered_agg import filtered_agg, filtered_agg_batched
 
@@ -329,6 +329,9 @@ def test_compile_cache_builds_a_key_once_across_threads(catalog):
 
 
 def test_a_failed_build_is_retried(catalog):
+    """A build that raises leaves no cache entry, so the next call builds
+    again; here the filterless SUM(a - b) the kernels cannot take, whose
+    batch runs each lane through the solo gather body."""
     ex = Executor(catalog, device="cpu")
     plan = L.rewrite_scans(
         L.Aggregate(child=L.Scan("lineitem"),
@@ -336,8 +339,25 @@ def test_a_failed_build_is_retried(catalog):
                                     "x"),)),
         {"lineitem": L.SampleClause("block", 0.3, seed=1)})
     rt = ScanRuntime("block", 2, 64, np.zeros(64, np.int32))
+    build = ex.physical._build_batched
+
+    def failing(*a):
+        raise RuntimeError("build failed")
+
+    ex.physical._build_batched = failing
     for _ in range(2):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(RuntimeError, match="build failed"):
             ex.physical.compile_batched_query(plan, {"lineitem": rt}, 2)
     info = ex.compile_cache_info()
     assert (info.misses, info.size) == (2, 0)
+    ex.physical._build_batched = build
+    compiled = ex.physical.compile_batched_query(plan, {"lineitem": rt}, 2)
+    info = ex.compile_cache_info()
+    assert (info.misses, info.size, compiled.route) == (3, 1, "gather_batched")
+    rt2 = ScanRuntime("block", 3, 64, np.arange(64, dtype=np.int32))
+    sums, counts = compiled.call_batch([{"lineitem": rt}, {"lineitem": rt2}],
+                                       [plan_constants(plan)] * 2)
+    for k, r in enumerate((rt, rt2)):
+        s1, c1 = ex.physical.compile_query(plan, {"lineitem": r})(
+            {"lineitem": r}, plan_constants(plan))
+        assert torch.equal(sums[k], s1) and torch.equal(counts[k], c1)

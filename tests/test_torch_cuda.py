@@ -16,6 +16,7 @@ from repro_torch.kernels.block_agg import (block_agg, block_agg_batched,
 from repro_torch.kernels.filtered_agg import (filtered_agg, filtered_agg_batched,
                                               filtered_agg_batched_ref,
                                               filtered_agg_ref)
+from repro_torch.kernels.segment_sum import segment_sum, segment_sum_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -290,6 +291,119 @@ def test_cuda_session_matches_cpu_session(cuda):
     assert g.report.plan.rates["lineitem"] == pytest.approx(
         c.report.plan.rates["lineitem"], rel=1e-6)
     np.testing.assert_allclose(g.answer.values, c.answer.values, rtol=1e-5)
+
+
+# -- the gather route: segment_sum ------------------------------------------------
+
+# (channels, rows, segments): keys drawn over fewer ids than segments, so
+# some segments are empty; one run longer than many 1,024-row chunks; S >> R
+# (a join pilot's pair sums); C = 1 and 5; more channels than one pass keeps;
+# above 2^24 rows, where chunks are 4,096 rows (segments of ~4,500 rows)
+SEGMENT_CASES = [(5, 40_000, 60), (2, 3 * 4096 * 5 + 17, 3), (2, 32_768, 10_000_000),
+                 (1, 5_000, 7), (5, 30_000, 1), (9, 20_000, 100),
+                 (1, (1 << 24) + 1_000, 5_000)]
+
+
+@pytest.mark.parametrize("case", SEGMENT_CASES, ids=lambda c: f"{c[0]}x{c[1]}->{c[2]}")
+def test_segment_sum_matches_plain_version_on_the_card(cuda, case):
+    """Against the plain version on the CPU (row-order index_add_) at rtol
+    1e-5: the kernel adds each segment in 1,024- or 4,096-row chunks,
+    lanes strided, so the last bits differ.  Price-like positive values, so
+    the relative tolerance means what it says; at most ~30k rows per
+    segment, where row order's own f32 error stays near 3e-6.  Two launches
+    bitwise equal; empty segments exactly 0."""
+    c, r, nseg = case
+    rng = np.random.default_rng(r)
+    vals = torch.from_numpy(rng.uniform(900.0, 1100.0, (c, r)).astype(np.float32))
+    keys = rng.integers(0, max(nseg - nseg // 4, 1), r)
+    seg = torch.from_numpy(keys)
+    launches = segment_sum.launches
+    got = segment_sum(vals.to(cuda), seg.to(cuda), nseg)
+    again = segment_sum(vals.to(cuda), seg.to(cuda), nseg)
+    torch.cuda.synchronize()
+    assert segment_sum.launches == launches + 2
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    got = got.cpu()
+    plain = segment_sum_ref(vals, seg, nseg)
+    torch.testing.assert_close(got, plain, rtol=1e-5, atol=0)
+    empty = torch.ones(nseg, dtype=torch.bool)
+    empty[seg] = False
+    assert not got[:, empty].any()
+
+
+def test_segment_sum_drops_keys_out_of_range_on_the_card(cuda):
+    """A key outside [0, S) is dropped on the card, as the plain version on
+    the CPU drops it."""
+    seg = torch.tensor([0, 1, 2, -1, 3, 99, 2], dtype=torch.int64)
+    vals = torch.ones((2, 7), dtype=torch.float32)
+    got = segment_sum(vals.to(cuda), seg.to(cuda), 3)
+    assert got.cpu().tolist() == [[1.0, 1.0, 2.0]] * 2
+    assert torch.equal(got.cpu(), segment_sum(vals, seg, 3))
+
+
+def test_gather_sessions_on_the_card_match_the_cpu(cuda):
+    """The grouped, join and Q14 queries of examples/aqp_analytics.py on the
+    card and on the CPU: equal pilot sizes and fallbacks, rates within
+    rtol 1e-6, answers within rtol 1e-5."""
+    guarantee = " ERROR 15% CONFIDENCE 90%"
+    queries = [
+        "SELECT SUM(l_quantity) AS qty, AVG(l_extendedprice) AS avg_price, "
+        "COUNT(*) AS orders FROM lineitem GROUP BY l_returnflag",
+        "SELECT SUM(l_extendedprice) AS rev FROM lineitem "
+        "JOIN orders ON l_orderkey = o_orderkey WHERE o_orderdate < 1200",
+        "SELECT SUM(l_extendedprice * l_discount * l_linestatus) / "
+        "SUM(l_extendedprice * l_discount) AS promo_share FROM lineitem "
+        "WHERE l_shipdate BETWEEN 400 AND 2200"]
+    launches = segment_sum.launches
+    out = {}
+    for dev in ("cuda", "cpu"):
+        s = Session(tpch_catalog(200_000, 32, seed=0, device=dev), seed=7,
+                    device=dev)
+        out[dev] = [s.sql(q + guarantee) for q in queries] + [s.sql(q) for q in queries]
+    assert segment_sum.launches > launches
+    for g, c in zip(out["cuda"], out["cpu"]):
+        assert g.status == c.status == "done"
+        assert g.fallback == c.fallback
+        assert g.report.n_pilot_blocks == c.report.n_pilot_blocks
+        assert (g.report.plan is None) == (c.report.plan is None)
+        if g.report.plan is not None:
+            for t, rate in g.report.plan.rates.items():
+                assert rate == pytest.approx(c.report.plan.rates[t], rel=1e-6)
+        np.testing.assert_allclose(g.answer.values, c.answer.values, rtol=1e-5)
+
+
+def test_cuda_grouped_drain_is_bitwise_the_serial_session(cuda):
+    """A grouped herd on the card: one solo pilot per member, its finals
+    run gather_batched, and every answer is bitwise an equal-seed serial
+    session's Session.sql."""
+    from repro_torch.api import SessionConfig
+    cat = tpch_catalog(200_000, 32, seed=0, device="cuda")
+    herd = [f"SELECT SUM(l_quantity) AS qty, COUNT(*) AS n FROM lineitem "
+            f"WHERE l_shipdate < {x} GROUP BY l_returnflag ERROR 15% CONFIDENCE 90%"
+            for x in (1800, 2000, 2200, 2400)]
+    s = Session(cat, seed=7, config=SessionConfig(result_cache_size=0))
+    routes = []
+    compile_batched = s.executor.physical.compile_batched_query
+
+    def spy(*a, **kw):
+        c = compile_batched(*a, **kw)
+        routes.append(c.route)
+        return c
+
+    s.executor.physical.compile_batched_query = spy
+    hs = [s.submit(q) for q in herd]
+    s.drain()
+    serial = Session(cat, seed=7, config=SessionConfig(
+        async_workers=0, share_pilots=False, result_cache_size=0))
+    try:
+        assert "gather_batched" in routes
+        for h, q in zip(hs, herd):
+            r = serial.sql(q)
+            assert h.status == r.status == "done"
+            np.testing.assert_array_equal(h.answer.values, r.answer.values)
+    finally:
+        s.close()
+        serial.close()
 
 
 # -- the model kernels: flash_attn and gla_chunk ----------------------------------

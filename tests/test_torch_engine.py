@@ -174,21 +174,38 @@ def test_empty_sample_raises(catalogs):
 
 @pytest.mark.parametrize("what", ["group_by", "join", "row_sample", "or_filter"])
 def test_shapes_of_later_slices_raise(catalogs, what):
-    _, port = catalogs
+    """The four shapes an earlier slice refused (GROUP BY, a join, row
+    sampling, an OR predicate) no longer raise: they run through the gather
+    route and equal the reference's ``xla_gather`` route — block ids and row
+    counts exactly, sums to rtol 1e-5 (``tests/test_torch_gather.py`` holds
+    the route to the reference shape by shape)."""
+    ref, port = catalogs
     tex = Executor(port, device="cpu")
-    E, L = t_expr, t_L
-    aggs = (L.AggSpec("count", None, "n"),)
-    block = L.SampleClause("block", 0.1, 1)
-    if what == "group_by":
-        plan = L.Aggregate(L.Scan("lineitem", block), aggs, "l_returnflag", 3)
-    elif what == "join":
-        plan = L.Aggregate(L.Join(L.Scan("lineitem", block), L.Scan("orders"),
-                                  "l_orderkey", "o_orderkey"), aggs)
-    elif what == "row_sample":
-        plan = L.Aggregate(L.Scan("lineitem", L.SampleClause("row", 0.1, 1)), aggs)
-    else:
+    rex = RefExecutor(ref, kernel_mode="xla")
+
+    def plan(L, E):
+        aggs = (L.AggSpec("count", None, "n"),
+                L.AggSpec("sum", E.Col("l_extendedprice"), "s"))
+        block = L.SampleClause("block", 0.1, 1)
+        if what == "group_by":
+            return L.Aggregate(L.Scan("lineitem", block), aggs, "l_returnflag", 3)
+        if what == "join":
+            return L.Aggregate(L.Join(L.Scan("lineitem", block), L.Scan("orders"),
+                                      "l_orderkey", "o_orderkey"), aggs)
+        if what == "row_sample":
+            return L.Aggregate(L.Scan("lineitem", L.SampleClause("row", 0.1, 1)), aggs)
         pred = E.Or(E.Cmp("<", E.Col("l_quantity"), E.Const(5.0)),
                     E.Cmp(">", E.Col("l_quantity"), E.Const(40.0)))
-        plan = L.Aggregate(L.Filter(L.Scan("lineitem", block), pred), aggs)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tex.execute(plan)
+        return L.Aggregate(L.Filter(L.Scan("lineitem", block), pred), aggs)
+
+    r = rex.execute(plan(r_L, r_expr))
+    t = tex.execute(plan(t_L, t_expr))
+    for name, ri in r.sample_infos.items():
+        ti = t.sample_infos[name]
+        assert (ti.method, ti.n_sampled_blocks, ti.n_sampled_rows) == \
+            (ri.method, ri.n_sampled_blocks, ri.n_sampled_rows)
+        if ri.sampled_block_ids is not None:
+            np.testing.assert_array_equal(ti.sampled_block_ids, ri.sampled_block_ids)
+    np.testing.assert_array_equal(t.group_counts, r.group_counts)
+    np.testing.assert_allclose(t.values, r.values, rtol=1e-5)
+    assert t.scanned_bytes == r.scanned_bytes

@@ -47,6 +47,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     loaded = int(out.stdout.split("LOADED ")[1].split()[0])
     assert loaded >= 25  # every module of the package was imported
     mods = set(out.stdout.split("MODS ")[1].split("\n")[0].split())
+    # the gather route and the builder stand alone too
+    assert {"repro_torch.api.builder", "repro_torch.kernels.segment_sum.ops",
+            "repro_torch.kernels.segment_sum.ref"} <= mods
     # the serving path: scheduler and runtime stand alone too
     assert {"repro_torch.api.scheduler", "repro_torch.runtime",
             "repro_torch.runtime.pool", "repro_torch.runtime.result_cache",
@@ -62,7 +65,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
 
 
 def test_no_source_imports_jax_or_the_reference():
-    scripts = [ROOT / "chip_smoke.py", ROOT / "examples" / "torch_approx_eval.py"]
+    scripts = [ROOT / "chip_smoke.py", ROOT / "examples" / "torch_approx_eval.py",
+               ROOT / "examples" / "torch_aqp_analytics.py"]
     files = sorted(PKG.rglob("*.py")) + scripts
     assert all(f.exists() for f in scripts)
     offenders = [str(f) for f in files if _FORBIDDEN.search(f.read_text())]

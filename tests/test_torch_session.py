@@ -135,11 +135,18 @@ def test_guarantee_holds_against_the_exact_answer(port_runs):
 
 
 def test_execution_failures_are_captured_on_the_handle(catalogs):
-    _, port = catalogs
-    s = Session(port, seed=1, device="cpu")
-    h = s.sql("SELECT COUNT(*) AS n FROM lineitem GROUP BY l_returnflag "
-              "ERROR 5% CONFIDENCE 95%")
-    assert h.status == "failed" and "later slice" in h.error
+    """An error raised while a query executes fails its handle, with the
+    error's type and message, as the reference's does: here a self join
+    whose right side brings a column the left side already has."""
+    ref, port = catalogs
+    sql = ("SELECT SUM(l_quantity) AS q FROM lineitem "
+           "JOIN lineitem ON l_orderkey = l_orderkey")
+    for text in (sql, sql + " ERROR 5% CONFIDENCE 95%"):
+        h = Session(port, seed=1, device="cpu").sql(text)
+        rh = ref_api.Session(ref, seed=1).sql(text)
+        assert h.status == rh.status == "failed"
+        assert h.error == rh.error == \
+            "ValueError: column name collision in join: l_quantity"
 
 
 def test_exact_sums_against_f64(catalogs, port_runs):
