@@ -95,14 +95,21 @@ Phases, each printing its own lines:
              constant-varied WHERE l_shipdate < X GROUP BY l_returnflag):
              one solo pilot per member, its finals take
              gather_batched, and each answer is bitwise an equal-seed
-             serial session's Session.sql.  Every segment_sum input of
-             the first pass (first call per shape) is replayed: bitwise
-             equal across two launches, empty segments exactly 0, within
-             rtol 1e-5 of an f64 sum, and held to its plain version
-             (index_add_) within the f32 summation bound of both; then
-             timed (CUDA events, L2 flushed) beside its bytes bound, the
-             launch floor of its six grids, the stable sort alone, the
-             plain version and index_add_ alone.
+             serial session's Session.sql.  Each query prints its exact
+             and approximate walls beside their device idle share.  Every
+             segment_sum input of the first pass (first call per shape,
+             with its slab claim) is replayed: its route printed (slab for
+             the pilots, few for the finals and exact scans; the script
+             fails if one takes the sorted route), bitwise equal across two
+             launches, empty segments exactly 0, within rtol 1e-5 of an f64
+             sum, and held to its plain version (index_add_, which also
+             checks the slab claim) and to the sorted route's sums on the
+             same input within the f32 summation bound of both; then timed
+             (CUDA events, L2 flushed) beside its bytes bound, the launch
+             floor of its route's grids, the sorted route, the stable sort
+             alone, the plain version and index_add_ alone.  The sorted
+             route is also held and timed at a fixed input of its own
+             (SORTED_POINT), so all three routes run on the card.
 3b. model kernels — flash_attention and gla_chunked (run right after phase
              3) at fixed scaling points in bf16: flash at hymba's width (2 x 25
              q heads over 5 kv heads, 2048 tokens, d 64) causal without a
@@ -182,6 +189,9 @@ GATHER_QUERIES = {
 }
 GATHER_ERRORS = (5, 10, 15)      # ERROR e% tried in turn until a sampled final
 GATHER_WARM = {"q1": 5, "join": 3, "q14": 5}
+# segment_sum at a fixed input that only its sorted route takes (S * C
+# above the few route's 4,096 sums): 3 channels of 1M rows over 100,000 keys
+SORTED_POINT, SORTED_SEED = (3, 1_000_000, 100_000), 5
 GATHER_HERD = [f"SELECT SUM(l_quantity) AS qty, COUNT(*) AS n FROM lineitem "
                f"WHERE l_shipdate < {x} GROUP BY l_returnflag" for x in (1800, 2000, 2200, 2400)]
 # dense peaks of one H100 SXM at 700 W (data sheet): bf16 tensor cores, f32
@@ -675,18 +685,21 @@ def relative_errors(np, approx, exact):
     return (np.abs(a - e) / np.abs(e)).ravel()
 
 
-def check_segment_sum(torch, fn, ref, args, slice_cols=1 << 26):
+def check_segment_sum(torch, fn, ref, args, kwargs, sorted_route, slice_cols=1 << 26):
     """Hold one segment_sum call to an f64 sum of the same values (rtol
-    1e-5 of the segment's absolute sum) and to its plain version within the
-    f32 summation bound of both (2 n u sum|x| for a segment of n rows, u =
-    2^-24); empty segments exactly 0; two launches bitwise equal.  Segments
-    are checked in slices of ``slice_cols`` so the f64 sums of a join
-    pilot's 480M-segment output fit beside the catalog.  Returns (output,
-    max |kernel - plain|)."""
+    1e-5 of the segment's absolute sum) and, within the f32 summation bound
+    of both (2 n u sum|x| for a segment of n rows, u = 2^-24), to its plain
+    version (which also checks a slab claim) and to the sorted route's sums
+    (``sorted_route``, the route the new ones are held against); empty
+    segments exactly 0; two launches bitwise equal.  Segments are checked in
+    slices of ``slice_cols`` so the f64 sums of a join pilot's 480M-segment
+    output fit beside the catalog.  Returns (output, max |kernel - plain|)."""
     vals, seg, nseg = args
-    got = fn(*args)
-    check(bitwise_equal(torch, got, fn(*args)), "segment_sum: launches differ bitwise")
-    plain = ref(*args)
+    got = fn(*args, **kwargs)
+    check(bitwise_equal(torch, got, fn(*args, **kwargs)),
+          "segment_sum: launches differ bitwise")
+    plain = ref(*args, **kwargs)
+    yardstick = sorted_route(*args)
     err = float((got - plain).abs().max()) if got.numel() else 0.0
     for a in range(0, nseg, slice_cols):
         b = min(a + slice_cols, nseg)
@@ -702,60 +715,83 @@ def check_segment_sum(torch, fn, ref, args, slice_cols=1 << 26):
         bound = 2.0 * rows * 2.0 ** -24 * absum
         check(bool(((g - plain[:, a:b].double()).abs() <= bound).all()),
               f"segment_sum {segment_key(args)}: beyond the f32 bound of its plain version")
+        check(bool(((g - yardstick[:, a:b].double()).abs() <= bound).all()),
+              f"segment_sum {segment_key(args)}: beyond the f32 bound of the sorted route")
         check(not bool(torch.where(rows == 0, g, 0.0).any()),
               f"segment_sum {segment_key(args)}: an empty segment is not 0")
         del want, absum, rows, g, bound
+    del plain, yardstick
     return got, err
 
 
-def segment_sum_grids(rows, channels, nseg):
-    """The CTA counts of segment_sum's six kernels (csrc/segment_sum.cu)."""
-    from repro_torch.kernels.segment_sum.ops import chunk_rows
-    tiles = -(-rows // chunk_rows(rows))
-    cap = min(rows, tiles + min(rows, nseg))
-    return [min(-(-rows // 256), 65_536), -(-tiles // 8), 1, -(-tiles // 8),
-            min(-(-cap // 8), 4096), min(-(-cap // 8), 4096)]
-
-
-def time_segment_sum(torch, fn, ref, args, smi, launch_floor, iters=10):
-    """Check one recorded segment_sum input, then time it with CUDA events
-    and L2 flushed beside its bytes bound, the launch floor of its six
-    grids, the stable sort of its keys alone, its plain version and
-    index_add_ alone.  Returns its row of the ``kernels`` line."""
+def time_segment_sum(torch, ops, ref, args, kwargs, smi, launch_floor, iters=10):
+    """Check one segment_sum input, then time it with CUDA events and L2
+    flushed beside its bytes bound, the launch floor of its route's grids,
+    the sorted route on the same input (the first design, where the call
+    takes another route), the stable sort of its keys alone, its plain
+    version and index_add_ alone.  Returns its row of the ``kernels``
+    line."""
     vals, seg, nseg = args
     channels, rows = vals.shape
-    _, err = check_segment_sum(torch, fn, ref, args)
-    ms = time_cold(torch, lambda: fn(*args), iters)
-    plain_ms = time_cold(torch, lambda: ref(*args), iters)
+    plan = ops.launch_plan(channels, rows, nseg, kwargs.get("slab_rows"),
+                           kwargs.get("slab_keys"))
+    sorted_route = lambda *a: ops.launch(*a, force="sorted")
+    _, err = check_segment_sum(torch, ops.segment_sum, ref, args, kwargs, sorted_route)
+    ms = time_cold(torch, lambda: ops.segment_sum(*args, **kwargs), iters)
+    sorted_ms = (ms if plan.route == "sorted"
+                 else time_cold(torch, lambda: sorted_route(*args), iters))
+    plain_ms = time_cold(torch, lambda: ref(*args, **kwargs), iters)
     out = torch.zeros((channels, nseg), dtype=torch.float32, device=vals.device)
     library_ms = time_cold(torch, lambda: out.index_add_(1, seg, vals), iters)
     del out
     keys = seg.to(torch.int32)
     sort_ms = time_cold(torch, lambda: torch.sort(keys, stable=True), iters)
     del keys
-    grids = segment_sum_grids(rows, channels, nseg)
-    floor_ms = time_cold(torch, lambda: [launch_floor(g, 1) for g in grids], iters)
-    # where one call's device time goes: the sort's kernels and the six
-    # passes (the profiler now and then returns no events: ask again)
+    floor_ms = time_cold(torch, lambda: [launch_floor(g, 1) for g in plan.grids], iters)
+    # where one call's device time goes (the profiler now and then returns
+    # no events: ask again)
     top = []
     for _ in range(3):
-        top = top or device_profile(torch, lambda: fn(*args), top=10)[2]
-    parts = [(name.split("(")[0].split("<")[0].split("::")[-1][:48], ms, n)
-             for name, ms, n in top]
+        top = top or device_profile(torch, lambda: ops.segment_sum(*args, **kwargs),
+                                    top=10)[2]
+    parts = [(name.split("(")[0].split("<")[0].split("::")[-1][:48], t, n)
+             for name, t, n in top]
     nbytes = rows * channels * 4 + rows * 8 + nseg * channels * 4
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"[gather] segment_sum (C, R, S) {segment_key(args)}: {ms * 1e3:.2f} us "
-          f"(bound {bound_ms * 1e3:.3f} us = {nbytes:,} B / 3.35 TB/s, "
-          f"{bound_ms / ms:.1%} of bound; launch floor of its 6 grids "
-          f"{floor_ms * 1e3:.2f} us; stable sort alone {sort_ms * 1e3:.2f} us; "
+    claim = (f", slab claim {kwargs['slab_rows']} rows / {kwargs['slab_keys']} keys"
+             if kwargs else "")
+    print(f"[gather] segment_sum (C, R, S) {segment_key(args)}: route {plan.route} "
+          f"({plan.variant}{claim}) {ms * 1e3:.2f} us (bound {bound_ms * 1e3:.3f} us = "
+          f"{nbytes:,} B / 3.35 TB/s, {bound_ms / ms:.1%} of bound; launch floor of its "
+          f"{len(plan.grids)} grid(s) {list(plan.grids)} {floor_ms * 1e3:.2f} us; sorted "
+          f"route {sorted_ms * 1e3:.2f} us; stable sort alone {sort_ms * 1e3:.2f} us; "
           f"plain {plain_ms * 1e3:.2f} us; index_add_ {library_ms * 1e3:.2f} us); "
           f"max |kernel - plain| {err:.3g}  [{smi}]")
     print("[gather]   its device kernels under torch.profiler (L2 warm): "
-          + "; ".join(f"{name} {ms * 1e3:.2f} us x{n}" for name, ms, n in parts))
-    return {"shape": list(segment_key(args)), "ms": ms, "plain_ms": plain_ms,
+          + "; ".join(f"{name} {t * 1e3:.2f} us x{n}" for name, t, n in parts))
+    return {"shape": list(segment_key(args)), "route": plan.route,
+            "variant": plan.variant, "slab": kwargs or None, "ms": ms,
+            "sorted_route_ms": sorted_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "sort_ms": sort_ms, "bound_ms": bound_ms,
-            "bytes": nbytes, "floor_ms": floor_ms, "grids": grids,
+            "bytes": nbytes, "floor_ms": floor_ms, "grids": list(plan.grids),
             "max_abs_err": err, "device_kernels": parts}
+
+
+def sorted_route_point(torch, np, ops, ref, smi, launch_floor):
+    """segment_sum at a fixed input only the sorted route takes (S * C
+    above the few route's budget, no slab claim): checked and timed as a
+    recorded input is."""
+    c, rows, nseg = SORTED_POINT
+    rng = np.random.default_rng(SORTED_SEED)
+    dev = torch.device("cuda")
+    vals = torch.from_numpy(rng.uniform(900.0, 1100.0, (c, rows)).astype(np.float32)).to(dev)
+    seg = torch.from_numpy(rng.integers(0, nseg, rows)).to(dev)
+    check(ops.launch_plan(c, rows, nseg).route == "sorted",
+          f"{SORTED_POINT} does not take the sorted route")
+    before = ops.segment_sum.launches
+    row = time_segment_sum(torch, ops, ref, (vals, seg, nseg), {}, smi, launch_floor)
+    check(ops.segment_sum.launches > before, "the sorted route was never launched")
+    return row
 
 
 def run_gather(torch, np, catalog, Session, SessionConfig, segment_sum, recorder,
@@ -840,7 +876,8 @@ def run_gather(torch, np, catalog, Session, SessionConfig, segment_sum, recorder
             busy, pwall = device_busy_ms(torch, lambda: session.sql(q))
             row[f"{kind}_device_busy_ms"], row[f"{kind}_profiled_wall_ms"] = busy, pwall
             share = "not measured" if busy is None else f"{1 - busy / pwall:.1%}"
-            print(f"[gather] {qn} {kind} under torch.profiler: device kernels "
+            print(f"[gather] {qn} {kind}: wall {row[f'{kind}_ms']:.2f} ms (median of "
+                  f"{GATHER_WARM[qn]} warm runs); under torch.profiler device kernels "
                   f"{busy if busy is None else round(busy, 4)} ms of {pwall:.2f} ms "
                   f"wall; device idle share {share}  [{smi}]")
         summary[qn] = row
@@ -1243,6 +1280,7 @@ def main() -> int:
                                                   filtered_agg_ref)
     from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
     from repro_torch.kernels.gla_chunk import gla_chunked, gla_chunked_ref
+    from repro_torch.kernels.segment_sum import ops as segment_ops
     from repro_torch.kernels.segment_sum import segment_sum, segment_sum_ref
     from repro_torch.models import layers, linear_attn
     wrappers = (filtered_agg, block_agg, filtered_agg_batched, block_agg_batched)
@@ -1583,9 +1621,19 @@ def main() -> int:
     ss_calls = recorder.calls["segment_sum"]
     check(bool(ss_calls), "segment_sum: no call of the gather route was recorded")
     gather["segment_sum"] = [
-        time_segment_sum(torch, segment_sum, segment_sum_ref, args, smi, launch_floor)
-        for args, _ in ss_calls.values()]
+        time_segment_sum(torch, segment_ops, segment_sum_ref, args, kwargs, smi,
+                         launch_floor)
+        for args, kwargs in ss_calls.values()]
     ss_calls.clear()
+    # no recorded pilot, final or exact scan reaches the stable sort; the
+    # sorted route is held and timed at a fixed input of its own
+    for r in gather["segment_sum"]:
+        check(r["route"] != "sorted", f"segment_sum {r['shape']} took the sorted route")
+    gather["segment_sum_sorted_point"] = sorted_route_point(
+        torch, np, segment_ops, segment_sum_ref, smi, launch_floor)
+    routes = {r["route"] for r in gather["segment_sum"]}
+    routes.add(gather["segment_sum_sorted_point"]["route"])
+    check(routes == {"slab", "few", "sorted"}, f"segment_sum routes launched: {routes}")
     torch.cuda.synchronize()
     for fn in wrappers:
         recorder.calls[fn.__name__].clear()
@@ -1681,7 +1729,9 @@ def main() -> int:
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": "bytes", "library_ms": head["library_ms"],
         "floor_ms": head["floor_ms"], "sort_ms": head["sort_ms"],
-        "shape": head["shape"], "main_path": gather["segment_sum"],
+        "shape": head["shape"], "route_taken": head["route"],
+        "main_path": gather["segment_sum"],
+        "sorted_route_point": gather["segment_sum_sorted_point"],
     })
     model_sources = {
         "flash_attention": ("src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",

@@ -880,10 +880,15 @@ class PhysicalCompiler:
         """The gather-route pilot body: rt -> (block_sums, present, pair).
 
         One segmented sum gives every channel's sum per (pilot block,
-        group); rows that belong to no pilot block (another table's, on the
-        pilot table's right or in a union) go to the scratch block n_phys and
-        are sliced away.  With a pair table a second one gives the sums per
-        (pilot block, right block), the reference's dense layout.
+        group), over ``n_phys * max_groups`` segments; rows that belong to
+        no pilot block (another table's, on the pilot table's right or in a
+        union) carry the scratch block n_phys, so their keys lie past the
+        last segment and ``segment_sum`` drops them.  With a pair table a
+        second one gives the sums per (pilot block, right block), the
+        reference's dense layout.  Where the pilot table's rows come first
+        and it is scanned once (:func:`_pilot_rows_first`), a pilot block's
+        rows are its ``block_rows`` contiguous rows, and both calls state so
+        (the slab claim: key // W == row // block_rows).
         """
         mg = plan.max_groups
         exprs = tuple([None if a.op == "count" else a.expr for a in plan.aggs] + [None])
@@ -894,22 +899,24 @@ class PhysicalCompiler:
         n_right = self.catalog[pair_table].num_blocks if has_pair else 0
         rcol = f"__rblock_{pair_table}"
         n_ch = len(exprs)
+        slab = _pilot_rows_first(plan.child, pilot_table)
 
         def run(rt):
             tt = tracer.trace(plan.child, rt)
+            claim = lambda width: (dict(slab_rows=tt.block_rows, slab_keys=width)
+                                   if slab else {})
             gid = _group_ids(tt.columns, tt.valid.shape[0], plan.group_by, mg,
                              tt.valid.device)
             vals = channel_matrix(tt.columns, tt.valid, exprs, rt["params"])
-            dense = segment_sum(vals, tt.pblock * mg + gid, (n_phys + 1) * mg)
-            block_sums = dense[:, : n_phys * mg].reshape(n_ch, n_phys, mg).permute(1, 2, 0)
+            dense = segment_sum(vals, tt.pblock * mg + gid, n_phys * mg, **claim(mg))
+            block_sums = dense.reshape(n_ch, n_phys, mg).permute(1, 2, 0)
             present = block_sums[:, :, -1].sum(dim=0) > 0
             pair = None
             if has_pair:
                 rb = torch.where(tt.valid, tt.columns[rcol], 0)
-                pdense = segment_sum(vals, tt.pblock * n_right + rb,
-                                     (n_phys + 1) * n_right)
-                pair = pdense[:, : n_phys * n_right].reshape(
-                    n_ch, n_phys, n_right).permute(1, 2, 0)
+                pdense = segment_sum(vals, tt.pblock * n_right + rb, n_phys * n_right,
+                                     **claim(n_right))
+                pair = pdense.reshape(n_ch, n_phys, n_right).permute(1, 2, 0)
             return block_sums, present, pair
 
         return run
@@ -1014,6 +1021,30 @@ def _mask_padding(chans: torch.Tensor, cnt: torch.Tensor, n_real: int):
     n_phys = chans.shape[0]
     mask = (torch.arange(n_phys, device=chans.device) < n_real).to(torch.float32)
     return chans * mask[:, None], cnt * mask
+
+
+def _row_tables(plan: L.Plan) -> List[str]:
+    """The tables whose rows a traced plan's rows are, in row order: a
+    filter keeps its child's rows, a join its left side's, a union
+    concatenates its inputs'."""
+    if isinstance(plan, L.Scan):
+        return [plan.table]
+    if isinstance(plan, L.Filter):
+        return _row_tables(plan.child)
+    if isinstance(plan, L.Join):
+        return _row_tables(plan.left)
+    if isinstance(plan, L.Union):
+        return [t for p in plan.inputs for t in _row_tables(p)]
+    raise TypeError(plan)
+
+
+def _pilot_rows_first(plan: L.Plan, pilot_table: str) -> bool:
+    """Whether the pilot table's sampled rows are the traced plan's first
+    rows and its only rows with a pilot block: its scan comes first in row
+    order and no other scan of it adds rows.  Then row r of the trace lies
+    in pilot block r // block_rows, or in none."""
+    tables = _row_tables(plan)
+    return tables[0] == pilot_table and tables.count(pilot_table) == 1
 
 
 def _walk(plan: L.Plan):

@@ -76,6 +76,8 @@ _SIGNATURES = {
         "segment_sum_keys_launch": [_P, _L, _L, _P, _P],
         "segment_sum_launch": [_P, _P, _P, _L, _L, _I, _L, _P, _P, _P, _P,
                                _P, _L, _P, _P],
+        "segment_sum_slab_launch": [_P, _P, _L, _I, _L, _L, _L, _I, _P, _P],
+        "segment_sum_few_launch": [_P, _P, _L, _I, _L, _L, _I, _P, _P, _P],
     },
 }
 

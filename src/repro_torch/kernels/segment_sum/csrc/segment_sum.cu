@@ -2,7 +2,8 @@
 // matrix, added in a fixed order, CUDA C++ for sm_90a.
 //
 //   out[c, s] = sum of vals[c, r] over the rows r with seg[r] == s,
-//   out (C, S) f32, 0 where no row has key s.
+//   out (C, S) f32, 0 where no row has key s; a key outside [0, S) is
+//   dropped.
 //
 // Replaces no Pallas kernel: it is the device reduction of the reference's
 // gather route, the XLA scatter-add ``.at[:, seg].add(vals)`` of
@@ -13,61 +14,87 @@
 // port's contracts (a batched lane bitwise its solo run, equal seeds equal
 // answers) need the same bits every time.  Here the output is a function of
 // the inputs alone: no atomics, and every sum runs in an order fixed by the
-// keys.
+// keys and the row count.
 //
-// The order.  The wrapper sorts the keys with a stable sort (ordering, not
-// arithmetic), so each segment's rows form one run of sorted positions, in
-// row order.  Runs are cut into chunks at the multiples of ``chunk``
-// positions, so no chunk spans two runs and none is longer than ``chunk``:
-// 1,024 up to 2^24 rows, 4,096 above (the wrapper's choice, a function of
-// the row count alone), so a short input has enough chunks to spread over
-// the card and a long run few enough partials for the one warp that adds
-// them.  Lane l of the warp that owns a chunk adds its positions l, l + 32,
-// ... in that order, and the fixed warp_sum butterfly of block_reduce.cuh
-// combines the lanes; a chunk that is a whole run writes its sums straight
-// to the output.  A second pass sums each longer run's chunk partials in
-// chunk order: lane l takes chunks l, l + 32, ... of the run, then the same
-// butterfly.  The grouped exact scan of TPC-H Q1 at SF10 puts 60M rows into
-// 3 runs (~4,900 chunks each, all warps busy); a final's 65,536 rows into 3
-// runs make 66 chunks; a pilot puts 32,768 rows into runs of one or a few
-// rows (one short chunk per warp, each a whole run).
+// Three routes.  The wrapper (ops.py launch_plan) picks one on the host from
+// (C, R, S) and the caller's slab claim alone, never from the card, so a
+// call's bits depend on its inputs alone and no call needs a host sync.
 //
-// Latency.  Below a few million rows too few warps are in flight to hide
-// device-memory latency, so each pass keeps several independent loads in
-// flight per lane: the tile passes read kTileUnroll row steps of keys
-// before their first ballot, the chunk pass the row indices of kRowUnroll
-// positions, then their values, before its first add, and the run pass
-// kRowUnroll partials of every channel of a pass.  The adds stay in the
-// order above, so the unrolling changes no bit.
+// 1. slab: the caller states that every row r with a key in [0, S) has
+//    key / W == r / slab_rows (the gather pilots: a pilot block's rows are
+//    contiguous, its keys block * W + group or block * W + right block).
+//    One warp per slab of slab_rows rows, sorting nothing: no other warp
+//    writes the slab's keys, so no partials and no second pass.  The warp
+//    walks its slab in steps of 32 rows (lane l: row p + l); in each step
+//    __match_any_sync groups the lanes by key, and for each key, in the
+//    order of its lowest lane, the fixed warp_sum butterfly of
+//    block_reduce.cuh adds its rows (the other lanes give 0).  One
+//    butterfly serves every channel of a pass (warp_sum_scatter: at each of
+//    the first levels a lane keeps half of its channels, so channel j's sum
+//    lands on lanes j * 32 / kPass ..., in warp_sum's own tree and bits).
+//    A key's step sums are added in step order: for W <= 32 the slab's
+//    lanes write every key of the slab (a slab of one step straight from
+//    the lanes holding the sums, zeros for its absent keys; a longer one
+//    through lane key - slab * W's registers), so the output needs no zero
+//    fill; for a wider W (a join pilot's pair sums, W = the right table's
+//    block count) the lanes holding a channel's sums add them into the
+//    zero-filled output.  A row whose key breaks the claim is dropped, so
+//    warps never race; the plain version raises on it.
+// 2. few: no claim and S * C <= 4,096 (the finals and exact grouped scans,
+//    S = 1 or 3; a pilot without a claim, S = n_phys * W).  The rows are cut
+//    into ranges of range_rows rows (a power of two from R alone), one warp
+//    each; lane l adds rows l, l + 32, ... of its range in row order.  For
+//    S <= 4 every lane keeps every key's sums in registers (a predicated
+//    add per key and channel), then the butterfly per key and channel; for
+//    a larger S the warp keeps S * C sums in shared memory and adds each
+//    step's key sums as the slab route does, the lanes holding a channel's
+//    sum adding it to the key's slot.  A second launch adds the range
+//    partials of each output in a fixed order: thread t of a 256-thread CTA
+//    takes ranges t, t + 256, ... in order, then the butterfly per warp and
+//    over the 8 warp sums.
+// 3. sorted: everything else (S * C over the budget and no claim).  The
+//    wrapper sorts the keys with a stable sort (ordering, not arithmetic),
+//    so each segment's rows form one run of sorted positions, in row order.
+//    Runs are cut into chunks at the multiples of ``chunk`` positions, so
+//    no chunk spans two runs and none is longer than ``chunk``: 1,024 up to
+//    2^24 rows, 4,096 above.  Lane l of the warp that owns a chunk adds its
+//    positions l, l + 32, ... in that order, and the butterfly combines the
+//    lanes; a chunk that is a whole run writes its sums straight to the
+//    output.  A second pass sums each longer run's chunk partials in chunk
+//    order: lane l takes chunks l, l + 32, ... of the run, then the same
+//    butterfly.  Passes, all on the wrapper's stream: keys (int64 -> int32,
+//    out of range -> -1, sorted first, never written), the torch.sort,
+//    tile_count (warp per tile of ``chunk`` sorted positions: its chunk
+//    count), tile_scan (one CTA: each tile's first chunk, the total last),
+//    chunk_start (warp per tile: each chunk's start and key), chunk_sum
+//    (warp per chunk) and run_sum (warp per longer run).
 //
-// Passes, all on the wrapper's stream:
-//   keys        seg (int64) -> int32 keys, a key outside [0, S) -> -1
-//               (sorted first, never written: a scatter drops it);
-//   (torch.sort of the keys, stable, in the wrapper)
-//   tile_count  warp per tile of ``chunk`` sorted positions: its chunk count
-//               (its first position, plus each run start inside it);
-//   tile_scan   one CTA: exclusive prefix of the tile counts -> each
-//               tile's first chunk index, the chunk total last;
-//   chunk_start warp per tile: the start position and key of each of its
-//               chunks;
-//   chunk_sum   warp per chunk: the chunk's sum of every channel, written
-//               to the zero-filled (C, S) output where the chunk is a
-//               whole run;
-//   run_sum     warp per longer run: its chunk partials in chunk order,
-//               written to the output at the run's key.
+// Latency.  Every pass keeps several independent loads in flight per lane
+// before its first add: the slab and few kernels load the keys and values
+// of 4 row steps at once (a slab of 32 rows its one step; the few route's
+// lane kernel 8, its fastest at the exact Q1's 5 channels on the H100), the
+// sorted tile passes kTileUnroll steps of keys, its chunk pass the row
+// indices, then the values, of kRowUnroll positions, and the range and run
+// passes kRowUnroll partials.  The adds
+// stay in the orders above, so the unrolling changes no bit.
 //
-// What bounds it on the H100: device-memory bytes.  The function reads each
-// value once and each key once and writes the dense output once:
-// R·C·4 + R·8 + S·C·4 bytes (R·C·4 + R·12 + S·C·4 where one also counts a
-// 4-byte row index the ordered sum has to carry), at 3.35 TB/s, with a few
-// f32 adds per value.  This design moves several times that: the sort
-// (radix passes over int32 keys and int64 row indices), the keys twice more
-// (tile_count, chunk_start), the row index once more, and the values
-// gathered through it.  The wrapper's zero fill is the output write of the
-// bound, which dominates when S ≫ R (a join pilot's pair sums).  Below
-// ~100k rows no byte count matters: the stable sort's own launches and the
-// six passes' launch latencies set the time, several times that of one
-// index_add_ launch; a sort-free pass for few segments is the next step.
+// What bounds it on the H100: device-memory bytes.  Each route must read
+// each value once and each key once and write the dense output once,
+// R·C·4 + R·8 + S·C·4 bytes at 3.35 TB/s, with one f32 add per value.  The
+// few route moves that and its range partials (S·C·4 bytes a range); the
+// slab route that alone, except that its wide form writes the output twice
+// (the wrapper's zero fill, then the sums), which matters only where S ≫ R
+// and the fill is the bound anyway (a join pilot's 3.84 GB of pair sums).
+// Their arithmetic is a predicated add per key slot and channel per row
+// (few, S <= 4) or one scattered butterfly per distinct key per 32-row step
+// (slab, few with S > 4): at the Q1 pilot's 3 keys and 5 channels (a pass
+// of 8) per 32-row block, 27 shuffles a step where one butterfly per
+// channel would take 75.  Below ~100k rows no byte count matters: the
+// launches' own latency sets the time (one launch for a slab call, two for
+// a few call).  The
+// sorted route moves several times the bytes (the sort's radix passes over
+// int32 keys and int64 row indices, the keys twice more, the row index once
+// more, the values gathered through it) and makes seven launches.
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -343,6 +370,362 @@ __global__ void __launch_bounds__(kWarpsPerCta * kWarpSize)
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// The sort-free routes: slab and few
+// ---------------------------------------------------------------------------
+
+constexpr int kStepUnroll = 4;   // row steps of 32 whose loads a lane issues at once
+constexpr int kFewUnroll = 8;    // the same in the few route's lane kernel
+constexpr int kLaneKeys = 4;     // few route: keys a lane keeps in registers (S <= 4)
+constexpr int kSlabLaneKeys = kWarpSize;  // slab route: W a warp keeps in lanes
+constexpr int kRangeThreads = 256;        // range pass: threads per output
+
+// One step's row at this lane: its key (-1 where the row is past the span
+// or its key lies outside [key_lo, key_hi)) and its values of channels c0,
+// c0 + 1, ... (0 past the last channel).
+template <int kPass>
+struct StepRow {
+  int64_t key;
+  float v[kPass];
+};
+
+// The rows p0 + u * 32 + lane, u < kSteps, of a span ending at hi: every key
+// and value load issued before the first is used.
+template <int kPass, int kSteps>
+__device__ __forceinline__ void load_steps(const float* __restrict__ vals,
+                                           const int64_t* __restrict__ seg, int64_t rows,
+                                           int channels, int c0, int64_t p0, int64_t hi,
+                                           int64_t key_lo, int64_t key_hi, int lane,
+                                           StepRow<kPass> (&st)[kSteps]) {
+  int64_t k[kSteps];
+#pragma unroll
+  for (int u = 0; u < kSteps; ++u) {
+    const int64_t r = p0 + u * kWarpSize + lane;
+    k[u] = r < hi ? __ldg(seg + r) : int64_t{-1};
+  }
+#pragma unroll
+  for (int u = 0; u < kSteps; ++u) {
+    const int64_t r = p0 + u * kWarpSize + lane;
+#pragma unroll
+    for (int j = 0; j < kPass; ++j)
+      st[u].v[j] = r < hi && c0 + j < channels
+                       ? __ldg(vals + static_cast<int64_t>(c0 + j) * rows + r)
+                       : 0.0f;
+  }
+#pragma unroll
+  for (int u = 0; u < kSteps; ++u)
+    st[u].key = k[u] >= key_lo && k[u] < key_hi ? k[u] : int64_t{-1};
+}
+
+// The distinct keys among the lanes' rows of one step, taken in the order
+// of each key's lowest lane (its leader): ``peers`` groups the lanes by key,
+// ``todo`` holds the lanes whose key is not yet taken (the same on every
+// lane, so the warp stays converged).
+struct StepKeys {
+  unsigned peers;
+  unsigned todo;
+};
+
+template <int kPass>
+__device__ __forceinline__ StepKeys step_keys(const StepRow<kPass>& row) {
+  return {__match_any_sync(kFullMask, row.key), __ballot_sync(kFullMask, row.key >= 0)};
+}
+
+// The butterfly of warp_sum over kPass values at once: lane l gets the sum
+// over the 32 lanes of x[l / (32 / kPass)].  The first log2(kPass) levels
+// (partners lane ^ 16, ^ 8, ...) halve the values a lane holds: it keeps
+// the upper half where its partner bit is set, the lower half otherwise, and
+// adds its partner's copy of that half; the remaining levels are warp_sum's.
+// Each sum is added in warp_sum's tree (the same pairs at the same levels),
+// so it is bitwise warp_sum(x[j]), for kPass - 1 + 5 - log2(kPass)
+// shuffles instead of 5 kPass.
+template <int kPass>
+__device__ __forceinline__ float warp_sum_scatter(float (&x)[kPass], int lane) {
+#pragma unroll
+  for (int h = kPass / 2, o = kWarpSize / 2; h >= 1; h /= 2, o /= 2) {
+    const bool upper = lane & o;
+#pragma unroll
+    for (int i = 0; i < h; ++i) {
+      const float keep = upper ? x[i + h] : x[i];
+      const float send = upper ? x[i] : x[i + h];
+      x[i] = __fadd_rn(keep, __shfl_xor_sync(kFullMask, send, o));
+    }
+  }
+  float v = x[0];
+#pragma unroll
+  for (int o = kWarpSize / 2 / kPass; o > 0; o >>= 1)
+    v = __fadd_rn(v, __shfl_xor_sync(kFullMask, v, o));
+  return v;
+}
+
+// The next key of a step, if any: its leader lane, and on lane l the key's
+// sum over the lanes of channel c0 + l / (32 / kPass) (warp_sum_scatter of
+// the lanes' values, the other keys' lanes giving 0).
+template <int kPass>
+__device__ __forceinline__ bool next_key(const StepRow<kPass>& row, int lane,
+                                         StepKeys& keys, int64_t& key, int& leader,
+                                         float& total) {
+  if (keys.todo == 0) return false;
+  leader = __ffs(keys.todo) - 1;
+  const unsigned group = __shfl_sync(kFullMask, keys.peers, leader);
+  key = __shfl_sync(kFullMask, row.key, leader);
+  const bool mine = (group >> lane) & 1u;
+  float x[kPass];
+#pragma unroll
+  for (int j = 0; j < kPass; ++j) x[j] = mine ? row.v[j] : 0.0f;
+  total = warp_sum_scatter(x, lane);
+  keys.todo &= ~group;
+  return true;
+}
+
+// grid: one warp per slab, W <= 32.  The warp walks its slab in steps of 32
+// rows, kSteps steps' loads at a time.  A slab of one step (kSteps 1)
+// writes each present key's sums from the lanes that hold them and zeros
+// for the slab's other keys; a longer slab gathers each step's sums into
+// lane key - slab * W, which adds them in step order and writes them.
+// Either way every key of the slab is written (0 where no row has it), so
+// the output needs no zero fill.  Slabs past the rows write their zeros.
+template <int kPass, int kSteps>
+__global__ void __launch_bounds__(kWarpsPerCta * kWarpSize)
+    segment_slab_lane_kernel(const float* __restrict__ vals,
+                             const int64_t* __restrict__ seg, int64_t rows, int channels,
+                             int64_t num_segments, int64_t slab_rows, int64_t width,
+                             int64_t slabs, float* __restrict__ out) {
+  constexpr int kLanesPer = kWarpSize / kPass;  // lanes holding one channel's sum
+  const int64_t slab = static_cast<int64_t>(blockIdx.x) * kWarpsPerCta +
+                       threadIdx.x / kWarpSize;
+  const int lane = threadIdx.x % kWarpSize;
+  if (slab >= slabs) return;  // whole warps exit together
+  const int64_t base = slab * width;
+  const int64_t lo = min64(slab * slab_rows, rows);
+  const int64_t hi = min64(lo + slab_rows, rows);
+  const int64_t key_hi = min64(base + width, num_segments);
+  const int mine = lane / kLanesPer;             // the channel this lane's sums are
+  const bool writer = lane % kLanesPer == 0;
+  for (int c0 = 0; c0 < channels; c0 += kPass) {
+    const int live = min(kPass, channels - c0);
+    float acc[kPass];
+#pragma unroll
+    for (int j = 0; j < kPass; ++j) acc[j] = 0.0f;
+    unsigned written = 0;  // kSteps 1: the slab keys written, bit key - base
+    for (int64_t p0 = lo; p0 < hi; p0 += kWarpSize * kSteps) {
+      StepRow<kPass> st[kSteps];
+      load_steps(vals, seg, rows, channels, c0, p0, hi, base, key_hi, lane, st);
+#pragma unroll
+      for (int u = 0; u < kSteps; ++u) {
+        if (p0 + u * kWarpSize >= hi) continue;  // uniform: past the slab
+        StepKeys keys = step_keys(st[u]);
+        int64_t key;
+        int leader;
+        float total;
+        while (next_key(st[u], lane, keys, key, leader, total)) {
+          if constexpr (kSteps == 1) {
+            if (writer && mine < live)
+              out[static_cast<int64_t>(c0 + mine) * num_segments + key] = total;
+            written |= 1u << (key - base);
+          } else {
+#pragma unroll
+            for (int j = 0; j < kPass; ++j) {
+              const float sum = __shfl_sync(kFullMask, total, j * kLanesPer);
+              if (lane == key - base) acc[j] = __fadd_rn(acc[j], sum);
+            }
+          }
+        }
+      }
+    }
+    if (base + lane < key_hi && !((written >> lane) & 1u))
+#pragma unroll
+      for (int j = 0; j < kPass; ++j)
+        if (j < live)
+          out[static_cast<int64_t>(c0 + j) * num_segments + base + lane] = acc[j];
+  }
+}
+
+// grid: one warp per slab of rows, W > 32.  The output is zero-filled by
+// the caller; for each key of a step the lanes holding its sums add them
+// to it (the same lane for a channel every step), in step order.
+template <int kPass, int kSteps>
+__global__ void __launch_bounds__(kWarpsPerCta * kWarpSize)
+    segment_slab_wide_kernel(const float* __restrict__ vals,
+                             const int64_t* __restrict__ seg, int64_t rows, int channels,
+                             int64_t num_segments, int64_t slab_rows, int64_t width,
+                             int64_t slabs, float* __restrict__ out) {
+  constexpr int kLanesPer = kWarpSize / kPass;
+  const int64_t slab = static_cast<int64_t>(blockIdx.x) * kWarpsPerCta +
+                       threadIdx.x / kWarpSize;
+  const int lane = threadIdx.x % kWarpSize;
+  if (slab >= slabs) return;
+  const int64_t base = slab * width;
+  const int64_t lo = slab * slab_rows;
+  const int64_t hi = min64(lo + slab_rows, rows);
+  const int64_t key_hi = min64(base + width, num_segments);
+  const int mine = lane / kLanesPer;
+  const bool writer = lane % kLanesPer == 0;
+  for (int c0 = 0; c0 < channels; c0 += kPass) {
+    const bool live = writer && mine < channels - c0;
+    for (int64_t p0 = lo; p0 < hi; p0 += kWarpSize * kSteps) {
+      StepRow<kPass> st[kSteps];
+      load_steps(vals, seg, rows, channels, c0, p0, hi, base, key_hi, lane, st);
+#pragma unroll
+      for (int u = 0; u < kSteps; ++u) {
+        if (p0 + u * kWarpSize >= hi) continue;
+        StepKeys keys = step_keys(st[u]);
+        int64_t key;
+        int leader;
+        float total;
+        while (next_key(st[u], lane, keys, key, leader, total))
+          if (live) {
+            float* o = out + static_cast<int64_t>(c0 + mine) * num_segments + key;
+            *o = __fadd_rn(*o, total);
+          }
+      }
+    }
+  }
+}
+
+// grid: one warp per range of rows, S <= kLaneKeys.  Lane l adds rows l,
+// l + 32, ... of the range in row order into its slot of the row's key
+// (acc[s], a predicated add: a key outside [0, S) matches no slot that is
+// written), then the butterfly per key and channel.  partial is (C * S,
+// ranges): partial[(c * S + s) * ranges + range].
+template <int kPass>
+__global__ void __launch_bounds__(kWarpsPerCta * kWarpSize)
+    segment_few_lane_kernel(const float* __restrict__ vals,
+                            const int64_t* __restrict__ seg, int64_t rows, int channels,
+                            int num_segments, int64_t range_rows, int64_t ranges,
+                            float* __restrict__ partial) {
+  const int64_t range = static_cast<int64_t>(blockIdx.x) * kWarpsPerCta +
+                        threadIdx.x / kWarpSize;
+  const int lane = threadIdx.x % kWarpSize;
+  if (range >= ranges) return;
+  const int64_t lo = range * range_rows;
+  const int64_t hi = min64(lo + range_rows, rows);
+  for (int c0 = 0; c0 < channels; c0 += kPass) {
+    float acc[kLaneKeys][kPass];
+#pragma unroll
+    for (int s = 0; s < kLaneKeys; ++s)
+#pragma unroll
+      for (int j = 0; j < kPass; ++j) acc[s][j] = 0.0f;
+    for (int64_t p0 = lo + lane; p0 < hi; p0 += kWarpSize * kFewUnroll) {
+      int64_t k[kFewUnroll];
+      float v[kFewUnroll][kPass];
+#pragma unroll
+      for (int u = 0; u < kFewUnroll; ++u) {
+        const int64_t r = p0 + u * kWarpSize;
+        k[u] = r < hi ? __ldg(seg + r) : int64_t{-1};
+      }
+#pragma unroll
+      for (int u = 0; u < kFewUnroll; ++u) {
+        const int64_t r = p0 + u * kWarpSize;
+#pragma unroll
+        for (int j = 0; j < kPass; ++j)
+          v[u][j] = r < hi && c0 + j < channels
+                        ? __ldg(vals + static_cast<int64_t>(c0 + j) * rows + r)
+                        : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < kFewUnroll; ++u)
+#pragma unroll
+        for (int s = 0; s < kLaneKeys; ++s)
+          if (k[u] == s)
+#pragma unroll
+            for (int j = 0; j < kPass; ++j) acc[s][j] = __fadd_rn(acc[s][j], v[u][j]);
+    }
+#pragma unroll
+    for (int s = 0; s < kLaneKeys; ++s)
+#pragma unroll
+      for (int j = 0; j < kPass; ++j)
+        if (s < num_segments && c0 + j < channels) {  // uniform
+          const float total = warp_sum(acc[s][j]);
+          if (lane == 0)
+            partial[(static_cast<int64_t>(c0 + j) * num_segments + s) * ranges + range] =
+                total;
+        }
+  }
+}
+
+// grid: one warp per range of rows, kLaneKeys < S and S * C small enough
+// that kWarpsPerCta warps' S * C sums fit the CTA's dynamic shared memory.
+// The warp's slots start at 0; each step's leader of a key adds the step's
+// sums to its slots; the slots are the range's partials.
+template <int kPass>
+__global__ void __launch_bounds__(kWarpsPerCta * kWarpSize)
+    segment_few_warp_kernel(const float* __restrict__ vals,
+                            const int64_t* __restrict__ seg, int64_t rows, int channels,
+                            int num_segments, int64_t range_rows, int64_t ranges,
+                            float* __restrict__ partial) {
+  extern __shared__ float warp_slots[];
+  const int warp = threadIdx.x / kWarpSize;
+  const int lane = threadIdx.x % kWarpSize;
+  const int64_t range = static_cast<int64_t>(blockIdx.x) * kWarpsPerCta + warp;
+  if (range >= ranges) return;  // no CTA-wide barrier follows
+  const int n_slots = num_segments * channels;
+  float* slot = warp_slots + warp * n_slots;
+  for (int i = lane; i < n_slots; i += kWarpSize) slot[i] = 0.0f;
+  __syncwarp();
+  const int64_t lo = range * range_rows;
+  const int64_t hi = min64(lo + range_rows, rows);
+  constexpr int kLanesPer = kWarpSize / kPass;
+  const int mine = lane / kLanesPer;
+  for (int c0 = 0; c0 < channels; c0 += kPass) {
+    const bool live = lane % kLanesPer == 0 && mine < channels - c0;
+    for (int64_t p0 = lo; p0 < hi; p0 += kWarpSize * kStepUnroll) {
+      StepRow<kPass> st[kStepUnroll];
+      load_steps(vals, seg, rows, channels, c0, p0, hi, 0, num_segments, lane, st);
+#pragma unroll
+      for (int u = 0; u < kStepUnroll; ++u) {
+        if (p0 + u * kWarpSize >= hi) continue;
+        StepKeys keys = step_keys(st[u]);
+        int64_t key;
+        int leader;
+        float total;
+        while (next_key(st[u], lane, keys, key, leader, total))
+          if (live) {
+            float* o = slot + (c0 + mine) * num_segments + key;
+            *o = __fadd_rn(*o, total);
+          }
+      }
+    }
+  }
+  __syncwarp();
+  for (int i = lane; i < n_slots; i += kWarpSize)
+    partial[static_cast<int64_t>(i) * ranges + range] = slot[i];
+}
+
+// grid: one CTA of kRangeThreads per output (c, s): thread t adds the
+// partials of ranges t, t + 256, ... in order, kRowUnroll loads in flight;
+// then the butterfly in each warp and over the 8 warp sums (lanes 8.. give
+// 0); out[c * S + s] = partial row c * S + s.
+__global__ void __launch_bounds__(kRangeThreads)
+    segment_range_sum_kernel(const float* __restrict__ partial, int64_t ranges,
+                             float* __restrict__ out) {
+  __shared__ float warp_total[kRangeThreads / kWarpSize];
+  const int64_t slot = blockIdx.x;
+  const float* p = partial + slot * ranges;
+  const int lane = threadIdx.x % kWarpSize;
+  const int warp = threadIdx.x / kWarpSize;
+  float acc = 0.0f;
+  for (int64_t i0 = threadIdx.x; i0 < ranges; i0 += kRangeThreads * kRowUnroll) {
+    float v[kRowUnroll];
+#pragma unroll
+    for (int u = 0; u < kRowUnroll; ++u) {
+      const int64_t i = i0 + u * kRangeThreads;
+      v[u] = i < ranges ? p[i] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kRowUnroll; ++u)
+      if (i0 + u * kRangeThreads < ranges) acc = __fadd_rn(acc, v[u]);
+  }
+  const float w = warp_sum(acc);
+  if (lane == 0) warp_total[warp] = w;
+  __syncthreads();
+  if (warp == 0) {
+    const float total = warp_sum(lane < kRangeThreads / kWarpSize ? warp_total[lane] : 0.0f);
+    if (lane == 0) out[slot] = total;
+  }
+}
+
 }  // namespace repro_torch
 
 namespace {
@@ -418,6 +801,128 @@ extern "C" int segment_sum_launch(const void* vals, const void* order,
     sums(std::integral_constant<int, 4>{});
   return static_cast<int>(cudaGetLastError());
 }
+
+namespace {
+
+// The instantiation of a kernel template over the channels a pass keeps.
+template <typename F>
+void by_pass(int channels, F&& f) {
+  if (channels <= 1) f(std::integral_constant<int, 1>{});
+  else if (channels <= 2) f(std::integral_constant<int, 2>{});
+  else if (channels <= 4) f(std::integral_constant<int, 4>{});
+  else f(std::integral_constant<int, 8>{});
+}
+
+// The few route's lane kernel keeps kLaneKeys x kPass sums a lane, so it is
+// instantiated for each channel count up to 8, a predicated add per sum.
+template <typename F>
+void by_channels(int channels, F&& f) {
+  switch (channels) {
+    case 1: f(std::integral_constant<int, 1>{}); break;
+    case 2: f(std::integral_constant<int, 2>{}); break;
+    case 3: f(std::integral_constant<int, 3>{}); break;
+    case 4: f(std::integral_constant<int, 4>{}); break;
+    case 5: f(std::integral_constant<int, 5>{}); break;
+    case 6: f(std::integral_constant<int, 6>{}); break;
+    case 7: f(std::integral_constant<int, 7>{}); break;
+    default: f(std::integral_constant<int, 8>{}); break;
+  }
+}
+
+int invalid() { return static_cast<int>(cudaErrorInvalidValue); }
+
+}  // namespace
+
+// The slab route.  vals (channels, rows) f32 row-major, seg (rows,) int64,
+// out (channels, S) f32.  The caller states that every row r with a key in
+// [0, S) has key / width == r / slab_rows.  lane_slots (width <= 32): one
+// warp per slab of max(ceil(rows / slab_rows), ceil(S / width)), writing
+// every output; otherwise one warp per slab of rows, adding into an out
+// the caller zero-filled.
+extern "C" int segment_sum_slab_launch(const void* vals, const void* seg, int64_t rows,
+                                       int channels, int64_t num_segments,
+                                       int64_t slab_rows, int64_t width, int lane_slots,
+                                       void* out, void* stream) {
+  using namespace repro_torch;
+  if (rows < 0 || channels <= 0 || num_segments <= 0 || slab_rows <= 0 || width <= 0 ||
+      (lane_slots && width > kSlabLaneKeys))
+    return invalid();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t row_slabs = (rows + slab_rows - 1) / slab_rows;
+  const int64_t slabs =
+      lane_slots ? std::max(row_slabs, (num_segments + width - 1) / width) : row_slabs;
+  if (slabs == 0) return static_cast<int>(cudaGetLastError());
+  const unsigned ctas = ctas_for_warps(slabs);
+  const auto* v = static_cast<const float*>(vals);
+  const auto* k = static_cast<const int64_t*>(seg);
+  auto* o = static_cast<float*>(out);
+  // a slab of at most 32 rows is one step: keep no registers for more
+  const auto launch = [&](auto pass, auto steps) {
+    constexpr int kPass = decltype(pass)::value;
+    constexpr int kSteps = decltype(steps)::value;
+    if (lane_slots)
+      segment_slab_lane_kernel<kPass, kSteps><<<ctas, kThreads, 0, s>>>(
+          v, k, rows, channels, num_segments, slab_rows, width, slabs, o);
+    else
+      segment_slab_wide_kernel<kPass, kSteps><<<ctas, kThreads, 0, s>>>(
+          v, k, rows, channels, num_segments, slab_rows, width, slabs, o);
+  };
+  by_pass(channels, [&](auto pass) {
+    if (slab_rows <= kWarpSize)
+      launch(pass, std::integral_constant<int, 1>{});
+    else
+      launch(pass, std::integral_constant<int, kStepUnroll>{});
+  });
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The few route.  vals, seg and out as above; partial (channels * S,
+// ceil(rows / range_rows)) f32 scratch.  lane_slots: S <= 4, registers;
+// otherwise the warps' S * channels sums in dynamic shared memory.  Then
+// one CTA per output adds the ranges' partials.
+extern "C" int segment_sum_few_launch(const void* vals, const void* seg, int64_t rows,
+                                      int channels, int64_t num_segments,
+                                      int64_t range_rows, int lane_slots, void* partial,
+                                      void* out, void* stream) {
+  using namespace repro_torch;
+  const int64_t n_slots = num_segments * channels;
+  const int64_t smem = kWarpsPerCta * n_slots * static_cast<int64_t>(sizeof(float));
+  if (rows <= 0 || channels <= 0 || num_segments <= 0 || range_rows <= 0 ||
+      (lane_slots ? num_segments > kLaneKeys : smem > 232448))
+    return invalid();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t ranges = (rows + range_rows - 1) / range_rows;
+  const unsigned ctas = ctas_for_warps(ranges);
+  const auto* v = static_cast<const float*>(vals);
+  const auto* k = static_cast<const int64_t*>(seg);
+  auto* part = static_cast<float*>(partial);
+  const int nseg = static_cast<int>(num_segments);
+  if (lane_slots) {
+    by_channels(channels, [&](auto pass) {
+      constexpr int kPass = decltype(pass)::value;
+      segment_few_lane_kernel<kPass><<<ctas, kThreads, 0, s>>>(
+          v, k, rows, channels, nseg, range_rows, ranges, part);
+    });
+  } else {
+    int rc = 0;
+    by_pass(channels, [&](auto pass) {
+      constexpr int kPass = decltype(pass)::value;
+      rc = static_cast<int>(cudaFuncSetAttribute(segment_few_warp_kernel<kPass>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem)));
+      if (rc == 0)
+        segment_few_warp_kernel<kPass><<<ctas, kThreads, static_cast<size_t>(smem), s>>>(
+            v, k, rows, channels, nseg, range_rows, ranges, part);
+    });
+    if (rc != 0) return rc;
+  }
+  const int rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  segment_range_sum_kernel<<<static_cast<unsigned>(n_slots), kRangeThreads, 0, s>>>(
+      part, ranges, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 
 extern "C" const char* segment_sum_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

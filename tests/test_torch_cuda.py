@@ -16,7 +16,9 @@ from repro_torch.kernels.block_agg import (block_agg, block_agg_batched,
 from repro_torch.kernels.filtered_agg import (filtered_agg, filtered_agg_batched,
                                               filtered_agg_batched_ref,
                                               filtered_agg_ref)
+from repro_torch.kernels.segment_sum import ops as segment_ops
 from repro_torch.kernels.segment_sum import segment_sum, segment_sum_ref
+from segment_sum_mirror import mirror_few, mirror_slab, slab_keys
 
 pytestmark = pytest.mark.cuda
 
@@ -339,6 +341,103 @@ def test_segment_sum_drops_keys_out_of_range_on_the_card(cuda):
     got = segment_sum(vals.to(cuda), seg.to(cuda), 3)
     assert got.cpu().tolist() == [[1.0, 1.0, 2.0]] * 2
     assert torch.equal(got.cpu(), segment_sum(vals, seg, 3))
+
+
+def _f32_bound(vals, seg, nseg):
+    """2 n u sum|x| per segment: two f32 sums of the same n values in
+    different orders lie within it of each other."""
+    keep = (seg >= 0) & (seg < nseg)
+    absum = torch.zeros((vals.shape[0], nseg), dtype=torch.float64).index_add_(
+        1, seg[keep], vals[:, keep].double().abs())
+    n = torch.zeros(nseg, dtype=torch.float64).index_add_(
+        0, seg[keep], torch.ones(int(keep.sum()), dtype=torch.float64))
+    return 2 * n * 2.0 ** -24 * absum
+
+
+def _hold_route(cuda, vals, seg, nseg, want, mirror, **claim):
+    """One call on the card: its route is ``want``; two launches bitwise
+    equal and one launch each; bitwise the numpy mirror of its order; within
+    rtol 1e-5 of the plain version; within the f32 bound of the sorted
+    route's own sums on the same inputs; empty segments exactly 0."""
+    c, r = vals.shape
+    plan = segment_ops.launch_plan(c, r, nseg, claim.get("slab_rows"),
+                                   claim.get("slab_keys"))
+    assert (plan.route, plan.variant) == want
+    launches = segment_sum.launches
+    got = segment_sum(vals.to(cuda), seg.to(cuda), nseg, **claim)
+    again = segment_sum(vals.to(cuda), seg.to(cuda), nseg, **claim)
+    sorted_route = segment_ops.launch(vals.to(cuda), seg.to(cuda), nseg, force="sorted")
+    torch.cuda.synchronize()
+    assert segment_sum.launches == launches + 3
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    got = got.cpu()
+    assert torch.equal(got.view(torch.int32),
+                       torch.from_numpy(mirror(vals.numpy(), seg.numpy())).view(torch.int32))
+    plain = segment_sum_ref(vals, seg, nseg, **claim)
+    torch.testing.assert_close(got, plain, rtol=1e-5, atol=0)
+    bound = _f32_bound(vals, seg, nseg)
+    assert bool(((got.double() - sorted_route.cpu().double()).abs() <= bound).all())
+    empty = torch.ones(nseg, dtype=torch.bool)
+    empty[seg[(seg >= 0) & (seg < nseg)]] = False
+    assert not got[:, empty].any()
+
+
+# (channels, block_rows, W, slabs): the pilot block sums (W 1), the Q1
+# pilot (W 3), a join pilot's pair sums (W > 32, the zero-filled output; a
+# narrower right table than SF10's 468,750 blocks, so the numpy mirror and
+# the f64 bound stay small), 100-row blocks (several steps a slab), more
+# channels than a pass keeps
+SLAB_CARD_CASES = [(3, 32, 1, 1_025), (5, 32, 3, 4_096), (2, 32, 2_000, 1_025),
+                   (4, 100, 7, 300), (9, 256, 2, 64)]
+
+
+@pytest.mark.parametrize("case", SLAB_CARD_CASES, ids=lambda c: f"{c[0]}ch-br{c[1]}-W{c[2]}")
+def test_segment_sum_slab_route_on_the_card(cuda, case):
+    """The slab route against its mirror (bitwise), its plain version and
+    the sorted route, with scratch rows past the slabs dropped."""
+    c, br, w, slabs = case
+    rng = np.random.default_rng(slabs + w)
+    rows = slabs * br + br // 2
+    nseg = slabs * w
+    seg = slab_keys(rng, rows, br, w, nseg, slabs * br)
+    vals = torch.from_numpy(rng.uniform(900.0, 1100.0, (c, rows)).astype(np.float32))
+    _hold_route(cuda, vals, torch.from_numpy(seg), nseg,
+                ("slab", "lane" if w <= 32 else "wide"),
+                lambda v, k: mirror_slab(v, k, nseg, br, w), slab_rows=br, slab_keys=w)
+
+
+# (channels, rows, segments): the finals and exact scans (S 1 and 3, the
+# lane form), S 4 at its edge, a pilot with no slab claim (S 1,025, the warp
+# form in shared memory), ranges past the range pass's 256 threads
+FEW_CARD_CASES = [(2, 8_192, 1), (5, 65_536, 3), (3, 65_536, 1), (4, 9_000, 4),
+                  (3, 32_768 + 100, 1_025), (2, 300 * 256 + 5, 3), (9, 5_000, 2)]
+
+
+@pytest.mark.parametrize("case", FEW_CARD_CASES, ids=lambda c: f"{c[0]}x{c[1]}->{c[2]}")
+def test_segment_sum_few_route_on_the_card(cuda, case):
+    """The few route against its mirror (bitwise), its plain version and the
+    sorted route; keys -1 and S dropped."""
+    c, rows, nseg = case
+    rng = np.random.default_rng(rows + nseg)
+    seg = torch.from_numpy(rng.integers(0, nseg + 2, rows) - 1)
+    vals = torch.from_numpy(rng.uniform(900.0, 1100.0, (c, rows)).astype(np.float32))
+    _hold_route(cuda, vals, seg, nseg, ("few", "lane" if nseg <= 4 else "warp"),
+                lambda v, k: mirror_few(v, k, nseg)[0])
+
+
+def test_segment_sum_exact_scan_shape_on_the_card(cuda):
+    """The exact Q1's shape at 2^25 rows (ranges of 8,192 rows): one read,
+    within rtol 1e-5 of an f64 sum, bitwise stable."""
+    rows, nseg = 1 << 25, 3
+    g = torch.Generator(device="cuda").manual_seed(0)
+    vals = torch.rand((5, rows), generator=g, device=cuda) * 200 + 900
+    seg = torch.randint(0, nseg, (rows,), generator=g, device=cuda)
+    assert segment_ops.launch_plan(5, rows, nseg) == ("few", "lane", (512, 15))
+    got = segment_sum(vals, seg, nseg)
+    assert torch.equal(got.view(torch.int32), segment_sum(vals, seg, nseg).view(torch.int32))
+    want = torch.zeros((5, nseg), dtype=torch.float64, device=cuda).index_add_(
+        1, seg, vals.double())
+    torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=0)
 
 
 def test_gather_sessions_on_the_card_match_the_cpu(cuda):

@@ -32,7 +32,9 @@ from repro_torch.api import avg_ as t_avg, count_ as t_count, sum_ as t_sum
 from repro_torch.engine.executor import Executor
 from repro_torch.engine.sampling import row_sample
 from repro_torch.kernels.segment_sum import segment_sum, segment_sum_ref
-from repro_torch.kernels.segment_sum.ops import chunk_rows
+from repro_torch.kernels.segment_sum import ops as segment_ops
+from repro_torch.kernels.segment_sum.ops import chunk_rows, range_rows
+from segment_sum_mirror import mirror_few, mirror_slab, slab_keys
 from torch_parity import port_catalog
 
 CHUNK = chunk_rows(1)  # the chunk of every input below 2^24 rows
@@ -224,6 +226,146 @@ def test_segment_sum_wrapper_checks_its_inputs():
         segment_sum(vals, seg, 2 ** 31)
     with pytest.raises(ValueError, match="cuda or cpu"):
         segment_sum(vals.to("meta"), seg.to("meta"), 3)
+
+
+# ---------------------------------------------------------------------------
+# segment_sum's sort-free routes: the slab and few kernels' orders, mirrored
+# ---------------------------------------------------------------------------
+
+SLAB_CASES = [  # (channels, slab_rows, W, slabs, ragged tail rows, extra empty slabs)
+    (3, 32, 1, 40, 17, 3),       # the pilot block sums: one key a slab
+    (5, 32, 3, 40, 9, 2),        # the Q1 pilot: 3 groups a block
+    (2, 32, 1_000, 12, 5, 0),    # a join pilot's pair sums: W > 32, zero-filled output
+    (4, 100, 7, 9, 61, 1),       # 100-row blocks: several steps a slab, a ragged last step
+    (9, 256, 2, 5, 0, 0),        # more channels than a pass keeps
+]
+
+
+@pytest.mark.parametrize("case", SLAB_CASES, ids=lambda c: f"{c[0]}ch-br{c[1]}-W{c[2]}")
+def test_segment_sum_slab_route_mirrored(case):
+    """The slab route's order, mirrored: held to the plain version (which
+    checks the slab claim) within the f32 summation bound of both, and to an
+    f64 sum; keys past the slabs with rows stay 0, scratch rows are
+    dropped."""
+    c, br, w, slabs, tail, empty = case
+    rng = np.random.default_rng(br * w + c)
+    rows = slabs * br + tail
+    nseg = (-(-rows // br) + empty) * w
+    seg = slab_keys(rng, rows, br, w, nseg, rows - br // 2)
+    vals = rng.standard_normal((c, rows)).astype(np.float32)
+    plan = segment_ops.launch_plan(c, rows, nseg, br, w)
+    assert plan.route == "slab" and plan.variant == ("lane" if w <= 32 else "wide")
+    out = mirror_slab(vals, seg, nseg, br, w)
+    assert_f32_sums(out, vals, seg, nseg)
+    plain = segment_sum(torch.from_numpy(vals), torch.from_numpy(seg), nseg,
+                        slab_rows=br, slab_keys=w).numpy()
+    assert_f32_sums(plain, vals, seg, nseg)
+    count = _add_at(np.ones((1, rows), np.float32), seg, nseg)
+    bound = 2 * count * 2.0 ** -24 * _add_at(np.abs(vals), seg, nseg)
+    assert np.all(np.abs(out.astype(np.float64) - plain) <= bound)
+    assert not out[:, count[0] == 0].any()
+
+
+FEW_CASES = [  # (channels, rows, segments)
+    (2, 3 * 256 + 77, 1),         # an ungrouped final: ranges of 256 rows, a ragged tail
+    (5, 3 * 256 + 200, 3),        # the Q1 final's shape
+    (3, 2 * 256 + 31, 1_025),     # a pilot without a slab claim: S * C 3,075
+    (2, 274 * 256 - 3, 3),        # more ranges than the range pass has threads
+    (9, 700, 4),                  # more channels than a lane's registers keep at once
+    (1, 5 * 256, 300),            # S > 4: warp slots, ranges with no row of most keys
+]
+
+
+@pytest.mark.parametrize("case", FEW_CASES, ids=lambda c: f"{c[0]}x{c[1]}->{c[2]}")
+def test_segment_sum_few_route_mirrored(case):
+    """The few route's order, mirrored, across range boundaries and ragged
+    tails: held to the plain version within the f32 summation bound of both,
+    and to an f64 sum; empty segments exactly 0; out-of-range keys
+    dropped."""
+    c, rows, nseg = case
+    rng = np.random.default_rng(rows + nseg)
+    vals = rng.standard_normal((c, rows)).astype(np.float32)
+    seg = rng.integers(0, nseg + 2, rows) - 1         # -1 and S: dropped
+    plan = segment_ops.launch_plan(c, rows, nseg)
+    assert plan.route == "few"
+    assert plan.variant == ("lane" if nseg <= 4 else "warp")
+    ranges = -(-rows // range_rows(rows))
+    assert plan.grids == (-(-ranges // 8), c * nseg)
+    out, part = mirror_few(vals, seg, nseg)
+    assert_f32_sums(out, vals, seg, nseg)
+    plain = segment_sum(torch.from_numpy(vals), torch.from_numpy(seg), nseg).numpy()
+    count = _add_at(np.ones((1, rows), np.float32), seg, nseg)
+    bound = 2 * count * 2.0 ** -24 * _add_at(np.abs(vals), seg, nseg)
+    assert np.all(np.abs(out.astype(np.float64) - plain) <= bound)
+    assert not out[:, count[0] == 0].any()
+    # each range partial is its own rows' sum
+    rr = range_rows(rows)
+    for g in (0, part.shape[1] - 1):
+        lo = g * rr
+        sub = _add_at(vals[:, lo:lo + rr], seg[lo:lo + rr], nseg)
+        np.testing.assert_allclose(part[:, g].reshape(c, nseg), sub, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("rows", [1, 255, 256, 1 << 20, (1 << 20) + 1, 60_000_000])
+def test_few_route_ranges_depend_on_the_row_count_alone(rows):
+    """Ranges are a power of two of at least 256 rows, at most 4,096 of them,
+    and the fewest such: one function of R."""
+    rr = range_rows(rows)
+    assert rr >= 256 and rr & (rr - 1) == 0
+    assert -(-rows // rr) <= 4096
+    assert rr == 256 or -(-rows // (rr // 2)) > 4096
+
+
+ROUTE_CASES = [  # (C, R, S, slab_rows, slab_keys) -> (route, variant)
+    ((2, 32_768, 1_025, 32, 1), ("slab", "lane")),          # join pilot block sums
+    ((3, 32_768, 1_025, 32, 1), ("slab", "lane")),          # Q14 pilot block sums
+    ((5, 4_194_304, 393_216, 32, 3), ("slab", "lane")),     # Q1 pilot
+    ((2, 32_768, 480_000_000, 32, 468_750), ("slab", "wide")),  # join pilot pair sums
+    ((2, 8_192, 1, None, None), ("few", "lane")),           # join final
+    ((5, 65_536, 3, None, None), ("few", "lane")),          # Q1 final
+    ((5, 60_000_000, 3, None, None), ("few", "lane")),      # exact Q1
+    ((2, 60_000_000, 1, None, None), ("few", "lane")),      # exact join
+    ((3, 65_536, 1_025, None, None), ("few", "warp")),      # a pilot with no claim
+    ((4, 10_000, 1_024, None, None), ("few", "warp")),      # S * C at the budget
+    ((4, 10_000, 1_025, None, None), ("sorted", "sorted")),  # one past it
+    ((3, 1_000_000, 100_000, None, None), ("sorted", "sorted")),
+]
+
+
+@pytest.mark.parametrize("case", ROUTE_CASES, ids=lambda c: "x".join(map(str, c[0][:3])))
+def test_segment_sum_route_is_a_function_of_the_call_alone(case):
+    """The route and its launches follow from (C, R, S, slab claim) alone:
+    the planning functions take nothing else (no device, no SM count), and
+    the recorded pilots, finals and exact scans never reach the sort."""
+    import inspect
+    (c, r, s, br, w), want = case
+    assert list(inspect.signature(segment_ops.launch_plan).parameters) == \
+        ["channels", "rows", "num_segments", "slab_rows", "slab_keys", "force"]
+    plan = segment_ops.launch_plan(c, r, s, br, w)
+    assert (plan.route, plan.variant) == want
+    assert plan == segment_ops.launch_plan(c, r, s, br, w)
+    assert len(plan.grids) == {"slab": 1, "few": 2, "sorted": 6}[plan.route]
+
+
+def test_segment_sum_plain_version_raises_on_a_false_slab_claim():
+    """The plain version checks the slab claim: a key in range but in
+    another slab than its row raises; keys out of range are never held to
+    it."""
+    rng = np.random.default_rng(9)
+    rows, br, w = 320, 32, 3
+    seg = slab_keys(rng, rows, br, w, 10 * w, rows)
+    vals = torch.from_numpy(rng.standard_normal((2, rows)).astype(np.float32))
+    ok = segment_sum(vals, torch.from_numpy(seg), 10 * w, slab_rows=br, slab_keys=w)
+    assert torch.equal(ok, segment_sum(vals, torch.from_numpy(seg), 10 * w))
+    seg[40] = 5 * w                                   # row 40 lies in slab 1
+    with pytest.raises(ValueError, match="slab claim broken: row 40"):
+        segment_sum(vals, torch.from_numpy(seg), 10 * w, slab_rows=br, slab_keys=w)
+    seg[40] = 10 * w + 1                              # out of range: dropped, no claim
+    segment_sum(vals, torch.from_numpy(seg), 10 * w, slab_rows=br, slab_keys=w)
+    with pytest.raises(ValueError, match="both slab_rows and slab_keys"):
+        segment_sum(vals, torch.from_numpy(seg), 10 * w, slab_rows=br)
+    with pytest.raises(ValueError, match="must be >= 1"):
+        segment_sum(vals, torch.from_numpy(seg), 10 * w, slab_rows=0, slab_keys=w)
 
 
 # ---------------------------------------------------------------------------
@@ -432,6 +574,66 @@ def test_pilot_routes(executors):
         assert route(plan) == "gather", what
     join = t_L.strip_samples(_plan(t_L, t_expr, "join"))
     assert route(join, "orders") == "gather"
+
+
+def _spy_segment_sum(monkeypatch):
+    """Record the keywords of every segment_sum call of the physical layer."""
+    from repro_torch.engine import physical
+    calls = []
+    real = physical.segment_sum
+
+    def spy(vals, seg, num_segments, **kw):
+        calls.append((tuple(vals.shape), num_segments, kw))
+        return real(vals, seg, num_segments, **kw)
+
+    monkeypatch.setattr(physical, "segment_sum", spy)
+    return calls
+
+
+@pytest.mark.parametrize("name", ["grouped", "join_pairs", "union"])
+def test_gather_pilots_claim_their_slabs(executors, monkeypatch, name):
+    """A pilot whose pilot table's rows come first and are scanned once
+    states the slab claim: block_rows rows a slab, max_groups keys for the
+    block sums and the right table's block count for the pair sums; the
+    scratch rows' keys lie past n_phys * W.  The plain version checks the
+    claim, so the pilot's equality with the reference holds it too."""
+    _, tex = executors
+    what, pairs = PILOTS[name]
+    calls = _spy_segment_sum(monkeypatch)
+    plan = t_L.strip_samples(_plan(t_L, t_expr, what))
+    res = tex.execute_pilot(plan, "lineitem", 0.05, 123, pair_tables=pairs)
+    widths = [plan.max_groups] + ([tex.table_blocks("orders")] if pairs else [])
+    assert [kw for _, _, kw in calls] == [dict(slab_rows=32, slab_keys=w) for w in widths]
+    n_phys = calls[0][1] // widths[0]              # the padded pilot-block bucket
+    assert n_phys >= res.n_sampled_blocks > 0
+    assert [nseg for _, nseg, _ in calls] == [n_phys * w for w in widths]
+    rows = calls[0][0][1]
+    assert rows == n_phys * 32 if name != "union" else rows > n_phys * 32
+
+
+def test_union_scanning_the_pilot_table_twice_makes_no_claim(catalogs, executors,
+                                                              monkeypatch):
+    """A union that scans the pilot table twice puts pilot blocks' rows in
+    two places, so its pilot states no slab claim and takes the few route
+    (S * C within the budget) on the card; its block sums still equal the
+    reference's (every pilot block counted twice, as there)."""
+    rex, tex = executors
+    s_c = lambda L, E: (L.AggSpec("sum", E.Col("l_extendedprice"), "s"),
+                        L.AggSpec("count", None, "n"))
+    plan = lambda L, E: L.Aggregate(L.Union((L.Scan("lineitem"), L.Scan("lineitem"))),
+                                    s_c(L, E))
+    calls = _spy_segment_sum(monkeypatch)
+    r = rex.execute_pilot(plan(r_L, r_expr), "lineitem", 0.05, 123)
+    t = tex.execute_pilot(plan(t_L, t_expr), "lineitem", 0.05, 123)
+    assert [kw for _, _, kw in calls] == [{}]
+    (c, rows), nseg, _ = calls[0]
+    assert segment_ops.launch_plan(c, rows, nseg).route == "few"
+    assert t.n_sampled_blocks == r.n_sampled_blocks
+    np.testing.assert_allclose(t.block_sums, r.block_sums, rtol=1e-5)
+    np.testing.assert_array_equal(t.group_present, r.group_present)
+    once = tex.execute_pilot(t_L.Aggregate(t_L.Scan("lineitem"), s_c(t_L, t_expr)),
+                             "lineitem", 0.05, 123)
+    np.testing.assert_allclose(t.block_sums, 2 * once.block_sums, rtol=1e-6)
 
 
 # ---------------------------------------------------------------------------
