@@ -110,6 +110,32 @@ Phases, each printing its own lines:
              alone, the plain version and index_add_ alone.  The sorted
              route is also held and timed at a fixed input of its own
              (SORTED_POINT), so all three routes run on the card.
+9. staged + shards — the sample catalog and the shard executor (run right
+             after phase 8 on its SF10 lineitem): equal-seed sessions (seed
+             42, result cache off) with lineitem registered plain, with
+             ``staged_rates=True`` (1 / 4 / 16 %), with ``shards=4``, with
+             both, and with 1, 2 and 7 shards for invariance; each answers
+             Q6, SUM/COUNT and the grouped Q1 at ERROR 5% CONFIDENCE 95%
+             through Session.sql, and the phase-6 herd drains on the staged
+             session.  Counters zeroed before and read after each session:
+             filtered_agg, block_agg and segment_sum must launch in the
+             staged and the sharded sessions; every staged query must hit
+             its ladder; each staged pilot's and final's route must be the
+             fresh plan's (Q6 filtered_agg, SUM/COUNT block_agg, Q1
+             gather).  Staged answers must be bitwise the same session's
+             after its rungs are dropped (mono and 4 shards); 1 / 2 / 4 / 7
+             shards bitwise one answer, within rtol 1e-5 of the monolithic
+             session's; every answer within 5% of exact or a fallback; the
+             herd's answers bitwise their Session.sql.  Prints the ladder's
+             build seconds and bytes, each sharded registration's seconds and
+             device bytes, the host draw a staged pilot no longer pays beside
+             the memo hit, the walls of plain, staged and 4-shard sessions
+             (median of 5 warm runs, in turns) beside their device idle
+             share, and the card's peak memory.  Every kernel input of the
+             phase (first call per shape) is replayed against its plain
+             version and timed, and joins the ``kernels`` line.  The sharded
+             join is left out at SF10 (a dense pair tensor per shard); the
+             card tests hold it at a small size.
 3b. model kernels — flash_attention and gla_chunked (run right after phase
              3) at fixed scaling points in bf16: flash at hymba's width (2 x 25
              q heads over 5 kv heads, 2048 tokens, d 64) causal without a
@@ -194,6 +220,11 @@ GATHER_WARM = {"q1": 5, "join": 3, "q14": 5}
 SORTED_POINT, SORTED_SEED = (3, 1_000_000, 100_000), 5
 GATHER_HERD = [f"SELECT SUM(l_quantity) AS qty, COUNT(*) AS n FROM lineitem "
                f"WHERE l_shipdate < {x} GROUP BY l_returnflag" for x in (1800, 2000, 2200, 2400)]
+# phase 9: the queries each staged / sharded session answers, and the route
+# each must take on a rung as on a fresh draw
+STAGED_QUERIES = {"q6": Q6, "sum_count": SUM_COUNT, "q1": GATHER_QUERIES["q1"]}
+STAGED_ROUTES = {"q6": "filtered_agg", "sum_count": "block_agg", "q1": "gather"}
+SHARDS = 4                       # the timed sharded session; 1, 2, 7 for invariance
 # dense peaks of one H100 SXM at 700 W (data sheet): bf16 tensor cores, f32
 # without them
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
@@ -932,6 +963,287 @@ def run_gather(torch, np, catalog, Session, SessionConfig, segment_sum, recorder
 
 
 # ---------------------------------------------------------------------------
+# phase 9 helpers: staged ladders and shards
+# ---------------------------------------------------------------------------
+
+def same_bits(np, a, b):
+    """Equal f64 bit patterns (NaN-safe), for answers."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return a.shape == b.shape and np.array_equal(a.view(np.int64), b.view(np.int64))
+
+
+def evict_rungs(ex):
+    """Drop every ladder's rung tensors, as a byte budget of 0 does; the
+    ladders' pinned seeds stay, so later draws replay the same blocks."""
+    ex.staged.max_bytes = 0
+    with ex.staged._lock:
+        ex.staged._enforce_budget()
+
+
+def staged_routes(staged, plain, handle, num_blocks):
+    """The route of the staged pilot and final of ``handle`` (a query the
+    staged session answered) beside the route the plain session's compiler
+    gives the same plan on the fresh draw: {stage: (staged, fresh)}."""
+    from repro_torch.engine import logical as L
+    from repro_torch.engine.physical import ScanRuntime
+    from repro_torch.engine.sampling import draw_block_ids, pad_block_ids
+    from repro_torch.engine.staged import prepare_mono_subdraw
+    ex = staged.executor
+    plan, _ = staged.db._engine_plan(handle.query)
+    lad = ex.staged.ladder("lineitem")
+    r = handle.report
+    stages = [("pilot", r.theta_pilot)]
+    if r.plan is not None:
+        stages.append(("final", r.plan.rates["lineitem"]))
+    out = {}
+    for stage, rate in stages:
+        rung = lad.rung_for(rate)
+        check(rung is not None, f"no rung covers the {stage} rate {rate}")
+        sub = prepare_mono_subdraw(lad, rung, rate)
+        rt = ScanRuntime("block", sub.n_real, sub.n_phys, sub.phys,
+                         ids_dev=sub.phys_dev, nreal_dev=sub.nreal_dev)
+        phys, n_real, n_phys = pad_block_ids(
+            draw_block_ids(num_blocks, rate, lad.seed), num_blocks)
+        fresh = ScanRuntime("block", n_real, n_phys, phys)
+        if stage == "pilot":
+            out[stage] = (rung.compiler.compile_pilot(plan, "lineitem", rt).route,
+                          plain.executor.physical.compile_pilot(plan, "lineitem", fresh).route)
+        else:
+            fp = L.rewrite_scans(plan, {"lineitem": L.SampleClause("block", rate, 0)})
+            out[stage] = (rung.compiler.compile_query(fp, {"lineitem": rt}).route,
+                          plain.executor.physical.compile_query(fp, {"lineitem": fresh}).route)
+    return out
+
+
+def run_staged_shards(torch, np, li, Session, SessionConfig, kernels, recorder, smi):
+    """Phase 9: SF10 lineitem registered plain, staged, sharded and both;
+    Q6, SUM/COUNT and the grouped Q1 at ERROR 5% through Session.sql in
+    each, the phase-6 herd drained on the staged session; staged against
+    evicted, shard counts against each other, every answer against the
+    exact one; walls in turns beside their device idle share.  Returns the
+    summary, whose ``calls`` hold each session's recorded kernel inputs
+    (first call per shape), for the caller to replay."""
+    from repro_torch.engine.sampling import draw_block_ids
+    from repro_torch.engine.staged import prepare_mono_subdraw
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = SessionConfig(result_cache_size=0)
+    names = {fn.__name__ for fn in kernels}
+    summary = {"sessions": {}, "calls": {}}
+
+    def register(**kw):
+        torch.cuda.synchronize()
+        mem0, t0 = torch.cuda.memory_allocated(), time.perf_counter()
+        s = Session(seed=42, config=cfg)
+        s.register_table("lineitem", li, **kw)
+        torch.cuda.synchronize()
+        return s, time.perf_counter() - t0, torch.cuda.memory_allocated() - mem0
+
+    def evicted_answers(s):
+        """The queries again after the session's rungs are dropped (all
+        misses, under the same pinned seed)."""
+        evict_rungs(s.executor)
+        misses0 = s.executor.staged.misses
+        out = {qn: run_sql(torch, s, sql + GUARANTEE)[0]
+               for qn, sql in STAGED_QUERIES.items()}
+        check(s.executor.staged.misses > misses0, "an evicted ladder still served")
+        check(s.executor.staged_info()["resident_bytes"] == 0, "rungs left resident")
+        return out
+
+    def first_pass(tag, s):
+        """Each query once, counters zeroed before and read after, every
+        kernel call recorded; staged hits per query."""
+        zero_counters(kernels)
+        recorder.active = set(names)
+        out, hits = {}, {}
+        for qn, sql in STAGED_QUERIES.items():
+            h0 = s.executor.staged.hits
+            out[qn], _ = run_sql(torch, s, sql + GUARANTEE)
+            hits[qn] = s.executor.staged.hits - h0
+        recorder.active = set()
+        launches = read_counters(kernels)
+        summary["calls"][tag] = {name: dict(recorder.calls[name]) for name in names}
+        for name in names:
+            recorder.calls[name].clear()
+        summary["sessions"][tag] = {
+            "launches": launches, "staged_hits": hits,
+            "staged_misses": s.executor.staged.misses,
+            "fallbacks": {qn: h.fallback for qn, h in out.items()},
+            "plans": {qn: h.report.plan.rates if h.report.plan else None
+                      for qn, h in out.items()}}
+        print(f"[staged] {tag}: launches {launches}; staged hits per query {hits}, "
+              f"misses {s.executor.staged.misses}; plans "
+              f"{summary['sessions'][tag]['plans']}; fallbacks "
+              f"{summary['sessions'][tag]['fallbacks']}")
+        return out
+
+    plain, _, _ = register()
+    exact = {qn: run_sql(torch, plain, sql)[0] for qn, sql in STAGED_QUERIES.items()}
+    answers = {"plain": first_pass("plain", plain)}
+
+    staged, secs, nbytes = register(staged_rates=True)
+    info = staged.executor.staged_info()
+    summary["ladder"] = {"seconds": secs, "device_bytes": nbytes,
+                         "resident_bytes": info["resident_bytes"],
+                         "rates": info["tables"]["lineitem"]["rates"]}
+    print(f"[staged] ladder 1/4/16 % of {li.num_blocks:,} blocks: built in {secs:.3f} s; "
+          f"{info['resident_bytes']:,} B of rungs ({info['resident_bytes'] / li.total_bytes():.1%} "
+          f"of lineitem's {li.total_bytes():,} B); device allocation +{nbytes:,} B  [{smi}]")
+    answers["staged"] = first_pass("staged", staged)
+    routes = {}
+    for qn, h in answers["staged"].items():
+        routes[qn] = staged_routes(staged, plain, h, li.num_blocks)
+        for stage, (a, b) in routes[qn].items():
+            check(a == b, f"staged {qn} {stage} takes route {a}, the fresh plan {b}")
+        check(routes[qn]["pilot"][0] == STAGED_ROUTES[qn]
+              and routes[qn].get("final", (STAGED_ROUTES[qn],))[0] == STAGED_ROUTES[qn],
+              f"staged {qn} left its route {STAGED_ROUTES[qn]}: {routes[qn]}")
+    print(f"[staged] routes (staged, fresh) per stage: {routes}")
+    summary["routes"] = routes
+
+    shard_runs = {}
+    for n in (1, 2, 7, SHARDS):
+        s, secs, nbytes = register(shards=n)
+        shard_runs[n] = first_pass(f"shards={n}", s)
+        summary.setdefault("shard_registration", {})[n] = {
+            "seconds": secs, "device_bytes": nbytes}
+        print(f"[staged] shards={n}: registered in {secs:.3f} s; device allocation "
+              f"+{nbytes:,} B (lineitem {li.total_bytes():,} B)  [{smi}]")
+        # shards on the table's own card are views of its tensors
+        check(nbytes < li.total_bytes() // 100,
+              f"shards={n} allocated {nbytes:,} B on the table's own card")
+        if n == SHARDS:
+            sharded = s
+        else:
+            s.close()
+    both, secs, nbytes = register(shards=SHARDS, staged_rates=True)
+    print(f"[staged] shards={SHARDS} + ladder: registered in {secs:.3f} s; device "
+          f"allocation +{nbytes:,} B  [{smi}]")
+    answers["shards+staged"] = first_pass(f"shards={SHARDS}+staged", both)
+    both_evicted = evicted_answers(both)
+    both.close()
+
+    # the checks
+    for tag in ("staged", f"shards={SHARDS}+staged"):
+        for qn, n in summary["sessions"][tag]["staged_hits"].items():
+            check(n >= 1, f"{tag} {qn}: {n} staged hits")
+    for tag in ("staged", f"shards={SHARDS}", f"shards={SHARDS}+staged"):
+        launched = summary["sessions"][tag]["launches"]
+        for name in names:
+            check(launched[name] > 0, f"{tag}: {name} never launched")
+    for qn in STAGED_QUERIES:
+        check(same_bits(np, answers["shards+staged"][qn].answer.values,
+                        both_evicted[qn].answer.values),
+              f"shards+staged {qn}: the hit is not bitwise the miss after eviction")
+        for n in (2, 7, SHARDS):
+            check(same_bits(np, shard_runs[n][qn].answer.values,
+                            shard_runs[1][qn].answer.values),
+                  f"{qn}: {n} shards differ from 1 shard")
+        for got, want in ((shard_runs[1][qn], answers["plain"][qn]),
+                          (answers["shards+staged"][qn], answers["staged"][qn])):
+            check(got.fallback == want.fallback, f"{qn}: fallbacks differ across routes")
+            np.testing.assert_allclose(got.answer.values, want.answer.values, rtol=1e-5,
+                                       err_msg=f"{qn}: sharded vs monolithic")
+        for tag, hs in (*answers.items(), *((f"shards={n}", r) for n, r in shard_runs.items())):
+            rel = relative_errors(np, hs[qn], exact[qn])
+            check(bool(np.all(rel <= 0.05)) or hs[qn].fallback is not None,
+                  f"{tag} {qn}: error {rel} above 5% without a fallback")
+    print(f"[staged] {SHARDS}-shard staged answers bitwise the same session's after "
+          f"eviction; 1 / 2 / 7 / {SHARDS} shards bitwise one answer, within rtol "
+          "1e-5 of the monolithic session; every answer within 5% of exact or a fallback")
+
+    # the phase-6 herd drained on the staged session, against its own sql
+    hits0 = staged.executor.staged.hits
+    zero_counters(kernels)
+    t0 = time.perf_counter()
+    hs = [staged.submit(q) for q in HERD]
+    staged.drain()
+    torch.cuda.synchronize()
+    herd_ms = (time.perf_counter() - t0) * 1e3
+    herd_hits = staged.executor.staged.hits - hits0
+    herd_launches = read_counters(kernels)
+    for h in hs:
+        check(h.status == "done", f"staged drain: {h.error}\n{h.sql}")
+        r, _ = run_sql(torch, staged, h.sql)
+        check(same_bits(np, h.answer.values, r.answer.values),
+              f"staged drain answer is not bitwise its Session.sql\n{h.sql}")
+        e, _ = run_sql(torch, plain, h.sql.split(" ERROR ")[0])
+        rel = relative_errors(np, h, e)
+        check(bool(np.all(rel <= 0.05)) or h.fallback is not None,
+              f"staged drain: error {rel} above 5% without a fallback\n{h.sql}")
+    print(f"[staged] the phase-6 herd drained on the staged session: {herd_ms:.2f} ms, "
+          f"staged hits {herd_hits}, launches {herd_launches}, pilots "
+          f"{staged.scheduler.last_drain.pilots_run}; every answer bitwise its "
+          f"Session.sql and within 5% of exact or a fallback  [{smi}]")
+    summary["drain"] = {"wall_ms": herd_ms, "staged_hits": herd_hits,
+                        "launches": herd_launches,
+                        "pilots": staged.scheduler.last_drain.pilots_run}
+
+    # the host draw a staged pilot no longer pays, beside the memo hit
+    lad = staged.executor.staged.ladder("lineitem")
+    theta = answers["staged"]["q6"].report.theta_pilot
+    rung = lad.rung_for(theta)
+    draws, memo = [], []
+    for _ in range(WARM_RUNS):
+        t0 = time.perf_counter()
+        draw_block_ids(li.num_blocks, theta, lad.seed)
+        draws.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        prepare_mono_subdraw(lad, rung, theta)
+        memo.append((time.perf_counter() - t0) * 1e3)
+    summary["draw"] = {"theta": theta, "draw_ms": statistics.median(draws),
+                       "memo_ms": statistics.median(memo)}
+    print(f"[staged] the pilot draw at theta {theta:.6g} over {li.num_blocks:,} blocks: "
+          f"{summary['draw']['draw_ms']:.3f} ms on the host (median of {WARM_RUNS}); the "
+          f"staged pilot's memo hit {summary['draw']['memo_ms'] * 1e3:.2f} us")
+
+    # walls in turns: plain, staged, sharded, WARM_RUNS times each query
+    sessions = {"plain": plain, "staged": staged, f"shards={SHARDS}": sharded}
+    runs = {(tag, qn): {"wall": [], "pilot": [], "rate_solve": [], "final": []}
+            for tag in sessions for qn in STAGED_QUERIES}
+    for _ in range(WARM_RUNS):
+        for qn, sql in STAGED_QUERIES.items():
+            for tag, s in sessions.items():
+                h, w = run_sql(torch, s, sql + GUARANTEE)
+                r = runs[(tag, qn)]
+                r["wall"].append(w)
+                r["pilot"].append(h.report.pilot_time_s)
+                r["rate_solve"].append(h.report.plan_time_s)
+                r["final"].append(h.report.final_time_s)
+    walls = {}
+    for (tag, qn), r in runs.items():
+        med = {k: statistics.median(v) * 1e3 for k, v in r.items()}
+        busy, pwall = device_busy_ms(torch, lambda: sessions[tag].sql(STAGED_QUERIES[qn] + GUARANTEE))
+        med.update(device_busy_ms=busy, profiled_wall_ms=pwall,
+                   walls_ms=[v * 1e3 for v in r["wall"]])
+        walls[f"{tag} {qn}"] = med
+        share = "not measured" if busy is None else f"{1 - busy / pwall:.1%}"
+        print(f"[staged] {tag} {qn} at ERROR 5% (median of {WARM_RUNS} warm runs, in "
+              f"turns): {med['wall']:.2f} ms = pilot {med['pilot']:.2f} + rate solve "
+              f"{med['rate_solve']:.2f} + final {med['final']:.2f} ms; walls "
+              f"{[round(v, 2) for v in med['walls_ms']]}; device idle share {share} "
+              f"({busy if busy is None else round(busy, 4)} ms of {pwall:.2f} ms under "
+              f"torch.profiler)  [{smi}]")
+    summary["walls"] = walls
+    # last, the monolithic staged session's rungs dropped: each miss under
+    # the one pinned seed must give its hit's bits
+    evicted = evicted_answers(staged)
+    for qn in STAGED_QUERIES:
+        check(same_bits(np, answers["staged"][qn].answer.values, evicted[qn].answer.values),
+              f"staged {qn}: the hit is not bitwise the miss after eviction")
+    print("[staged] staged answers bitwise the same session's after its rungs were "
+          "dropped")
+    for s in sessions.values():
+        s.close()
+    summary["device_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    summary["phase_s"] = time.perf_counter() - t_phase
+    print(f"[staged] phase 9 in {summary['phase_s']:.1f} s; device peak "
+          f"{summary['device_peak_gb']:.2f} GB  [{smi}]")
+    return summary
+
+
+# ---------------------------------------------------------------------------
 # phase 3b / 7 helpers: the model kernels and the eval slice
 # ---------------------------------------------------------------------------
 
@@ -1637,6 +1949,37 @@ def main() -> int:
     torch.cuda.synchronize()
     for fn in wrappers:
         recorder.calls[fn.__name__].clear()
+
+    # -- 9. staged ladders and shards on the same SF10 lineitem ----------------
+    staged = run_staged_shards(torch, np, li, Session, SessionConfig,
+                               (filtered_agg, block_agg, segment_sum), recorder, smi)
+    # every kernel input of phase 9's staged and sharded sessions (first call
+    # per shape and session; the plain session's are phase 4's and 8's):
+    # against its plain version, then timed, as phases 4 and 8 do
+    staged["kernels"] = {"filtered_agg": [], "block_agg": [], "segment_sum": []}
+    for tag, calls in staged.pop("calls").items():
+        if tag == "plain":
+            continue
+        print(f"[staged] kernel inputs of the {tag} session:")
+        for name, (fn, ref) in (("filtered_agg", (filtered_agg, filtered_agg_ref)),
+                                ("block_agg", (block_agg, block_agg_ref))):
+            for args, _ in calls[name].values():
+                row = time_kernel(torch, np, name, fn, ref, None, args, smi, floor)
+                staged["kernels"][name].append({"session": tag, **row})
+        for args, kwargs in calls["segment_sum"].values():
+            row = time_segment_sum(torch, segment_ops, segment_sum_ref, args, kwargs,
+                                   smi, launch_floor)
+            staged["kernels"]["segment_sum"].append({"session": tag, **row})
+    for name, rows in staged["kernels"].items():
+        check(bool(rows), f"{name}: no call of phase 9 was recorded")
+    for r in staged["kernels"]["segment_sum"]:
+        check(r["route"] != "sorted", f"segment_sum {r['shape']} took the sorted route")
+    staged_launches = {
+        name: sum(sess["launches"][name] for sess in staged["sessions"].values())
+        + staged["drain"]["launches"][name]
+        for name in ("filtered_agg", "block_agg", "segment_sum")}
+    print(f"[staged] phase 9 launches, every session and the drain: {staged_launches}")
+    torch.cuda.synchronize()
     del session, catalog, cols, li, ids, lanes, q6_cols
     torch.cuda.empty_cache()
 
@@ -1705,7 +2048,9 @@ def main() -> int:
             "name": k, "route": "cuda", "source": sources[k],
             "replaces": replaces[k],
             "launches": (drain["launches"] if path == "drain" else launches)[k],
-            "launches_by_path": {"sql": launches[k], "drain": drain["launches"][k]},
+            "launches_by_path": {"sql": launches[k], "drain": drain["launches"][k],
+                                 **({"staged_shards": staged_launches[k]}
+                                    if k in staged_launches else {})},
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "library_ms": None, "floor_ms": t["floor_ms"],
@@ -1713,6 +2058,7 @@ def main() -> int:
             "ids_shape": t["ids_shape"], "solo_ms": t.get("solo_ms"),
             "main_path": timed[k]["main_path"],
             "scaling_points": timed[k]["scaling_points"], "k_sweep": sweep[k],
+            "staged_shards": staged["kernels"].get(k),
         })
     # segment_sum's headline: its recorded input with the most work (the
     # largest bytes bound)
@@ -1724,7 +2070,8 @@ def main() -> int:
         "replaces_note": "the gather route's XLA scatter-add (.at[:, seg].add, "
                          "physical.py:256, :276, :877-878, :1072-1082); no Pallas original",
         "launches": gather["launches"],
-        "launches_by_path": {"gather": gather["launches_by_query"]},
+        "launches_by_path": {"gather": gather["launches_by_query"],
+                             "staged_shards": staged_launches["segment_sum"]},
         "max_abs_err": head["max_abs_err"], "ms": head["ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": "bytes", "library_ms": head["library_ms"],
@@ -1732,6 +2079,7 @@ def main() -> int:
         "shape": head["shape"], "route_taken": head["route"],
         "main_path": gather["segment_sum"],
         "sorted_route_point": gather["segment_sum_sorted_point"],
+        "staged_shards": staged["kernels"]["segment_sum"],
     })
     model_sources = {
         "flash_attention": ("src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",
@@ -1753,6 +2101,7 @@ def main() -> int:
         })
     summary["drain"] = drain
     summary["gather"] = gather
+    summary["staged_shards"] = {k: v for k, v in staged.items() if k != "kernels"}
     summary["eval"] = evaluation
     print(f"[done] {time.perf_counter() - t_start:.1f} s; main path {json.dumps(summary)}")
     print(json.dumps({"kernels": kernels}))

@@ -10,6 +10,7 @@ from repro_torch.api.session import (QueryFailedError, QueryHandle, QueryStatus,
 from repro_torch.api.sql import (HavingClause, LimitClause, ParsedQuery,
                                  SqlSyntaxError, UnsupportedSqlError, parse_sql,
                                  render_sql, resolve_string_literals)
+from repro_torch.runtime import BackpressureError, ResultCacheInfo
 
 __all__ = [
     "Session",
@@ -31,4 +32,6 @@ __all__ = [
     "ParsedQuery",
     "SqlSyntaxError",
     "UnsupportedSqlError",
+    "BackpressureError",
+    "ResultCacheInfo",
 ]

@@ -28,9 +28,13 @@ spec dataclasses.  Equal-seed sessions of the two packages therefore draw
 the same pilot and final blocks.
 
 Grouped, joined, unioned and row-sampled queries run through the physical
-layer's gather route.  The session runs on the CUDA card by default and
-raises where there is none; ``device="cpu"`` runs the kernels' plain
-PyTorch versions.  The staging, sharding, fused, streaming and
+layer's gather route.  ``register_table(..., staged_rates=, shards=)``
+stages a table's sample ladder (:mod:`repro_torch.engine.staged`) and
+partitions it into block-range shards (:mod:`repro_torch.dist`, whose
+:class:`DistExecutor` is the session's default executor); answers are
+bitwise the same for every ladder and every shard count.  The session runs
+on the CUDA card by default and raises where there is none; ``device="cpu"``
+runs the kernels' plain PyTorch versions.  The fused, streaming and
 observability hooks of the reference wait for later slices.
 """
 
@@ -53,8 +57,10 @@ from repro_torch.core.spec import ErrorSpec
 from repro_torch.core.taqa import (ApproxAnswer, PilotDB, Query, TaqaReport,
                                    pilot_params, structural_signature)
 from repro_torch.device import resolve_device
+from repro_torch.dist import DistExecutor
 from repro_torch.engine.executor import Executor
 from repro_torch.engine.physical import plan_template
+from repro_torch.engine.staged import DEFAULT_STAGED_RATES, validate_rates
 from repro_torch.engine.table import BlockTable
 from repro_torch.runtime import shared_pilot as _shared_pilot
 from repro_torch.runtime.pool import AsyncRuntime
@@ -208,6 +214,12 @@ class SessionConfig:
     pilot_workers: int = 0
     # Session result-cache capacity in answers; 0 disables caching.
     result_cache_size: int = 128
+    # Optional byte budget for the staged sample catalog (tables registered
+    # with staged_rates=...): rung tensors of cold ladders are evicted
+    # LRU-first past the budget; the ladder's pinned staging seed survives
+    # eviction, so answers stay bitwise equal across the hit/miss boundary.
+    # None = unbounded residency.
+    staged_bytes: Optional[int] = None
 
     def resolve_workers(self) -> int:
         """The worker count ``async_workers=None`` sizes to: serial on <= 2
@@ -226,15 +238,27 @@ class Session:
 
     def __init__(self, catalog: Optional[Dict[str, BlockTable]] = None, *,
                  seed: int = 0, config: SessionConfig = SessionConfig(),
-                 device="cuda"):
+                 device="cuda", executor: Optional[Executor] = None):
         self.config = config
-        self.device = resolve_device(device)
         if config.spec_kwargs:
             # fail at construction, not on every client's ERROR clause
             dataclasses.replace(ErrorSpec(error=config.default_error,
                                           confidence=config.default_confidence),
                                 **config.spec_kwargs)
-        self.executor = Executor(catalog or {}, device=self.device)
+        if executor is not None:
+            if catalog is not None:
+                raise ValueError(
+                    "pass either catalog or executor, not both: an explicit "
+                    "executor brings its own catalog, and the catalog "
+                    "argument would be silently ignored")
+            self.executor = executor
+            self.device = executor.device
+        else:
+            self.device = resolve_device(device)
+            # DistExecutor behaves exactly like Executor until a table is
+            # registered with shards= (see register_table)
+            self.executor = DistExecutor(catalog or {}, device=self.device,
+                                         staged_bytes=config.staged_bytes)
         self.db = PilotDB(self.executor,
                           large_table_rows=config.large_table_rows)
         self._entropy = int(seed)
@@ -259,8 +283,27 @@ class Session:
     # -- catalog -------------------------------------------------------------
     def register_table(self, name: str, table: BlockTable, *,
                        dictionaries: Optional[Dict[str, Sequence[str]]] = None,
+                       shards: Optional[int] = None,
+                       staged_rates: Optional[Sequence[float]] = None,
                        ) -> None:
         """Add (or replace) a catalog table on this session's device.
+
+        ``staged_rates=[...]`` also materializes a staged block-sample
+        ladder for the table (``True`` takes the default 1% / 4% / 16%; per
+        shard for a sharded registration): a sampled scan whose rate a rung
+        covers runs on the rung's tensors as a sub-draw of the table's ONE
+        content-derived staging realization — bitwise a fresh draw, for
+        pilots and finals — without the per-query draw over every block.
+        ``None`` (default) stages nothing.  Re-registration drops the old
+        ladder first, so staged tensors never outlive their data.
+
+        ``shards=N`` registers the table partitioned into N disjoint block
+        ranges: block-sampled scans then run one dispatch per shard, merged
+        through per-block statistics (:mod:`repro_torch.dist`), and answers
+        are bitwise equal for EVERY shard count.  ``None`` (default)
+        registers it whole.  A sharded registration keeps the whole table
+        (exact, row-sample and multi-table paths run on it) AND a copy of
+        every shard's slice: about twice the table's bytes on the device.
 
         Registering ``name`` evicts the cached MAXGROUPS statistics of its
         columns and every result-cache entry whose plan scanned it.  A query
@@ -271,11 +314,37 @@ class Session:
         to their value lists (code = list index), enabling string literals
         for those columns in WHERE clauses.
         """
+        if shards is not None:
+            if not hasattr(self.executor, "register_sharded"):
+                raise ValueError(
+                    "shards= needs a dist-capable executor (repro_torch.dist."
+                    "DistExecutor, the session default); the explicit "
+                    "executor passed to this session does not support "
+                    "sharding")
+            # validate BEFORE the generation bump: a rejected registration
+            # must not fail in-flight queries over unchanged data
+            if not 1 <= shards <= table.num_blocks:
+                raise ValueError(
+                    f"shards must be in [1, {table.num_blocks}] (blocks are "
+                    f"the atomic placement unit), got {shards}")
+        if staged_rates is not None:
+            # validate BEFORE the generation bump, like shards= above
+            staged_rates = DEFAULT_STAGED_RATES if staged_rates is True \
+                else validate_rates(staged_rates)
         # bump+swap under the generation lock: no snapshot interleaves
         # between the new generation and the new data
         with self._gen_lock:
             self._table_gen[name] = self._table_gen.get(name, 0) + 1
-            self.executor.register_table(name, table)
+            if shards is None:
+                self.executor.register_table(name, table)
+            else:
+                self.executor.register_sharded(name, table, shards)
+            if staged_rates is not None:
+                # stage inside the lock: the ladder (and its seed pinning)
+                # becomes visible with the table swap, so no query sees the
+                # table staged-rates-on but unstaged
+                self.executor.register_staged(
+                    name, staged_rates, seed=self._staged_seed_for(name))
         self._max_groups_cache = {k: v for k, v in
                                   self._max_groups_cache.items()
                                   if k[0] != name}
@@ -354,6 +423,15 @@ class Session:
         seq = np.random.SeedSequence(
             [self._entropy, 0x9E3779B9,
              _content_hash(handle.signature, params)])
+        return int(seq.generate_state(1, dtype=np.uint32)[0])
+
+    def _staged_seed_for(self, name: str) -> int:
+        """The staging seed pinning table ``name``'s one staged realization:
+        a function of (session seed, table name) only — not of the ladder's
+        rates — so every ladder of a table stages the same realization (the
+        reference's derivation, bit for bit)."""
+        seq = np.random.SeedSequence(
+            [self._entropy, 0x5A3D1ED, _content_hash(name)])
         return int(seq.generate_state(1, dtype=np.uint32)[0])
 
     # -- front doors ----------------------------------------------------------

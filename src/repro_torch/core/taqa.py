@@ -371,6 +371,11 @@ class PilotDB:
         pilot: the reference stacks same-shape gather-route pilots into one
         ``lax.map`` dispatch, but here a stacked lane would run the same
         launches as the solo pilot, so stacking would save only host syncs.
+        So the reference's gates that send a staged or sharded pilot table
+        to the solo loop hold here by construction: its solo pilot pins the
+        ladder's seed and serves a covering rung
+        (:meth:`Executor.execute_pilot`), or fans out over the shards
+        (:meth:`repro_torch.dist.DistExecutor.execute_pilot`).
         """
         results: List[object] = []
         for q, spec, pseed in reqs:

@@ -20,6 +20,12 @@ take their exact fallback.
 
 Each query (each batch) crosses the device→host boundary once, where its
 sums are widened to f64 for the host-side upscale and rate solve.
+
+Tables opted in through :meth:`Executor.register_staged` serve covered
+block-sampled scans from pre-gathered rungs (:mod:`repro_torch.engine.staged`):
+the same routes — column kernels and gather route alike — over the rung's
+tensors, with block positions in place of block ids, bitwise the fresh draw
+under the table's pinned staging seed.
 """
 
 from __future__ import annotations
@@ -37,6 +43,8 @@ from repro_torch.engine.physical import (PhysicalCompiler, ScanRuntime,
                                          plan_constants, scan_cost_bytes)
 from repro_torch.engine.sampling import (SampleInfo, draw_block_ids,
                                          draw_row_sample, pad_block_ids)
+from repro_torch.engine.staged import (DEFAULT_STAGED_RATES, SampleCatalog,
+                                       build_ladder, prepare_mono_subdraw)
 from repro_torch.engine.table import BlockTable
 
 
@@ -94,8 +102,13 @@ class PilotStats:
 
 
 class Executor:
-    def __init__(self, catalog: Dict[str, BlockTable], *, device="cuda"):
+    def __init__(self, catalog: Dict[str, BlockTable], *, device="cuda",
+                 staged_bytes: Optional[int] = None):
         self.device = resolve_device(device)
+        # Pre-staged block-sample ladders (repro_torch.engine.staged): tables
+        # opted in via register_staged() serve covered sampled scans from
+        # materialized rungs; staged_bytes bounds rung residency.
+        self.staged = SampleCatalog(max_bytes=staged_bytes)
         self.catalog: Dict[str, BlockTable] = {}
         for name, table in catalog.items():
             self.register_table(name, table)
@@ -123,6 +136,25 @@ class Executor:
             raise ValueError(f"table {name!r} is on {table.device}, the "
                              f"executor on {self.device}")
         self.catalog[name] = table
+        # Staged lifecycle: the replaced table's ladder holds stale gathered
+        # slabs — drop it (re-staging is the registrant's call); other
+        # ladders replicate this table in their rung-compiler catalogs and
+        # must see the new tensors.
+        self.staged.invalidate(name)
+        self.staged.refresh_replicated(name, table)
+
+    def register_staged(self, name: str, rates=DEFAULT_STAGED_RATES, *,
+                        seed: int = 0) -> None:
+        """Materialize a staged sample ladder for catalog table ``name``.
+
+        ``seed`` pins the table's one staging realization: EVERY block draw
+        of the table (staged hit or fresh miss, pilot or final) replays it,
+        which is what makes staged and fresh answers bit-identical.
+        """
+        if name not in self.catalog:
+            raise KeyError(f"unknown table {name!r}")
+        self.staged.admit(build_ladder(name, self.catalog[name], rates, seed,
+                                       self.catalog))
 
     # -- table metadata (the "DBMS statistics" TAQA consults) ---------------
     def table_rows(self, name: str) -> int:
@@ -134,23 +166,46 @@ class Executor:
     def block_rows(self, name: str) -> int:
         return self.catalog[name].block_rows
 
+    def is_sharded(self, name: str) -> bool:
+        """Whether ``name`` executes as sharded sub-scans (DistExecutor
+        overrides).  A monolithic executor never shards."""
+        return False
+
     def table_bytes(self, name: str) -> int:
         return self.catalog[name].total_bytes()
 
     def compile_cache_info(self):
-        """Hit/miss/size counters of the physical-plan signature cache."""
-        return self.physical.cache_info()
+        """Hit/miss/size counters of the physical-plan signature cache,
+        every staged rung's compiler included in the totals, plus the
+        staged-route hit/miss counters."""
+        info = self.physical.cache_info()
+        rung_hits, rung_misses, rung_size = self.staged.compile_totals()
+        info.hits += rung_hits
+        info.misses += rung_misses
+        info.size += rung_size
+        info.staged_hits = self.staged.hits
+        info.staged_misses = self.staged.misses
+        return info
+
+    def staged_info(self) -> Dict[str, object]:
+        """Staged-catalog serving counters and per-table ladder state."""
+        return self.staged.info()
 
     # -- host-side sampling decisions ---------------------------------------
     def _scan_runtimes(
-        self, plan: L.Plan,
+        self, plan: L.Plan, exclude: Optional[str] = None,
     ) -> Tuple[Dict[str, ScanRuntime], Dict[str, SampleInfo]]:
         """Draw every scan's TABLESAMPLE decision (host RNG, as a DBMS picks
         pages before scanning) and package it as compiled-callable inputs —
-        the reference's draw bit for bit."""
+        the reference's draw bit for bit.  A table with a staged ladder
+        draws from its pinned staging seed (hits and misses agree bitwise);
+        ``exclude`` skips the one table whose runtime the staged route
+        supplies itself."""
         runtimes: Dict[str, ScanRuntime] = {}
         infos: Dict[str, SampleInfo] = {}
         for s in plan.scans():
+            if s.table == exclude:
+                continue
             table = self.catalog[s.table]
             if s.sample is None:
                 runtimes[s.table] = ScanRuntime("none")
@@ -159,12 +214,18 @@ class Executor:
                     np.arange(table.num_blocks),
                     scanned_bytes=scan_cost_bytes(table, "none"))
             elif s.sample.method == "block":
-                ids = draw_block_ids(table.num_blocks, s.sample.rate,
-                                     s.sample.seed)
+                lad = self.staged.ladder(s.table)
+                seed = s.sample.seed if lad is None else lad.seed
+                if lad is not None and s.sample.rate < 1.0:
+                    # a ladder-bearing table drawn fresh: rate uncovered,
+                    # rung tensors evicted, or a plan the staged route
+                    # does not take
+                    self.staged.note_miss()
+                ids = draw_block_ids(table.num_blocks, s.sample.rate, seed)
                 phys, n_real, n_phys = pad_block_ids(ids, table.num_blocks)
                 runtimes[s.table] = ScanRuntime("block", n_real, n_phys, phys)
                 infos[s.table] = SampleInfo(
-                    "block", s.sample.rate, s.sample.seed, n_real,
+                    "block", s.sample.rate, seed, n_real,
                     table.num_blocks, ids,
                     scanned_bytes=scan_cost_bytes(table, "block", n_real))
             else:
@@ -221,15 +282,74 @@ class Executor:
     # -- public API ----------------------------------------------------------
     def execute(self, plan: L.Aggregate) -> QueryResult:
         self._count("queries_run")
+        route = self._staged_route(plan)
+        if route is not None:
+            result = self._execute_staged(plan, *route)
+            if result is not None:
+                return result
         t0 = time.perf_counter()
         runtimes, infos = self._scan_runtimes(plan)
         self._check_empty(infos)
-        return self._execute_drawn(plan, runtimes, infos, t0)
+        return self._execute_drawn(plan, runtimes, infos, t0, self.physical)
 
-    def _execute_drawn(self, plan: L.Aggregate, runtimes, infos,
-                       t0: float) -> QueryResult:
-        """The device half of :meth:`execute`, on a sample already drawn."""
-        compiled = self.physical.compile_query(plan, runtimes)
+    def _staged_route(self, plan: L.Aggregate):
+        """(table, SampleClause, ladder, rung) when ``plan`` can run against
+        a monolithic staged rung, else None (the fresh path — which still
+        draws under the ladder seed, so both routes agree bitwise).
+
+        Exactly one block-sampled (rate < 1) scan, whose table holds a
+        resident monolithic rung covering the rate.  Unlike the reference,
+        which stages only on its XLA route, every route takes rungs: the
+        column kernels and the gather route read the rung's tensors at
+        block positions, with the fresh ``n_phys``.
+        """
+        sampled = [s for s in plan.scans()
+                   if s.sample is not None and s.sample.rate < 1.0]
+        if len(sampled) != 1 or sampled[0].sample.method != "block":
+            return None
+        target = sampled[0]
+        lad = self.staged.ladder(target.table)
+        if lad is None or lad.sharded is not None:
+            return None
+        rung = lad.rung_for(target.sample.rate)
+        if rung is None:
+            return None
+        return target.table, target.sample, lad, rung
+
+    def _execute_staged(self, plan: L.Aggregate, table: str, sample,
+                        lad, rung) -> Optional[QueryResult]:
+        """Execute against a staged rung: the memoized sub-draw (a
+        restriction of the ladder's one realization), block POSITIONS within
+        the rung in place of block ids, and the rung's own compiler, with
+        the physical block count forced to the fresh path's value: the same
+        rows, shapes and reduction order as a fresh draw, so the answer is
+        bitwise the fresh one.  None when the budget dropped the rung after
+        :meth:`_staged_route` chose it: the caller then draws fresh."""
+        t0 = time.perf_counter()
+        origin = self.catalog[table]
+        sub = prepare_mono_subdraw(lad, rung, sample.rate)
+        if sub is None:
+            return None
+        self.staged.note_hit()
+        if sub.n_real == 0:
+            # a fresh draw under the pinned seed would be empty too
+            raise EmptySampleError(table, "block", sample.rate)
+        runtimes, infos = self._scan_runtimes(plan, exclude=table)
+        self._check_empty(infos)
+        runtimes[table] = ScanRuntime("block", sub.n_real, sub.n_phys,
+                                      sub.phys, ids_dev=sub.phys_dev,
+                                      nreal_dev=sub.nreal_dev)
+        infos[table] = SampleInfo(
+            "block", sample.rate, lad.seed, sub.n_real, lad.num_blocks,
+            sub.sub_ids,
+            scanned_bytes=scan_cost_bytes(origin, "block", sub.n_real))
+        return self._execute_drawn(plan, runtimes, infos, t0, sub.compiler)
+
+    def _execute_drawn(self, plan: L.Aggregate, runtimes, infos, t0: float,
+                       compiler: PhysicalCompiler) -> QueryResult:
+        """The device half of :meth:`execute`, on a sample already drawn
+        (through ``compiler``, a staged rung's, or the executor's own)."""
+        compiled = compiler.compile_query(plan, runtimes)
         # Predicate/expression constants ride as a runtime operand: the
         # compiled callable is shared across every constant variant.
         self._count("device_dispatches")
@@ -275,8 +395,10 @@ class Executor:
         Buckets split greedily into power-of-two chunks (5 members run as
         4 + 1), so batch callables recur in log-many sizes with no padded
         lanes; a chunk of one runs solo on the sample already drawn.  Plans
-        that sample no table run solo.  A failing batched call raises to the
-        caller — it is never re-run as solo launches.
+        that sample no table run solo, and so do members the staged route
+        serves (their dispatch is already the cheap one, and batching them
+        would redraw fresh).  A failing batched call raises to the caller —
+        it is never re-run as solo launches.
         """
         results: List[object] = [None] * len(plans)
 
@@ -293,6 +415,9 @@ class Executor:
         drawn: Dict[int, tuple] = {}
         buckets: Dict[tuple, List[int]] = {}
         for i, plan in enumerate(plans):
+            if self._staged_route(plan) is not None:
+                land(i, self._execute_captured(plan))
+                continue
             t0 = time.perf_counter()
             runtimes, infos = self._scan_runtimes(plan)
             try:
@@ -303,7 +428,8 @@ class Executor:
                 continue
             if all(r.method == "none" for r in runtimes.values()):
                 self._count("queries_run")
-                land(i, self._execute_drawn(plan, runtimes, infos, t0))
+                land(i, self._execute_drawn(plan, runtimes, infos, t0,
+                                            self.physical))
                 continue
             drawn[i] = (runtimes, infos)
             key = self.physical.query_signature(plan, runtimes)
@@ -317,7 +443,8 @@ class Executor:
                     i = chunk[0]
                     self._count("queries_run")
                     land(i, self._execute_drawn(plans[i], *drawn[i],
-                                                time.perf_counter()))
+                                                time.perf_counter(),
+                                                self.physical))
                     continue
                 self._run_bucket(plans, chunk, drawn, results)
                 if on_result is not None:
@@ -367,13 +494,31 @@ class Executor:
         when ``pair_tables[0]`` sits alone on the right of a join, the
         per-(pilot block, right block) sums Lemma 4.8 needs.
 
+        A table with a staged ladder draws from its pinned staging seed on
+        every route, and a resident rung covering ``theta_p`` serves the
+        draw as a memoized sub-draw of the staged realization, so hits,
+        misses and undershoot retries replay one realization.
+
         Not counted here: ``pilots_run`` counts pilot *stages* and is
         incremented by :meth:`repro_torch.core.taqa.PilotDB.run_pilot`.
         """
         t0 = time.perf_counter()
         table = self.catalog[pilot_table]
-        ids = draw_block_ids(table.num_blocks, theta_p, seed)
-        n_real = int(len(ids))
+        lad = self.staged.ladder(pilot_table)
+        seed = seed if lad is None else lad.seed
+        rung = (lad.rung_for(theta_p)
+                if lad is not None and lad.sharded is None else None)
+        # None also when the budget dropped the rung after rung_for
+        sub = (prepare_mono_subdraw(lad, rung, theta_p)
+               if rung is not None else None)
+        if sub is not None:
+            self.staged.note_hit()
+            n_real = sub.n_real
+        else:
+            if lad is not None:
+                self.staged.note_miss()
+            ids = draw_block_ids(table.num_blocks, theta_p, seed)
+            n_real = int(len(ids))
         names = [a.name for a in plan.aggs] + ["__rows"]
 
         if n_real == 0:
@@ -388,11 +533,19 @@ class Executor:
                 pair_sums={}, right_total_blocks={}, scanned_bytes=scanned,
                 wall_time_s=time.perf_counter() - t0)
 
-        phys, n_real, n_phys = pad_block_ids(ids, table.num_blocks)
-        runtime = ScanRuntime("block", n_real, n_phys, phys)
+        if sub is not None:
+            # positions within the rung, padded to the FRESH physical block
+            # count: the same shapes, launch plans and masks, a smaller gather
+            runtime = ScanRuntime("block", sub.n_real, sub.n_phys, sub.phys,
+                                  ids_dev=sub.phys_dev, nreal_dev=sub.nreal_dev)
+            compiler = sub.compiler
+        else:
+            phys, n_real, n_phys = pad_block_ids(ids, table.num_blocks)
+            runtime = ScanRuntime("block", n_real, n_phys, phys)
+            compiler = self.physical
         pair_table = pair_tables[0] if pair_tables else None
-        compiled = self.physical.compile_pilot(plan, pilot_table, runtime,
-                                               pair_table)
+        compiled = compiler.compile_pilot(plan, pilot_table, runtime,
+                                          pair_table)
         self._count("device_dispatches")
         bs_d, present_d, pair_d = compiled({pilot_table: runtime},
                                            plan_constants(plan))

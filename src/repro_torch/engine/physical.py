@@ -98,6 +98,13 @@ class ScanRuntime:
     zeros; rows past ``n_real`` are masked out, so nearby sample sizes share
     one cache entry.  ``keep_mask`` is a row-sampled scan's draw over every
     padded row, on the host or already on the table's device.
+
+    ``ids_dev`` / ``nreal_dev`` are device copies of ``ids`` / ``n_real``
+    made once by whoever memoizes the draw (a staged sub-draw,
+    :mod:`repro_torch.engine.staged`, which range-checks the ids when it
+    makes them): a call then uses them as they are, with no host check and
+    no host-to-device copy.  They must hold the values of ``ids`` /
+    ``n_real``.
     """
 
     method: str                             # "none" | "block" | "row"
@@ -105,6 +112,8 @@ class ScanRuntime:
     n_phys: int = 0                         # bucketed physical block count
     ids: Optional[np.ndarray] = None        # (n_phys,) int32, zero-padded
     keep_mask: Optional[np.ndarray | torch.Tensor] = None  # (padded_rows,) bool
+    ids_dev: Optional[torch.Tensor] = None  # (n_phys,) int32 on the table's device
+    nreal_dev: Optional[torch.Tensor] = None  # int32 scalar on the same device
 
     def sig(self) -> tuple:
         if self.method == "block":
@@ -209,14 +218,17 @@ def channel_matrix(columns: Dict[str, torch.Tensor], valid: torch.Tensor,
     return torch.stack(outs)
 
 
-def _group_ids(columns: Dict[str, torch.Tensor], rows: int,
-               group_by: Optional[str], max_groups: int,
-               device) -> torch.Tensor:
+def _group_ids(columns: Dict[str, torch.Tensor], valid: torch.Tensor,
+               group_by: Optional[str], max_groups: int) -> torch.Tensor:
     """Each row's group id in ``[0, max_groups)`` (int64): the group
-    column cut to int32 and clipped, as the reference's segment key."""
+    column cut to int32 and clipped, as the reference's segment key.  An
+    invalid row (whose channels are all zero) takes group 0, so no key
+    depends on what a padding id read: block 0 of the table on a fresh
+    draw, position 0 of the rung on a staged one."""
     if group_by is None:
-        return torch.zeros(rows, dtype=torch.int64, device=device)
-    return columns[group_by].to(torch.int32).clamp(0, max_groups - 1).to(torch.int64)
+        return torch.zeros(valid.shape[0], dtype=torch.int64, device=valid.device)
+    gid = columns[group_by].to(torch.int32).clamp(0, max_groups - 1).to(torch.int64)
+    return torch.where(valid, gid, 0)
 
 
 @dataclasses.dataclass
@@ -474,16 +486,23 @@ class _CompiledBase:
         return next(iter(self.catalog[t] for t in self.needed)).device
 
     def _runtime_args(self, runtimes: Dict[str, ScanRuntime], params=()) -> dict:
-        """Host draws and constants as device tensors.  Block ids are range
-        checked here, on the host, because the kernels and the gather index
-        with them."""
+        """Host draws and constants as device tensors.  Fresh block ids are
+        range checked here, on the host, because the kernels and the gather
+        index with them; memoized device ids (``ids_dev``) were checked when
+        they were made and are used as they are."""
         dev = self._device()
         rt = {"ids": {}, "nreal": {}, "mask": {},
               "params": torch.as_tensor(np.asarray(params, np.float32), device=dev)}
         for name in self.needed:
             method = self.methods.get(name, "none")
             r = runtimes.get(name)
-            if method == "block":
+            if method == "block" and r.ids_dev is not None:
+                if tuple(r.ids_dev.shape) != (r.n_phys,) or r.ids_dev.device != dev:
+                    raise ValueError(f"device block ids of {name!r} must be "
+                                     f"({r.n_phys},) on {dev}")
+                rt["ids"][name] = r.ids_dev
+                rt["nreal"][name] = r.n_real if r.nreal_dev is None else r.nreal_dev
+            elif method == "block":
                 ids = np.ascontiguousarray(r.ids, dtype=np.int32)
                 nb = self.catalog[name].num_blocks
                 if ids.shape != (r.n_phys,) or (len(ids) and (
@@ -599,6 +618,10 @@ class CacheInfo:
     # the share of hits / misses above that were drain-group batch callables
     batched_hits: int = 0
     batched_misses: int = 0
+    # staged-catalog serving counters (repro_torch.engine.staged), filled in
+    # by Executor.compile_cache_info; zero for a bare compiler
+    staged_hits: int = 0
+    staged_misses: int = 0
 
 
 class PhysicalCompiler:
@@ -742,8 +765,7 @@ class PhysicalCompiler:
 
         def run(rt):
             tt = tracer.trace(template.child, rt)
-            gid = _group_ids(tt.columns, tt.valid.shape[0], template.group_by,
-                             mg, tt.valid.device)
+            gid = _group_ids(tt.columns, tt.valid, template.group_by, mg)
             vals = channel_matrix(tt.columns, tt.valid, exprs, rt["params"])
             rows = torch.cat([vals, tt.valid.to(torch.float32)[None]])
             out = segment_sum(rows, gid, mg)
@@ -905,8 +927,7 @@ class PhysicalCompiler:
             tt = tracer.trace(plan.child, rt)
             claim = lambda width: (dict(slab_rows=tt.block_rows, slab_keys=width)
                                    if slab else {})
-            gid = _group_ids(tt.columns, tt.valid.shape[0], plan.group_by, mg,
-                             tt.valid.device)
+            gid = _group_ids(tt.columns, tt.valid, plan.group_by, mg)
             vals = channel_matrix(tt.columns, tt.valid, exprs, rt["params"])
             dense = segment_sum(vals, tt.pblock * mg + gid, n_phys * mg, **claim(mg))
             block_sums = dense.reshape(n_ch, n_phys, mg).permute(1, 2, 0)
@@ -1015,12 +1036,16 @@ def _lane_channels(outs: dict, specs, n_reals: Sequence[int]):
             for b, n in enumerate(n_reals)]
 
 
-def _mask_padding(chans: torch.Tensor, cnt: torch.Tensor, n_real: int):
-    """Zero the rows of padding ids (positions >= n_real), as a multiply by
-    a 0/1 f32 mask like the reference's."""
+def _mask_padding(chans: torch.Tensor, cnt: torch.Tensor, n_real):
+    """Set the rows of padding ids (positions >= n_real) to +0.0.  They read
+    block 0 of the table, or position 0 of a staged rung: a select (not the
+    reference's multiply by a 0/1 mask, whose zero takes the sign of what
+    the padding read) makes them the same bits whatever they read.
+    ``n_real`` is a host int or a device scalar."""
     n_phys = chans.shape[0]
-    mask = (torch.arange(n_phys, device=chans.device) < n_real).to(torch.float32)
-    return chans * mask[:, None], cnt * mask
+    real = torch.arange(n_phys, device=chans.device) < n_real
+    zero = torch.zeros((), dtype=chans.dtype, device=chans.device)
+    return torch.where(real[:, None], chans, zero), torch.where(real, cnt, zero)
 
 
 def _row_tables(plan: L.Plan) -> List[str]:

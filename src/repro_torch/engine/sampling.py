@@ -7,9 +7,9 @@ device-side: the kernels read only the sampled blocks (cost ∝ θ · bytes).
 The draws are the reference's bit for bit (``rng.random(N) < rate`` under
 ``np.random.default_rng(seed)``, over blocks for TABLESAMPLE SYSTEM and over
 every padded row for TABLESAMPLE BERNOULLI), so equal seeds give equal block
-ids and row masks in both packages.  The staged and distributed sub-draws
-(``restrict_block_ids``, ``subdraw_positions``) wait for the slices that
-port their consumers.
+ids and row masks in both packages.  The distributed sub-draw
+(``restrict_block_ids``) and the staged one (``subdraw_positions``) are
+restrictions of that one realization, so they draw the same blocks too.
 """
 
 from __future__ import annotations
@@ -53,6 +53,35 @@ def draw_block_ids(num_blocks: int, rate: float, seed: int) -> np.ndarray:
     rng = np.random.default_rng(seed)
     keep = rng.random(num_blocks) < rate
     return np.nonzero(keep)[0].astype(np.int32)
+
+
+def restrict_block_ids(ids: np.ndarray, lo: int, hi: int) -> np.ndarray:
+    """Restrict a drawn block-id set to the range ``[lo, hi)``, re-based.
+
+    The distributed TABLESAMPLE sub-draw (``repro_torch.dist``): every shard
+    computes the SAME global realization from the shared content-derived
+    seed and keeps its own block range, so the union of the per-shard
+    sub-draws is the monolithic draw bit for bit (independent per-shard
+    seeds would give another realization per shard count).
+    """
+    ids = np.asarray(ids)
+    return (ids[(ids >= lo) & (ids < hi)] - lo).astype(np.int32)
+
+
+def subdraw_positions(rung_ids: np.ndarray, num_blocks: int, rate: float,
+                      seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """Sub-draw at ``rate`` from a staged rung drawn at a rate >= ``rate``
+    with the SAME seed: ``(sub_ids, positions)``.
+
+    Under the one-uniform-vector draw (``rng.random(N) < rate``) every block
+    kept at rate r is kept at any R >= r under the same seed, so ``sub_ids``
+    (the fresh draw at ``rate``) is a subset of ``rung_ids`` and
+    ``positions`` (both ascending, so ``searchsorted`` is exact) addresses
+    each sub-drawn block within the rung (``repro_torch.engine.staged``).
+    """
+    sub_ids = draw_block_ids(num_blocks, rate, seed)
+    positions = np.searchsorted(np.asarray(rung_ids), sub_ids).astype(np.int32)
+    return sub_ids, positions
 
 
 def pad_block_ids(ids: np.ndarray, num_blocks: int) -> tuple[np.ndarray, int, int]:

@@ -87,6 +87,64 @@ class BlockTable:
     def total_bytes(self) -> int:
         return self.row_bytes() * self.padded_rows
 
+    # -- derived tables -----------------------------------------------------
+    def gather_blocks(self, block_indices: np.ndarray) -> "BlockTable":
+        """Materialize only the given blocks, on this table's device.
+
+        The result re-labels physical blocks 0..k-1 but keeps ``block_id``
+        pointing at the *origin* block indices, so BSAP statistics over it
+        index the base table's block space.
+        """
+        idx = torch.as_tensor(np.asarray(block_indices, dtype=np.int64),
+                              device=self.device)
+        row_idx = (idx[:, None] * self.block_rows
+                   + torch.arange(self.block_rows, device=self.device)[None, :]
+                   ).reshape(-1)
+        return BlockTable(
+            name=self.name,
+            columns={c: v[row_idx] for c, v in self.columns.items()},
+            block_rows=self.block_rows,
+            num_rows=int(row_idx.shape[0]),
+            valid=self.valid[row_idx],
+            block_id=self.block_id[row_idx],
+            num_origin_blocks=self.num_origin_blocks,
+        )
+
+    def slice_blocks(self, lo: int, hi: int, device=None) -> "BlockTable":
+        """Blocks ``[lo, hi)`` as a standalone table, ``block_id`` kept
+        global: contiguous views of this table's tensors on its own device
+        (the kernels read a view by its data pointer), copies on another
+        ``device``."""
+        dev = self.device if device is None else torch.device(device)
+        br = self.block_rows
+        piece = lambda t: t[lo * br:hi * br].to(dev)
+        n_rows = min(hi * br, self.num_rows) - min(lo * br, self.num_rows)
+        return BlockTable(
+            name=self.name,
+            columns={c: piece(v) for c, v in self.columns.items()},
+            block_rows=br,
+            num_rows=max(n_rows, 0),
+            valid=piece(self.valid),
+            block_id=piece(self.block_id),
+            num_origin_blocks=self.num_origin_blocks,
+        )
+
+    def to(self, device) -> "BlockTable":
+        """This table on ``device``: itself where it already lives there,
+        else a copy of every tensor."""
+        dev = torch.device(device)
+        if dev.type == self.device.type and dev.index in (None, self.device.index):
+            return self
+        return BlockTable(
+            name=self.name,
+            columns={c: v.to(dev) for c, v in self.columns.items()},
+            block_rows=self.block_rows,
+            num_rows=self.num_rows,
+            valid=self.valid.to(dev),
+            block_id=self.block_id.to(dev),
+            num_origin_blocks=self.num_origin_blocks,
+        )
+
     # -- constructors --------------------------------------------------------
     @staticmethod
     def from_numpy(name: str, columns: Dict[str, np.ndarray], block_rows: int,

@@ -505,6 +505,186 @@ def test_cuda_grouped_drain_is_bitwise_the_serial_session(cuda):
         serial.close()
 
 
+# -- staged ladders and shards on the card -----------------------------------------
+
+def _staged_plans():
+    """The grouped Q1 (gather route), Q6 (filtered_agg) and SUM/COUNT
+    (block_agg) as engine plans, block-sampled by ``sample(plan, rate)``."""
+    from repro_torch.engine import logical as L
+    from repro_torch.engine.expr import And, Col
+    q6_pred = And(Col("l_shipdate").between(100, 1500),
+                  Col("l_discount").between(0.02, 0.08))
+    plans = {
+        "q1": L.Aggregate(child=L.Scan("lineitem"),
+                          aggs=(L.AggSpec("sum", Col("l_quantity"), "qty"),
+                                L.AggSpec("count", None, "n")),
+                          group_by="l_returnflag", max_groups=3),
+        "q6": L.Aggregate(child=L.Filter(L.Scan("lineitem"), q6_pred),
+                          aggs=(L.AggSpec("sum", Col("l_extendedprice") * Col("l_discount"),
+                                          "revenue"),)),
+        "sum_count": L.Aggregate(child=L.Scan("lineitem"),
+                                 aggs=(L.AggSpec("sum", Col("l_extendedprice"), "s"),
+                                       L.AggSpec("count", None, "n"))),
+    }
+    sample = lambda plan, rate, seed=5: L.rewrite_scans(
+        plan, {"lineitem": L.SampleClause("block", rate, seed)})
+    return plans, sample, L.strip_samples
+
+
+def _bits64(a):
+    return np.asarray(a, np.float64).view(np.int64)
+
+
+def test_staged_matches_fresh_bitwise_on_the_card(cuda):
+    """Q6, SUM/COUNT and the grouped Q1 served from rungs on the card are
+    bitwise the fresh draw (a ladder that never serves), finals and pilots,
+    and take the same route as the fresh plan: the column kernels and
+    segment_sum over the rung's tensors at block positions."""
+    from repro_torch.engine.executor import Executor
+    from repro_torch.engine.staged import prepare_mono_subdraw
+    from repro_torch.engine.physical import ScanRuntime
+    cat = tpch_catalog(200_000, 32, seed=0, device="cuda")
+    plans, sample, strip = _staged_plans()
+    fresh = Executor(dict(cat))
+    fresh.register_staged("lineitem", [1e-9], seed=9)
+    hot = Executor(dict(cat))
+    hot.register_staged("lineitem", [0.01, 0.04, 0.16], seed=9)
+    routes = {"q1": "gather", "q6": "filtered_agg", "sum_count": "block_agg"}
+    launches = (filtered_agg.launches, block_agg.launches, segment_sum.launches)
+    for name, plan in plans.items():
+        for rate in (0.003, 0.03, 0.15):
+            p = sample(plan, rate)
+            a, b = hot.execute(p), fresh.execute(p)
+            assert np.array_equal(_bits64(a.values), _bits64(b.values)), (name, rate)
+            np.testing.assert_array_equal(a.sample_infos["lineitem"].sampled_block_ids,
+                                          b.sample_infos["lineitem"].sampled_block_ids)
+            lad = hot.staged.ladder("lineitem")
+            rung = lad.rung_for(rate)
+            sub = prepare_mono_subdraw(lad, rung, rate)
+            rt = ScanRuntime("block", sub.n_real, sub.n_phys, sub.phys,
+                             ids_dev=sub.phys_dev, nreal_dev=sub.nreal_dev)
+            rts, _ = fresh._scan_runtimes(p)
+            assert fresh.physical.compile_query(p, rts).route == routes[name]
+            assert rung.compiler.compile_query(p, {"lineitem": rt}).route == routes[name]
+            pa = hot.execute_pilot(strip(p), "lineitem", rate, 1)
+            pb = fresh.execute_pilot(strip(p), "lineitem", rate, 1)
+            assert np.array_equal(_bits64(pa.block_sums), _bits64(pb.block_sums))
+    torch.cuda.synchronize()
+    assert hot.staged.misses == 0 and hot.staged.hits == 18
+    moved = (filtered_agg.launches - launches[0], block_agg.launches - launches[1],
+             segment_sum.launches - launches[2])
+    assert all(m > 0 for m in moved), moved
+
+
+def test_staged_subdraw_past_the_rung_blocks_on_the_card(cuda):
+    """A sub-draw whose fresh n_phys exceeds the rung's block count: the
+    kernels read only positions inside the rung, and the answer is bitwise
+    the fresh draw's."""
+    from repro_torch.engine.executor import Executor
+    from repro_torch.engine.staged import prepare_mono_subdraw
+    cat = tpch_catalog(200_000, 32, seed=0, device="cuda")
+    plans, sample, strip = _staged_plans()
+    fresh = Executor(dict(cat))
+    fresh.register_staged("lineitem", [1e-9], seed=9)
+    hot = Executor(dict(cat))
+    hot.register_staged("lineitem", [0.16], seed=9)
+    lad = hot.staged.ladder("lineitem")
+    rate = 0.15
+    sub = prepare_mono_subdraw(lad, lad.rung_for(rate), rate)
+    assert sub.n_phys > lad.rung_for(rate).table.num_blocks
+    for plan in plans.values():
+        p = sample(plan, rate)
+        assert np.array_equal(_bits64(hot.execute(p).values),
+                              _bits64(fresh.execute(p).values))
+        assert np.array_equal(
+            _bits64(hot.execute_pilot(strip(p), "lineitem", rate, 1).block_sums),
+            _bits64(fresh.execute_pilot(strip(p), "lineitem", rate, 1).block_sums))
+    assert hot.staged.hits == 6
+
+
+def test_shard_counts_answer_bitwise_on_the_card(cuda):
+    """1 / 2 / 7 shards, fresh and staged per shard: bitwise one answer and
+    one set of pilot statistics; within rtol 1e-5 of the monolithic
+    device reduction."""
+    from repro_torch.dist import DistExecutor
+    from repro_torch.engine.executor import Executor
+    cat = tpch_catalog(200_000, 32, seed=0, device="cuda")
+    plans, sample, strip = _staged_plans()
+    mono = Executor(dict(cat))
+    mono.register_staged("lineitem", [1e-9], seed=9)  # the same pinned draw
+    for name, plan in plans.items():
+        p = sample(plan, 0.03)
+        want = mono.execute(p).values
+        got = {}
+        for rates in ([1e-9], [0.04]):
+            for n in (1, 2, 7):
+                ex = DistExecutor(dict(cat))
+                ex.register_sharded("lineitem", cat["lineitem"], n)
+                ex.register_staged("lineitem", rates, seed=9)
+                got[(rates[0], n)] = (ex.execute(p).values,
+                                      ex.execute_pilot(strip(p), "lineitem", 0.03, 1).block_sums)
+        first = got[(1e-9, 1)]
+        for key, (v, bs) in got.items():
+            assert np.array_equal(_bits64(v), _bits64(first[0])), (name, key)
+            assert np.array_equal(_bits64(bs), _bits64(first[1])), (name, key)
+        np.testing.assert_allclose(first[0], want, rtol=1e-5)
+
+
+def test_shards_round_robin_over_cards_answer_bitwise(cuda):
+    """Shards placed round-robin over every visible card (it needs two or
+    more): each shard's tensors and its executor's replicated tables on its
+    own card, and the answers and pilot statistics bitwise those of the
+    same shard count on one card, fresh and staged."""
+    from repro_torch.dist import DistExecutor
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        pytest.skip("needs two or more CUDA cards; one card is covered by "
+                    "test_shard_counts_answer_bitwise_on_the_card")
+    cards = [torch.device("cuda", i) for i in range(n_cards)]
+    cat = tpch_catalog(200_000, 32, seed=0, device="cuda:0")
+    plans, sample, strip = _staged_plans()
+    out = {}
+    for devices in (None, cards):
+        for rates in ([1e-9], [0.04]):
+            ex = DistExecutor(dict(cat), device="cuda:0")
+            st = ex.register_sharded("lineitem", cat["lineitem"], 2 * n_cards,
+                                     devices=devices)
+            ex.register_staged("lineitem", rates, seed=9)
+            if devices is not None:
+                assert [s.table.device for s in st.shards] == \
+                    [cards[i % n_cards] for i in range(2 * n_cards)]
+            for name, plan in plans.items():
+                p = sample(plan, 0.03)
+                out[(devices is None, rates[0], name)] = (
+                    ex.execute(p).values,
+                    ex.execute_pilot(strip(p), "lineitem", 0.03, 1).block_sums)
+    for (one_card, rate, name), (v, bs) in out.items():
+        want = out[(True, 1e-9, name)]
+        assert np.array_equal(_bits64(v), _bits64(want[0])), (one_card, rate, name)
+        assert np.array_equal(_bits64(bs), _bits64(want[1])), (one_card, rate, name)
+
+
+def test_sharded_join_pilot_pair_sums_merge_bitwise_on_the_card(cuda):
+    """The join pilot's per-(pilot block, right block) sums over 3 shards
+    concatenate to the monolithic pilot's, bit for bit."""
+    from repro_torch.dist import DistExecutor
+    from repro_torch.engine import logical as L
+    from repro_torch.engine.executor import Executor
+    from repro_torch.engine.expr import Col
+    cat = tpch_catalog(40_000, 32, seed=0, device="cuda")
+    plan = L.Aggregate(
+        child=L.Join(L.Scan("lineitem"), L.Scan("orders"), "l_orderkey", "o_orderkey"),
+        aggs=(L.AggSpec("sum", Col("l_extendedprice"), "rev"),))
+    ref = Executor(dict(cat)).execute_pilot(plan, "lineitem", 0.05, 11,
+                                            pair_tables=("orders",))
+    ex = DistExecutor(dict(cat))
+    ex.register_sharded("lineitem", cat["lineitem"], 3)
+    ps = ex.execute_pilot(plan, "lineitem", 0.05, 11, pair_tables=("orders",))
+    assert ps.n_sampled_blocks == ref.n_sampled_blocks > 0
+    assert np.array_equal(_bits64(ps.block_sums), _bits64(ref.block_sums))
+    assert np.array_equal(_bits64(ps.pair_sums["orders"]), _bits64(ref.pair_sums["orders"]))
+
+
 # -- the model kernels: flash_attn and gla_chunk ----------------------------------
 
 def _normal(rng, shape, dev, dtype, scale=1.0):

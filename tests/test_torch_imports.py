@@ -12,6 +12,7 @@ import torch
 
 import repro_torch
 from repro_torch.api import Session
+from repro_torch.dist import DistExecutor
 from repro_torch.engine.datagen import tpch_catalog
 from repro_torch.engine.executor import Executor
 from repro_torch.configs import get_config
@@ -62,6 +63,10 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "repro_torch.kernels.flash_attn.ref",
             "repro_torch.kernels.gla_chunk.ops",
             "repro_torch.kernels.gla_chunk.ref"} <= mods
+    # the sample catalog and the shard executor stand alone too
+    assert {"repro_torch.engine.staged", "repro_torch.dist",
+            "repro_torch.dist.shard", "repro_torch.dist.merge",
+            "repro_torch.dist.executor"} <= mods
 
 
 def test_no_source_imports_jax_or_the_reference():
@@ -78,6 +83,7 @@ def test_default_device_raises_without_cuda(monkeypatch):
     cat = tpch_catalog(2000, 32, device="cpu")
     hymba = get_config("hymba-1.5b").reduced()
     for make in (lambda: Session(cat), lambda: Executor(cat),
+                 lambda: DistExecutor(cat),
                  lambda: tpch_catalog(2000, 32), lambda: Model(hymba)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
