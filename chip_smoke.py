@@ -136,6 +136,32 @@ Phases, each printing its own lines:
              version and timed, and joins the ``kernels`` line.  The sharded
              join is left out at SF10 (a dense pair tensor per shard); the
              card tests hold it at a small size.
+10. fused + quickr + eager — (run right after phase 9 on its SF10
+             lineitem) equal-seed sessions (seed 42, result cache off) with
+             and without ``SessionConfig(fused_taqa=True)`` answer Q6 and
+             SUM/COUNT at ERROR 5% CONFIDENCE 95% through Session.sql.  The
+             counters are zeroed just before and read just after the fused
+             session's first pass: taqa_solve_rate and taqa_draw_compact must
+             have launched, each query must have taken the fused program,
+             and every fused answer must be bitwise the two-stage one and
+             within 5% of exact (or carry a fallback).  Prints the launches
+             and dispatches per query, the walls (median of 5 warm runs, in
+             turns) split into pilot / rate solve / final, how often the
+             verified solo re-run fired, each mode's device idle share, and
+             the host draws the fused path makes.  Each taqa kernel input of
+             the first pass (first call per shape) is replayed: the solve's
+             theta within rtol 1e-6 of its plain version (bitwise expected)
+             and its flags exact, the draw's nsel and ids exact; then timed
+             (CUDA events, L2 flushed) beside its plain version, its bound,
+             the launch floor of its grids and, for the draw,
+             torch.nonzero(u < theta) plus the zero fill.  Then Quickr
+             (core/quickr.RowSamplingAQP, row sampling on the gather route)
+             against PilotDB on Q6 at ERROR 10% CONFIDENCE 95%
+             (benchmarks/bench_quickr.py's setting), 2 runs each in turns:
+             walls, scanned fraction, achieved error (within 10% or a
+             fallback).  Last, one 1%-block-sampled Q6 through
+             ``Executor(use_compiled=False)`` against the compiled route:
+             the same draw, counts equal, sums within rtol 1e-5.
 3b. model kernels — flash_attention and gla_chunked (run right after phase
              3) at fixed scaling points in bf16: flash at hymba's width (2 x 25
              q heads over 5 kv heads, 2048 tokens, d 64) causal without a
@@ -228,6 +254,11 @@ SHARDS = 4                       # the timed sharded session; 1, 2, 7 for invari
 # dense peaks of one H100 SXM at 700 W (data sheet): bf16 tensor cores, f32
 # without them
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+# phase 10: the fused path's queries; Quickr's error target is
+# benchmarks/bench_quickr.py's (the Quickr paper's setting)
+FUSED_QUERIES = {"q6": Q6, "sum_count": SUM_COUNT}
+QUICKR_ERROR = 0.10
+QUICKR_RUNS = 2                  # timed runs each of Quickr and PilotDB, in turns
 # phase 7: guaranteed-error evaluation of hymba-1.5b at full width
 EVAL_ARCH = "hymba-1.5b"
 EVAL_SHARDS = 128                # eval corpus: shards of EVAL_BSZ x EVAL_SEQ tokens
@@ -1244,6 +1275,286 @@ def run_staged_shards(torch, np, li, Session, SessionConfig, kernels, recorder, 
 
 
 # ---------------------------------------------------------------------------
+# phase 10 helpers: the fused path, Quickr and the eager oracle
+# ---------------------------------------------------------------------------
+
+def solve_key(args):
+    """Recording key of taqa_solve_rate: the pilot block sums' shape."""
+    return tuple(args[0].shape)
+
+
+def draw_key(args):
+    """Recording key of taqa_draw_compact: the uniforms' shape."""
+    return tuple(args[0].shape)
+
+
+def time_taqa_kernels(torch, np, calls, wrappers, refs, launch_floor, smi):
+    """Each recorded taqa_solve input against its plain version, then timed
+    (CUDA events, L2 flushed) beside the plain version, its bound, the
+    launch floor of its grids and, for the draw, the library yardstick
+    torch.nonzero(u < theta) plus the zero fill.  Returns {name: [row, ...]}."""
+    out = {}
+    solve, draw = wrappers
+    solve_ref, draw_ref = refs
+    for args, _ in calls["taqa_solve_rate"].values():
+        bs, _, n_real, channels, solve_rows, _ = args
+        theta, flags = solve(*args)
+        again, _ = solve(*args)
+        ref_theta, ref_flags = solve_ref(*args)
+        check(torch.equal(theta.view(torch.int32), again.view(torch.int32)),
+              "taqa_solve_rate: launches differ bitwise")
+        check(torch.equal(flags, ref_flags), f"taqa_solve_rate: flags {flags} vs {ref_flags}")
+        torch.testing.assert_close(theta, ref_theta, rtol=1e-6, atol=0,
+                                   msg="taqa_solve_rate: theta vs its plain version")
+        err = float((theta - ref_theta).abs().max())
+        bitwise = torch.equal(theta.view(torch.int32), ref_theta.view(torch.int32))
+        n_phys, n_solve = bs.shape[0], channels.shape[0]
+        # bytes: the solve channels' block sums, the quantile rows, the
+        # scalars, channels and present, the three outputs
+        nbytes = n_phys * n_solve * 4 + n_solve * 24 + 24 + 1 + 12
+        # operations: y and y*y added per row and channel, then 49
+        # feasibility tests of ~16 f32 operations per channel
+        flops = 3 * n_phys * n_solve + (1 + 48) * n_solve * 16
+        byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["torch.float32"] * 1e3
+        row = {"shape": "x".join(map(str, bs.shape)), "n_real": n_real, "n_solve": n_solve,
+               "max_abs_err": err, "bitwise": bitwise, "theta": ref_theta.tolist(),
+               "flags": int(flags[0]),
+               "ms": time_cold(torch, lambda: solve(*args)),
+               "plain_ms": time_cold(torch, lambda: solve_ref(*args), 5),
+               "bound_ms": max(byte_ms, op_ms),
+               "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+               "library_ms": None,
+               "floor_ms": time_cold(torch, lambda: launch_floor(1, 1))}
+        out.setdefault("taqa_solve_rate", []).append(row)
+        print(f"[fused] taqa_solve_rate block sums {row['shape']} (n_real {n_real}, "
+              f"{n_solve} solve channels): theta {'bitwise' if bitwise else f'within {err:.3g}'} "
+              f"its plain version, flags {row['flags']} equal; kernel {row['ms'] * 1e3:.2f} us, "
+              f"plain {row['plain_ms']:.2f} ms, bound {row['bound_ms'] * 1e3:.4f} us "
+              f"({row['bound_by']}), launch floor (1 CTA) {row['floor_ms'] * 1e3:.2f} us  [{smi}]")
+    for args, _ in calls["taqa_draw_compact"].values():
+        u, theta_eff = args
+        nsel, padded = draw(*args)
+        ref_nsel, ref_padded = draw_ref(*args)
+        check(torch.equal(nsel, ref_nsel) and torch.equal(padded, ref_padded),
+              f"taqa_draw_compact: nsel {int(nsel[0])} / {int(ref_nsel[0])} or ids differ "
+              "from its plain version")
+        again = draw(*args)
+        check(torch.equal(again[1], padded), "taqa_draw_compact: launches differ")
+        n = u.shape[0]
+        tiles = -(-n // 4096)
+
+        def library():
+            ids = torch.nonzero(u < theta_eff)
+            zeros = torch.zeros(n, dtype=torch.int32, device=u.device)
+            return ids, zeros
+
+        nbytes = 4 * n + 4 * n + 8   # read u, write padded; theta_eff and nsel
+        row = {"shape": str(n), "nsel": int(nsel[0]), "theta_eff": float(theta_eff[0]),
+               "max_abs_err": 0.0,
+               "ms": time_cold(torch, lambda: draw(*args)),
+               "plain_ms": time_cold(torch, lambda: draw_ref(*args)),
+               "library_ms": time_cold(torch, library),
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+               "floor_ms": time_cold(torch, lambda: (launch_floor(tiles, 1),
+                                                     launch_floor(tiles, 1)))}
+        out.setdefault("taqa_draw_compact", []).append(row)
+        print(f"[fused] taqa_draw_compact over {n:,} uniforms (nsel {row['nsel']:,}): equal "
+              f"to its plain version; kernel {row['ms'] * 1e3:.2f} us, plain "
+              f"{row['plain_ms'] * 1e3:.2f} us, torch.nonzero + zero fill "
+              f"{row['library_ms'] * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.2f} us "
+              f"(bytes), launch floor (2 x {tiles} CTAs) {row['floor_ms'] * 1e3:.2f} us  [{smi}]")
+    return out
+
+
+def run_fused_quickr_eager(torch, np, li, Session, SessionConfig, kernels, recorder, smi):
+    """Phase 10 on SF10 lineitem: the fused path against two stages in
+    equal-seed sessions, Quickr against PilotDB at ERROR 10%, and one eager
+    query against the compiled route.  Returns the summary, whose ``calls``
+    hold the taqa kernels' recorded inputs for the caller to replay."""
+    from repro_torch.core import CompositeAgg, ErrorSpec, PilotDB, Query, RowSamplingAQP
+    from repro_torch.engine import logical as L
+    from repro_torch.engine.executor import Executor
+    from repro_torch.engine.expr import And, Col
+    from repro_torch.engine.sampling import draw_block_ids
+    from repro_torch.kernels.segment_sum import segment_sum
+    t_phase = time.perf_counter()
+    summary = {}
+    taqa = ("taqa_solve_rate", "taqa_draw_compact")
+    sessions = {}
+    for mode in ("two_stage", "fused"):
+        s = Session(seed=42, config=SessionConfig(result_cache_size=0,
+                                                  fused_taqa=mode == "fused"))
+        s.register_table("lineitem", li)
+        sessions[mode] = s
+    two, one = sessions["two_stage"], sessions["fused"]
+
+    # the fused path, counters zeroed just before and read just after
+    zero_counters(kernels)
+    recorder.active = set(taqa)
+    first, per_query = {}, {}
+    for qn, sql in FUSED_QUERIES.items():
+        c0, d0 = read_counters(kernels), one.executor.device_dispatches
+        first[qn], _ = run_sql(torch, one, sql + GUARANTEE)
+        c1 = read_counters(kernels)
+        h = first[qn]
+        dispatches = one.executor.device_dispatches - d0
+        per_query[qn] = {
+            "launches": {k: c1[k] - c0[k] for k in c1}, "dispatches": dispatches,
+            "fused": h._fused, "fallback": h.fallback,
+            "solo_rerun": h._fused and h.fallback is None and dispatches == 2,
+            "plan": h.report.plan.rates if h.report.plan else None}
+    recorder.active = set()
+    launches = read_counters(kernels)
+    summary["calls"] = {k: dict(recorder.calls[k]) for k in taqa}
+    for k in taqa:
+        recorder.calls[k].clear()
+    print(f"[fused] kernel launches on the fused path: {launches}; per query {per_query}")
+    for k in taqa:
+        check(launches[k] > 0, f"the fused path never launched {k}")
+    for qn, r in per_query.items():
+        check(r["fused"], f"fused {qn}: the fused program did not engage")
+    # bitwise the two-stage answers; within 5% of exact or a fallback
+    for qn, sql in FUSED_QUERIES.items():
+        h2, _ = run_sql(torch, two, sql + GUARANTEE)
+        check(same_bits(np, first[qn].answer.values, h2.answer.values),
+              f"fused {qn}: {first[qn].answer.values} is not bitwise the two-stage "
+              f"{h2.answer.values}")
+        check(first[qn].fallback == h2.fallback, f"fused {qn}: fallback differs")
+        e, _ = run_sql(torch, two, sql)
+        rel = relative_errors(np, first[qn], e)
+        check(bool(np.all(rel <= 0.05)) or first[qn].fallback is not None,
+              f"fused {qn}: error {rel} above 5% without a fallback")
+        per_query[qn]["error"] = rel.tolist()
+    print("[fused] fused answers bitwise the two-stage answers of an equal-seed session; "
+          "within 5% of exact or a fallback")
+    summary["per_query"] = per_query
+
+    # walls in turns, WARM_RUNS each; the solo re-runs counted
+    runs = {(m, qn): {"wall": [], "pilot": [], "rate_solve": [], "final": [], "reruns": 0}
+            for m in sessions for qn in FUSED_QUERIES}
+    for i in range(WARM_RUNS):
+        order = list(sessions.items()) if i % 2 == 0 else list(sessions.items())[::-1]
+        for qn, sql in FUSED_QUERIES.items():
+            for m, s in order:
+                d0 = s.executor.device_dispatches
+                h, w = run_sql(torch, s, sql + GUARANTEE)
+                r = runs[(m, qn)]
+                r["wall"].append(w)
+                r["pilot"].append(h.report.pilot_time_s)
+                r["rate_solve"].append(h.report.plan_time_s)
+                r["final"].append(h.report.final_time_s)
+                r["reruns"] += int(m == "fused" and h.fallback is None
+                                   and s.executor.device_dispatches - d0 == 2)
+    walls = {}
+    for (m, qn), r in runs.items():
+        med = {k: statistics.median(v) * 1e3 for k, v in r.items() if k != "reruns"}
+        busy, pwall = device_busy_ms(torch, lambda: sessions[m].sql(FUSED_QUERIES[qn] + GUARANTEE))
+        med.update(device_busy_ms=busy, profiled_wall_ms=pwall, reruns=r["reruns"],
+                   walls_ms=[v * 1e3 for v in r["wall"]])
+        walls[f"{m} {qn}"] = med
+        share = "not measured" if busy is None else f"{1 - busy / pwall:.1%}"
+        print(f"[fused] {m} {qn} at ERROR 5% (median of {WARM_RUNS} warm runs, in turns): "
+              f"{med['wall']:.2f} ms = pilot {med['pilot']:.2f} + rate solve "
+              f"{med['rate_solve']:.2f} + final {med['final']:.2f} ms (fused: pilot = the "
+              f"whole program's launch wall, rate solve = the f64 re-solve, final = the "
+              f"verification and compose); walls {[round(v, 2) for v in med['walls_ms']]}; "
+              f"solo re-runs {r['reruns']} of {WARM_RUNS}; device idle share {share} "
+              f"({busy if busy is None else round(busy, 4)} ms of {pwall:.2f} ms under "
+              f"torch.profiler)  [{smi}]")
+    summary["walls"] = walls
+    draws, uniforms = [], []
+    for i in range(WARM_RUNS):
+        t0 = time.perf_counter()
+        draw_block_ids(li.num_blocks, 0.01, i)
+        draws.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        np.random.default_rng(i).random(li.num_blocks).astype(np.float32)
+        uniforms.append((time.perf_counter() - t0) * 1e3)
+    summary["host_draw_ms"] = statistics.median(draws)
+    summary["host_uniforms_ms"] = statistics.median(uniforms)
+    print(f"[fused] host draws over {li.num_blocks:,} blocks (median of {WARM_RUNS}): "
+          f"draw_block_ids {summary['host_draw_ms']:.2f} ms; the fused path's f32 "
+          f"uniforms {summary['host_uniforms_ms']:.2f} ms")
+    for s in sessions.values():
+        s.close()
+
+    # Quickr (row sampling, a full scan) against PilotDB (block sampling)
+    ex = Executor({"lineitem": li}, device=li.device)
+    pred = And(Col("l_shipdate").between(100, 1500), Col("l_discount").between(0.02, 0.08))
+    q6 = Query(child=L.Filter(L.Scan("lineitem"), pred),
+               aggs=(CompositeAgg("revenue", "sum",
+                                  Col("l_extendedprice") * Col("l_discount")),))
+    spec = ErrorSpec(error=QUICKR_ERROR, confidence=0.95)
+    dbs = {"pilotdb": PilotDB(ex), "quickr": RowSamplingAQP(ex)}
+    exact = dbs["pilotdb"].exact(q6).scalar("revenue")
+    for db in dbs.values():  # warm: compile every shape once
+        db.query(q6, spec, seed=0)
+    quickr = {name: {"wall_ms": [], "scanned_fraction": [], "error": [], "fallback": []}
+              for name in dbs}
+    segment_sum.launches = 0
+    for i in range(QUICKR_RUNS):
+        for name, db in (dbs.items() if i % 2 == 0 else list(dbs.items())[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a = db.query(q6, spec, seed=77 * i + 1)
+            torch.cuda.synchronize()
+            r = quickr[name]
+            r["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+            r["scanned_fraction"].append(
+                (a.report.pilot_scanned_bytes + a.report.final_scanned_bytes)
+                / li.total_bytes())
+            r["error"].append(abs(a.scalar("revenue") - exact) / abs(exact))
+            r["fallback"].append(a.report.fallback)
+            check(r["error"][-1] <= QUICKR_ERROR or a.report.fallback is not None,
+                  f"{name}: error {r['error'][-1]} above {QUICKR_ERROR} without a fallback")
+    check(segment_sum.launches > 0, "Quickr's row-sampled plans never launched segment_sum")
+    for name, r in quickr.items():
+        print(f"[quickr] {name} Q6 at ERROR {QUICKR_ERROR:.0%} CONFIDENCE 95% ({QUICKR_RUNS} "
+              f"runs in turns): walls {[round(v, 2) for v in r['wall_ms']]} ms; scanned "
+              f"{[round(v, 6) for v in r['scanned_fraction']]} of lineitem's bytes; errors "
+              f"{[round(v, 6) for v in r['error']]}; fallbacks {r['fallback']}  [{smi}]")
+    speedup = statistics.median(quickr["quickr"]["wall_ms"]) / statistics.median(
+        quickr["pilotdb"]["wall_ms"])
+    print(f"[quickr] Quickr / PilotDB wall: {speedup:.2f}x (segment_sum launches "
+          f"{segment_sum.launches})")
+    summary["quickr"] = quickr
+    summary["quickr_over_pilotdb_wall"] = speedup
+
+    # one eager query against the compiled route
+    plan = L.Aggregate(
+        L.Filter(L.Scan("lineitem", L.SampleClause("block", 0.01, 5)), pred),
+        (L.AggSpec("sum", Col("l_extendedprice") * Col("l_discount"), "revenue"),
+         L.AggSpec("count", None, "n")))
+    eager = Executor({"lineitem": li}, device=li.device, use_compiled=False)
+    ex.execute(plan)
+    res = {}
+    for name, e in (("compiled", ex), ("eager", eager), ("compiled", ex), ("eager", eager)):
+        torch.cuda.synchronize()
+        ss0 = segment_sum.launches
+        t0 = time.perf_counter()
+        r = e.execute(plan)
+        torch.cuda.synchronize()
+        res[name] = (r, (time.perf_counter() - t0) * 1e3, segment_sum.launches - ss0)
+    (rc, wc, _), (re_, we, se) = res["compiled"], res["eager"]
+    check(se > 0, "the eager query never launched segment_sum")
+    check(np.array_equal(rc.sample_infos["lineitem"].sampled_block_ids,
+                         re_.sample_infos["lineitem"].sampled_block_ids),
+          "eager and compiled draws differ")
+    check(np.array_equal(rc.group_counts, re_.group_counts), "eager counts differ")
+    np.testing.assert_allclose(re_.raw_sums, rc.raw_sums, rtol=1e-5,
+                               err_msg="eager vs compiled sums")
+    summary["eager"] = {"eager_ms": we, "compiled_ms": wc, "segment_sum_launches": se,
+                        "values": re_.values.ravel().tolist()}
+    print(f"[eager] 1% block-sampled Q6 (SUM, COUNT): eager {we:.2f} ms ({se} segment_sum "
+          f"launches) vs compiled {wc:.2f} ms; same draw, counts equal, sums within rtol "
+          f"1e-5: {re_.values.ravel().tolist()}  [{smi}]")
+    summary["launches"] = launches
+    summary["phase_s"] = time.perf_counter() - t_phase
+    print(f"[fused] phase 10 in {summary['phase_s']:.1f} s  [{smi}]")
+    return summary
+
+
+# ---------------------------------------------------------------------------
 # phase 3b / 7 helpers: the model kernels and the eval slice
 # ---------------------------------------------------------------------------
 
@@ -1594,12 +1905,15 @@ def main() -> int:
     from repro_torch.kernels.gla_chunk import gla_chunked, gla_chunked_ref
     from repro_torch.kernels.segment_sum import ops as segment_ops
     from repro_torch.kernels.segment_sum import segment_sum, segment_sum_ref
+    from repro_torch.kernels.taqa_solve import (taqa_draw_compact, taqa_draw_compact_ref,
+                                                taqa_solve_rate, taqa_solve_rate_ref)
     from repro_torch.models import layers, linear_attn
     wrappers = (filtered_agg, block_agg, filtered_agg_batched, block_agg_batched)
     model_wrappers = (flash_attention, gla_chunked)
     recorder = CallRecorder(
         [(physical, fn.__name__, ids_shape(fn.__name__)) for fn in wrappers]
         + [(physical, "segment_sum", segment_key)]
+        + [(physical, "taqa_solve_rate", solve_key), (physical, "taqa_draw_compact", draw_key)]
         + [(layers, "flash_attention", q_shape), (linear_attn, "_gla_kernel", q_shape)])
     model_kernels = {"flash_attention": (flash_attention, flash_attention_ref),
                      "gla_chunked": (gla_chunked, gla_chunked_ref)}
@@ -1980,6 +2294,18 @@ def main() -> int:
         for name in ("filtered_agg", "block_agg", "segment_sum")}
     print(f"[staged] phase 9 launches, every session and the drain: {staged_launches}")
     torch.cuda.synchronize()
+
+    # -- 10. the fused path, Quickr and the eager oracle on the same lineitem ----
+    taqa_wrappers = (taqa_solve_rate, taqa_draw_compact)
+    fused = run_fused_quickr_eager(
+        torch, np, li, Session, SessionConfig,
+        (filtered_agg, block_agg, segment_sum, *taqa_wrappers), recorder, smi)
+    fused["kernels"] = time_taqa_kernels(
+        torch, np, fused.pop("calls"), taqa_wrappers,
+        (taqa_solve_rate_ref, taqa_draw_compact_ref), launch_floor, smi)
+    for name in ("taqa_solve_rate", "taqa_draw_compact"):
+        check(bool(fused["kernels"].get(name)), f"{name}: no call of phase 10 was recorded")
+    torch.cuda.synchronize()
     del session, catalog, cols, li, ids, lanes, q6_cols
     torch.cuda.empty_cache()
 
@@ -2099,7 +2425,29 @@ def main() -> int:
             "shape": t["shape"], "main_path": model_timed[k]["main_path"],
             "scaling_points": model_timed[k]["scaling_points"],
         })
+    # the fused path's two kernels: no Pallas original (the reference's fused
+    # program computes the solve and the draw in XLA); each headline is the
+    # fused Q6's own call
+    taqa_sources = {
+        "taqa_solve_rate": "src/repro/engine/physical.py:1163",
+        "taqa_draw_compact": "src/repro/engine/physical.py:1211"}
+    for k, replaced in taqa_sources.items():
+        t = fused["kernels"][k][0]
+        kernels.append({
+            "name": k, "route": "cuda",
+            "source": "src/repro_torch/kernels/taqa_solve/csrc/taqa_solve.cu",
+            "replaces": replaced,
+            "replaces_note": "the reference's fused XLA program (physical.py:1163-1218); "
+                             "no Pallas original",
+            "launches": fused["launches"][k],
+            "launches_per_query": {qn: r["launches"][k]
+                                   for qn, r in fused["per_query"].items()},
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "floor_ms": t["floor_ms"],
+            "shape": t["shape"], "main_path": fused["kernels"][k]})
     summary["drain"] = drain
+    summary["fused"] = {k: v for k, v in fused.items() if k != "kernels"}
     summary["gather"] = gather
     summary["staged_shards"] = {k: v for k, v in staged.items() if k != "kernels"}
     summary["eval"] = evaluation

@@ -34,8 +34,11 @@ partitions it into block-range shards (:mod:`repro_torch.dist`, whose
 :class:`DistExecutor` is the session's default executor); answers are
 bitwise the same for every ladder and every shard count.  The session runs
 on the CUDA card by default and raises where there is none; ``device="cpu"``
-runs the kernels' plain PyTorch versions.  The fused, streaming and
-observability hooks of the reference wait for later slices.
+runs the kernels' plain PyTorch versions.  ``SessionConfig(fused_taqa=True)``
+runs an ungrouped query's two TAQA stages as one program on the device
+(:meth:`repro_torch.core.taqa.PilotDB.run_fused`), bitwise the two-stage
+answer.  The streaming and observability hooks of the reference (the fused
+path's events and span among them) wait for a later slice.
 """
 
 from __future__ import annotations
@@ -123,6 +126,9 @@ class QueryHandle:
         default=None, repr=False, compare=False)
     _done_event: threading.Event = dataclasses.field(
         default_factory=threading.Event, repr=False, compare=False)
+    # the fused single-launch program delivered this answer (set by
+    # Session._run_fused)
+    _fused: bool = dataclasses.field(default=False, repr=False, compare=False)
 
     @property
     def done(self) -> bool:
@@ -220,6 +226,15 @@ class SessionConfig:
     # eviction, so answers stay bitwise equal across the hit/miss boundary.
     # None = unbounded residency.
     staged_bytes: Optional[int] = None
+    # Run an ungrouped query's two TAQA stages as ONE program on the device
+    # (pilot scan -> f32 rate solve -> final draw -> final scan, one 8-byte
+    # host read before the final; engine/physical.py compile_fused).
+    # Answers stay bitwise the two-stage path's: the program replays the
+    # same content-derived draws through the same solo pilot and final
+    # bodies, and delivery verifies the device's final draw against the
+    # host draw before trusting the fused sums.  Grouped, join-pair and
+    # sharded shapes take the two-stage path.  Off (default): two stages.
+    fused_taqa: bool = False
 
     def resolve_workers(self) -> int:
         """The worker count ``async_workers=None`` sizes to: serial on <= 2
@@ -637,6 +652,25 @@ class Session:
         handle._mark_done(self._deliver(handle, answer))
         return True
 
+    def _run_fused(self, handle: QueryHandle) -> Optional[ApproxAnswer]:
+        """The single-launch fused TAQA program for ``handle``: the answer
+        (bitwise the two-stage path's, see :meth:`PilotDB.run_fused`), or
+        None when the query's shape is outside the fused envelope, in which
+        case the caller runs the two stages having executed nothing.
+
+        Unlike the reference, which swallows every exception here and
+        re-runs the query in two stages, nothing is caught: ``run_fused``
+        states its envelope by returning None (an empty final sample takes
+        ``run_final``'s exact fallback inside it), so a kernel that fails to
+        build or launch, or a CUDA error, propagates and fails the handle.
+        The reference's fused ``pilot`` / ``rate_solve`` / ``final`` events
+        and its ``fused`` span wait for the observability slice."""
+        ans = self.db.run_fused(handle.query, handle.spec, seed=handle.seed,
+                                pilot_seed=self._pilot_seed_for(handle))
+        if ans is not None:
+            handle._fused = True
+        return ans
+
     def _run_handle(self, handle: QueryHandle) -> QueryHandle:
         if handle.done:
             return handle
@@ -647,6 +681,9 @@ class Session:
         try:
             if handle.spec is None:
                 ans = self.db.exact(handle.query)
+            elif self.config.fused_taqa and (
+                    fused := self._run_fused(handle)) is not None:
+                ans = fused
             else:
                 # the reference's two-stage branch: pilot, host rate solve,
                 # final — the same three calls, in the same order

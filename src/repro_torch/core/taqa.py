@@ -16,7 +16,10 @@ the rate solve runs on the host in f64, exactly as in the reference.  A
 drain group's finals run through :meth:`PilotDB.run_finals_batched` (one
 batched call per same-signature bucket); its pilots through
 :meth:`PilotDB.run_pilots_batched`, which runs each member's solo pilot.
-The fused and advisory paths wait for later slices of the port.
+:meth:`PilotDB.run_fused` runs both stages as one program on the device
+(the pilot, an f32 rate solve and the final draw on the card, then the
+final), bitwise the two-stage answer.  The advisory path waits for a later
+slice of the port.
 """
 
 from __future__ import annotations
@@ -33,7 +36,11 @@ from repro_torch.core.planner import Constraint, pick_plan, solve_candidates
 from repro_torch.core.spec import CompositeAgg, ErrorSpec, SamplingPlan
 from repro_torch.engine import cost as cost_mod
 from repro_torch.engine import logical as L
-from repro_torch.engine.executor import EmptySampleError, Executor, PilotStats
+from repro_torch.engine.executor import (EmptySampleError, Executor, PilotStats,
+                                         QueryResult)
+from repro_torch.engine.physical import ScanRuntime
+from repro_torch.engine.sampling import draw_block_ids, pad_block_ids
+from repro_torch.stats import chi2_ppf, normal_ppf, student_t_ppf
 
 
 @dataclasses.dataclass(frozen=True)
@@ -387,6 +394,146 @@ class PilotDB:
             except Exception as e:  # noqa: BLE001 — per-member capture
                 results.append(e)
         return results
+
+    def run_fused(self, q: Query, spec: ErrorSpec, seed: int = 0,
+                  pilot_seed: Optional[int] = None) -> Optional[ApproxAnswer]:
+        """Single-launch TAQA: the pilot scan, the BSAP rate solve and the
+        final sampled aggregation as ONE program on the device
+        (:meth:`PhysicalCompiler.compile_fused`).
+
+        Returns None when the query is outside the fused envelope — the
+        eager executor, grouped queries, join-pair sampling, a sharded
+        pilot table, no large table, or a pilot draw too small to bound —
+        before any device work; the caller then runs the two-stage path,
+        which is the semantic and bitwise oracle.  Unlike the reference,
+        which does not fuse on its Pallas kernel route, every route fuses
+        here: on the card the column kernels are the route.
+
+        Bit-identity is by construction: the device solve is an ADVISORY
+        f32 twin; the pilot block statistics come from the solo pilot body
+        and feed the SAME f64 ``prepare_final`` as the two-stage path, and
+        the device's final block draw is verified against the host draw
+        (the same content-derived uniforms) before its sums are trusted.
+        Any disagreement — f32 rounding of the solved rate flipping a
+        Bernoulli comparison — discards the fused final sums and runs
+        stage 2 solo.
+        """
+        ex = self.ex
+        if not ex.use_compiled:
+            return None
+        if q.group_by is not None or q.max_groups != 1:
+            return None
+        outcome, theta_p = self._pilot_prelude(q, spec)
+        if outcome.fallback is not None or outcome.pair_tables:
+            return None
+        pilot_table = outcome.pilot_table
+        if ex.is_sharded(pilot_table):
+            return None
+        plan, report = outcome.plan, outcome.report
+        psd = seed if pilot_seed is None else pilot_seed
+        n_blocks = ex.table_blocks(pilot_table)
+
+        # The host pilot draw with its undershoot retries: draw sizes are
+        # host RNG alone, so the retries cost no launch.  Seeds, the x4 bump
+        # (applied even past a failed last attempt) and the staged-seed
+        # pinning replay the two-stage loop exactly.
+        need = min(spec.min_pilot_blocks, n_blocks)
+        ids = np.zeros(0, np.int32)
+        theta_drawn = theta_p
+        for attempt in range(3):
+            eff = ex.staged.seed_for(pilot_table, psd + 101 * attempt)
+            ids = draw_block_ids(n_blocks, theta_p, eff)
+            theta_drawn = theta_p
+            if len(ids) >= need:
+                break
+            theta_p = min(theta_p * 4.0, 1.0)
+        if len(ids) < 2:
+            return None  # two-stage takes its "pilot sample too small" path
+
+        phys, n_real, n_phys = pad_block_ids(ids, n_blocks)
+        runtimes = {pilot_table: ScanRuntime("block", n_real, n_phys, phys)}
+        for s in plan.scans():
+            if s.table != pilot_table:
+                runtimes.setdefault(s.table, ScanRuntime("none"))
+
+        # Per-channel quantile rows for the device solve: the constants
+        # prepare_final's f64 solve uses (one group, g = 0).
+        n_constraints = sum(len(idxs) for idxs in outcome.comp_channels)
+        solve_rows: List[List[float]] = []
+        solve_channels: List[int] = []
+        for comp, idxs in zip(q.aggs, outcome.comp_channels):
+            e_part = propagation.split_budget(comp.kind, spec.error)
+            for ch in idxs:
+                budget = allocate(spec.confidence, n_constraints, e_part)
+                solve_rows.append([
+                    student_t_ppf(1.0 - budget.delta1, n_real - 1),
+                    chi2_ppf(budget.delta2 / 2.0, n_real - 1),
+                    bsap.z_for(budget.p_prime),
+                    normal_ppf(1.0 - budget.delta2 / 2.0),
+                    budget.error,
+                ])
+                solve_channels.append(ch)
+
+        # plan_cost is linear in the one table's rate: two probes give the
+        # device its cost line
+        cost_b = cost_mod.plan_cost(plan, ex.catalog, {pilot_table: 0.0})
+        cost_a = cost_mod.plan_cost(plan, ex.catalog, {pilot_table: 1.0}) - cost_b
+        scal = [float(n_blocks), float(spec.max_final_rate), 1e-6,
+                cost_a, cost_b, report.exact_cost]
+        fseed = ex.staged.seed_for(pilot_table, seed + 977)
+        u = np.random.default_rng(fseed).random(n_blocks)
+
+        ex._count("pilots_run")
+        t0 = time.perf_counter()
+        out, compiled = ex.execute_fused(
+            plan, pilot_table, runtimes, np.asarray(solve_rows, np.float64),
+            np.asarray(scal, np.float64), u, tuple(solve_channels))
+        launch_wall = time.perf_counter() - t0
+
+        names = [a.name for a in plan.aggs] + ["__rows"]
+        pilot = PilotStats(
+            table=pilot_table, theta_p=theta_drawn, n_sampled_blocks=n_real,
+            n_total_blocks=n_blocks, block_rows=ex.block_rows(pilot_table),
+            agg_names=names, block_sums=out["block_sums"][:n_real],
+            group_present=out["present"], pair_sums={},
+            right_total_blocks={},
+            scanned_bytes=compiled.scanned_bytes(runtimes),
+            wall_time_s=launch_wall)
+        self._pilot_postlude(outcome, pilot, theta_p, launch_wall)
+
+        # the authoritative f64 re-solve: stage 2's own code, fed the same
+        # pilot statistics as the two-stage path
+        stage = self.prepare_final(q, spec, outcome, seed)
+        if stage.answer is not None:
+            # an exact fallback (no groups, infeasible bounds, plan costlier
+            # than exact): prepare_final ran it, as on the two-stage path;
+            # the fused final sums are discarded
+            return stage.answer
+        rate = stage.report.plan.rates.get(pilot_table, 1.0)
+        host_ids = (draw_block_ids(n_blocks, rate, fseed) if rate < 1.0
+                    else np.zeros(0, np.int32))
+        nsel = out["nsel"]
+        if (rate >= 1.0 or nsel < 1 or len(host_ids) != nsel
+                or not np.array_equal(out["padded"], host_ids)):
+            # the device draw disagrees with the f64 plan (or the final is
+            # unsampled): stage 2 runs solo, bitwise, one more launch
+            return self.run_final(stage)
+
+        # The device's final draw IS the host draw: compose the answer from
+        # the fused program's sums as the solo final would.
+        t1 = time.perf_counter()
+        ex._count("queries_run")
+        runtimes_f, infos = ex._scan_runtimes(stage.final_plan)
+        sums, counts = out["sums"], out["counts"]
+        values = Executor._compose_values(stage.final_plan, sums, counts,
+                                          Executor._upscale(infos))
+        res = QueryResult(
+            agg_names=[a.name for a in stage.final_plan.aggs],
+            values=values, raw_sums=sums, group_counts=counts,
+            group_present=counts > 0,
+            scanned_bytes=compiled.scanned_bytes(runtimes_f),
+            sample_infos=infos, wall_time_s=launch_wall)
+        return self._finish_result(stage, res, time.perf_counter() - t1)
 
     def finish_from_pilot(self, q: Query, spec: ErrorSpec,
                           outcome: "PilotOutcome", seed: int,

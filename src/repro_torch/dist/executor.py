@@ -155,6 +155,8 @@ class DistExecutor(Executor):
             info.staged_misses += shard_info.staged_misses
             info.batched_hits += shard_info.batched_hits
             info.batched_misses += shard_info.batched_misses
+            info.fused_hits += shard_info.fused_hits
+            info.fused_misses += shard_info.fused_misses
         return info
 
     def shard_scan_info(self) -> Dict[str, Tuple[int, ...]]:

@@ -26,6 +26,13 @@ block-sampled scans from pre-gathered rungs (:mod:`repro_torch.engine.staged`):
 the same routes — column kernels and gather route alike — over the rung's
 tensors, with block positions in place of block ids, bitwise the fresh draw
 under the table's pinned staging seed.
+
+``execute_fused`` runs TAQA's single-launch program (pilot, f32 rate solve,
+final draw and final scan) for :meth:`repro_torch.core.taqa.PilotDB.run_fused`.
+
+The eager interpreter (``use_compiled=False``) is the in-package oracle:
+it runs the plan operator by operator over materialized tables
+(:mod:`repro_torch.engine.ops`), with the same host draws.
 """
 
 from __future__ import annotations
@@ -39,10 +46,11 @@ import numpy as np
 
 from repro_torch.device import resolve_device
 from repro_torch.engine import logical as L
+from repro_torch.engine import ops
 from repro_torch.engine.physical import (PhysicalCompiler, ScanRuntime,
                                          plan_constants, scan_cost_bytes)
-from repro_torch.engine.sampling import (SampleInfo, draw_block_ids,
-                                         draw_row_sample, pad_block_ids)
+from repro_torch.engine.sampling import (SampleInfo, block_sample, draw_block_ids,
+                                         draw_row_sample, pad_block_ids, row_sample)
 from repro_torch.engine.staged import (DEFAULT_STAGED_RATES, SampleCatalog,
                                        build_ladder, prepare_mono_subdraw)
 from repro_torch.engine.table import BlockTable
@@ -103,8 +111,11 @@ class PilotStats:
 
 class Executor:
     def __init__(self, catalog: Dict[str, BlockTable], *, device="cuda",
-                 staged_bytes: Optional[int] = None):
+                 use_compiled: bool = True, staged_bytes: Optional[int] = None):
         self.device = resolve_device(device)
+        # False: the eager interpreter, the in-package oracle (no staging,
+        # no batching, no fused program)
+        self.use_compiled = use_compiled
         # Pre-staged block-sample ladders (repro_torch.engine.staged): tables
         # opted in via register_staged() serve covered sampled scans from
         # materialized rungs; staged_bytes bounds rung residency.
@@ -149,10 +160,14 @@ class Executor:
 
         ``seed`` pins the table's one staging realization: EVERY block draw
         of the table (staged hit or fresh miss, pilot or final) replays it,
-        which is what makes staged and fresh answers bit-identical.
+        which is what makes staged and fresh answers bit-identical.  The
+        eager executor has no physical layer to serve rungs through, so
+        staging is a no-op there.
         """
         if name not in self.catalog:
             raise KeyError(f"unknown table {name!r}")
+        if not self.use_compiled:
+            return
         self.staged.admit(build_ladder(name, self.catalog[name], rates, seed,
                                        self.catalog))
 
@@ -279,9 +294,66 @@ class Executor:
                                          sums[i] / np.maximum(counts, 1), np.nan)
         return values
 
+    # -- eager relational execution (the oracle) ----------------------------
+    def _run_relational(self, plan: L.Plan, infos: Dict[str, SampleInfo],
+                        pair_for: Optional[Tuple[str, str]] = None) -> BlockTable:
+        if isinstance(plan, L.Scan):
+            table = self.catalog[plan.table]
+            if plan.sample is None:
+                infos[plan.table] = SampleInfo(
+                    "none", 1.0, 0, table.num_blocks, table.num_blocks,
+                    np.arange(table.num_blocks),
+                    scanned_bytes=table.total_bytes())
+                return table
+            sample = block_sample if plan.sample.method == "block" else row_sample
+            sampled, infos[plan.table] = sample(table, plan.sample.rate,
+                                                plan.sample.seed)
+            return sampled
+        if isinstance(plan, L.Filter):
+            return ops.filter_table(self._run_relational(plan.child, infos, pair_for),
+                                    plan.pred)
+        if isinstance(plan, L.Join):
+            left = self._run_relational(plan.left, infos, pair_for)
+            right = self._run_relational(plan.right, infos, pair_for)
+            rscans = plan.right.scans()
+            rblock_col = None
+            if (pair_for is not None and len(rscans) == 1
+                    and rscans[0].table == pair_for[1]):
+                rblock_col = f"__rblock_{pair_for[1]}"
+            return ops.join_unique(left, right, plan.left_key, plan.right_key,
+                                   rblock_col=rblock_col)
+        if isinstance(plan, L.Union):
+            return ops.union_all(
+                [self._run_relational(p, infos, pair_for) for p in plan.inputs])
+        raise TypeError(plan)
+
+    def _execute_eager(self, plan: L.Aggregate) -> QueryResult:
+        t0 = time.perf_counter()
+        infos: Dict[str, SampleInfo] = {}
+        table = self._run_relational(plan.child, infos)
+        # every channel and, last, the row count: one segmented sum
+        exprs = [None if a.op == "count" else a.expr for a in plan.aggs] + [None]
+        out = ops.grouped_sums(table, exprs, plan.group_by, plan.max_groups)
+        out = out.double().cpu().numpy()
+        sums, counts = out[:-1], out[-1]
+        self._check_empty(infos)
+        values = self._compose_values(plan, sums, counts, self._upscale(infos))
+        return QueryResult(
+            agg_names=[a.name for a in plan.aggs],
+            values=values,
+            raw_sums=sums,
+            group_counts=counts,
+            group_present=counts > 0,
+            scanned_bytes=sum(i.scanned_bytes for i in infos.values()),
+            sample_infos=infos,
+            wall_time_s=time.perf_counter() - t0,
+        )
+
     # -- public API ----------------------------------------------------------
     def execute(self, plan: L.Aggregate) -> QueryResult:
         self._count("queries_run")
+        if not self.use_compiled:
+            return self._execute_eager(plan)
         route = self._staged_route(plan)
         if route is not None:
             result = self._execute_staged(plan, *route)
@@ -397,8 +469,9 @@ class Executor:
         lanes; a chunk of one runs solo on the sample already drawn.  Plans
         that sample no table run solo, and so do members the staged route
         serves (their dispatch is already the cheap one, and batching them
-        would redraw fresh).  A failing batched call raises to the caller —
-        it is never re-run as solo launches.
+        would redraw fresh), and every member of the eager executor.  A
+        failing batched call raises to the caller — it is never re-run as
+        solo launches.
         """
         results: List[object] = [None] * len(plans)
 
@@ -407,7 +480,7 @@ class Executor:
             if on_result is not None:
                 on_result(i, res)
 
-        if len(plans) < 2:
+        if not self.use_compiled or len(plans) < 2:
             for i, p in enumerate(plans):
                 land(i, self._execute_captured(p))
             return results
@@ -502,6 +575,10 @@ class Executor:
         Not counted here: ``pilots_run`` counts pilot *stages* and is
         incremented by :meth:`repro_torch.core.taqa.PilotDB.run_pilot`.
         """
+        if not self.use_compiled:
+            return self._execute_pilot_eager(
+                plan, pilot_table, theta_p,
+                self.staged.seed_for(pilot_table, seed), pair_tables)
         t0 = time.perf_counter()
         table = self.catalog[pilot_table]
         lad = self.staged.ladder(pilot_table)
@@ -572,3 +649,87 @@ class Executor:
             scanned_bytes=compiled.scanned_bytes({pilot_table: runtime}),
             wall_time_s=time.perf_counter() - t0,
         )
+
+    def _execute_pilot_eager(self, plan: L.Aggregate, pilot_table: str,
+                             theta_p: float, seed: int,
+                             pair_tables: Tuple[str, ...]) -> PilotStats:
+        t0 = time.perf_counter()
+        sampled_plan = L.rewrite_scans(
+            plan, {pilot_table: L.SampleClause("block", theta_p, seed)})
+        infos: Dict[str, SampleInfo] = {}
+        pair_for = (pilot_table, pair_tables[0]) if pair_tables else None
+        table = self._run_relational(sampled_plan.child, infos, pair_for)
+
+        # one channel per simple aggregate plus the trailing row count
+        # ("__rows"), which detects group presence
+        exprs = [None if a.op == "count" else a.expr for a in plan.aggs] + [None]
+        names = [a.name for a in plan.aggs] + ["__rows"]
+        ids = infos[pilot_table].sampled_block_ids
+        if ids is None or len(ids) == 0:
+            ids = np.zeros(0, dtype=np.int64)
+            block_sums = np.zeros((0, plan.max_groups, len(exprs)))
+        else:
+            block_sums = ops.block_group_sums(table, exprs, plan.group_by,
+                                              plan.max_groups, ids)
+        pair_sums: Dict[str, np.ndarray] = {}
+        right_total: Dict[str, int] = {}
+        for rt in pair_tables:
+            col = f"__rblock_{rt}"
+            if col in table.columns and len(ids) > 0:
+                nrb = self.catalog[rt].num_blocks
+                pair_sums[rt] = ops.block_pair_sums(table, exprs, ids, col, nrb)
+                right_total[rt] = nrb
+        present = (block_sums[..., -1].sum(axis=0) > 0) if len(ids) \
+            else np.zeros(plan.max_groups, bool)
+        return PilotStats(
+            table=pilot_table,
+            theta_p=theta_p,
+            n_sampled_blocks=int(len(ids)),
+            n_total_blocks=self.catalog[pilot_table].num_blocks,
+            block_rows=self.catalog[pilot_table].block_rows,
+            agg_names=names,
+            block_sums=block_sums,
+            group_present=present,
+            pair_sums=pair_sums,
+            right_total_blocks=right_total,
+            scanned_bytes=sum(i.scanned_bytes for i in infos.values()),
+            wall_time_s=time.perf_counter() - t0,
+        )
+
+    # -- fused single-launch TAQA --------------------------------------------
+    def execute_fused(self, plan: L.Aggregate, pilot_table: str,
+                      runtimes: Dict[str, ScanRuntime], solve: np.ndarray,
+                      scal: np.ndarray, u: np.ndarray,
+                      solve_channels: Tuple[int, ...]):
+        """Run the single-launch TAQA program and return its outputs on the
+        host, with the program that ran them.
+
+        The caller (:meth:`repro_torch.core.taqa.PilotDB.run_fused`) owns
+        every host-side decision: it drew the pilot, built the quantile
+        table, the cost line and the final draw's uniforms, and it re-solves
+        the rate in f64 afterwards and verifies the device's draw before
+        trusting the returned sums.  One dispatch: the pilot, the solve, the
+        draw and the final are queued on the card with one 8-byte read of
+        (nsel, flags) before the final (``physical._build_fused``).
+        ``padded`` comes back cut to its nsel real ids; ``sums`` and
+        ``counts`` are None where nsel is 0.
+        """
+        compiled = self.physical.compile_fused(plan, pilot_table, runtimes,
+                                               tuple(solve_channels))
+        self._count("device_dispatches")
+        bs_d, present_d, theta_d, flags, nsel, padded_d, sums_d, counts_d = \
+            compiled.call_fused(runtimes, plan_constants(plan), solve, scal, u)
+        # the program's device→host boundary
+        theta, theta_eff = theta_d.tolist()
+        out = {
+            "block_sums": bs_d.double().cpu().numpy(),
+            "present": present_d.cpu().numpy().astype(bool),
+            "theta": theta,
+            "theta_eff": theta_eff,
+            "flags": flags,
+            "nsel": nsel,
+            "padded": padded_d[:nsel].cpu().numpy(),
+            "sums": None if sums_d is None else sums_d.double().cpu().numpy(),
+            "counts": None if counts_d is None else counts_d.double().cpu().numpy(),
+        }
+        return out, compiled

@@ -36,6 +36,11 @@ Routes:
 * ``gather_batched`` — the other shapes' batch: ONE callable that runs each
   lane through the solo gather body, in lane order (the reference's
   ``lax.map``), so each lane is bitwise the solo run.
+* ``fused``        — the single-launch TAQA program of an ungrouped query
+  (:meth:`PhysicalCompiler.compile_fused`): the solo pilot body, the f32
+  rate solve and the final draw's compaction
+  (:mod:`repro_torch.kernels.taqa_solve`), then the solo final body at the
+  solo path's bucket, queued with one 8-byte host read between them.
 
 Pilots (per sampled block and group, each channel's sum) take the kernels
 where the plan has one group and no join-pair statistics, and the traced
@@ -68,6 +73,7 @@ from repro_torch.engine.table import BlockTable
 from repro_torch.kernels.block_agg import block_agg, block_agg_batched
 from repro_torch.kernels.filtered_agg import filtered_agg, filtered_agg_batched
 from repro_torch.kernels.segment_sum import segment_sum
+from repro_torch.kernels.taqa_solve import taqa_draw_compact, taqa_solve_rate
 
 _BIG_BOUND = 3.0e38       # "unbounded" predicate slot, f32-safe
 _INT_MAX = 2 ** 31 - 1    # join key of an invalid right row
@@ -610,6 +616,53 @@ def _lanes(run: Callable, rt: dict, batch: int) -> List[tuple]:
     return out
 
 
+def fused_buckets(num_blocks: int) -> Tuple[int, ...]:
+    """Id-length buckets of the fused final stage.
+
+    Mirrors ``sampling.pad_block_ids``: for any sampled count n in
+    [0, num_blocks], ``min(bucket_blocks(max(n, 1)), num_blocks)`` is the
+    first of these values that is >= n, so the fused final runs at exactly
+    the physical id length the solo path pads to.
+    """
+    out: List[int] = []
+    b = 64
+    while b < num_blocks:
+        out.append(b)
+        b <<= 1
+    out.append(num_blocks)
+    return tuple(out)
+
+
+@dataclasses.dataclass
+class CompiledFused(_CompiledBase):
+    """The single-launch TAQA program (pilot -> rate solve -> final).
+
+    fn(rt) -> (block_sums (n_phys_p, 1, n_ch), present (1,), theta (2,) f32
+    [theta, theta_eff], flags int (1 no groups | 2 bad L_mu | 4 no feasible
+    plan), nsel int, padded (num_blocks,) int32, sums (n_ch, 1) and counts
+    (1,), or None for both where nsel is 0).  Every output but the two ints
+    stays on the device.
+
+    ``call_fused`` adds the fused-only runtime operands to the standard
+    runtime dict: the per-constraint quantile table ``solve`` (n_solve, 5)
+    rows [t_q, chi_q, z, z_bin, e], the shared scalars ``scal`` (6,)
+    [N, max_rate, min_rate, cost_a, cost_b, exact_cost] (one host-to-device
+    copy for both) and the final draw's uniforms ``u`` (num_blocks,), made
+    in f64 on the host and cast to f32 by numpy, as the reference does.
+    """
+
+    def call_fused(self, runtimes: Dict[str, ScanRuntime], params, solve, scal, u):
+        rt = self._runtime_args(runtimes, params)
+        dev = self._device()
+        solve = np.asarray(solve, np.float32).reshape(-1, 5)
+        packed = torch.from_numpy(np.concatenate(
+            [solve.ravel(), np.asarray(scal, np.float32)])).to(dev)
+        rt["solve"] = packed[:solve.size].view(-1, 5)
+        rt["scal"] = packed[solve.size:]
+        rt["u"] = torch.from_numpy(np.asarray(u, np.float32)).to(dev)
+        return self.fn(rt)
+
+
 @dataclasses.dataclass
 class CacheInfo:
     hits: int = 0
@@ -618,6 +671,9 @@ class CacheInfo:
     # the share of hits / misses above that were drain-group batch callables
     batched_hits: int = 0
     batched_misses: int = 0
+    # ... and single-launch fused TAQA programs
+    fused_hits: int = 0
+    fused_misses: int = 0
     # staged-catalog serving counters (repro_torch.engine.staged), filled in
     # by Executor.compile_cache_info; zero for a bare compiler
     staged_hits: int = 0
@@ -639,13 +695,16 @@ class PhysicalCompiler:
         self.misses = 0
         self.batched_hits = 0
         self.batched_misses = 0
+        self.fused_hits = 0
+        self.fused_misses = 0
 
     def cache_info(self) -> CacheInfo:
         with self._lock:
             size = sum(1 for v in self._cache.values()
                        if not isinstance(v, Future))
             return CacheInfo(self.hits, self.misses, size,
-                             self.batched_hits, self.batched_misses)
+                             self.batched_hits, self.batched_misses,
+                             self.fused_hits, self.fused_misses)
 
     def _geometry_sig(self, needed) -> tuple:
         """The geometry of every table the plan scans: the gather route's
@@ -660,17 +719,19 @@ class PhysicalCompiler:
         return tuple(out)
 
     def _lookup(self, key, build):
-        batched = key[0] == "batched"
+        batched, fused = key[0] == "batched", key[0] == "fused"
         with self._lock:
             entry = self._cache.get(key)
             if entry is None:  # this thread builds; others wait on the Future
                 self.misses += 1
                 self.batched_misses += batched
+                self.fused_misses += fused
                 placeholder: Future = Future()
                 self._cache[key] = placeholder
             else:
                 self.hits += 1
                 self.batched_hits += batched
+                self.fused_hits += fused
         if entry is None:
             try:
                 compiled = build()
@@ -941,6 +1002,66 @@ class PhysicalCompiler:
             return block_sums, present, pair
 
         return run
+
+    # -- fused single-launch TAQA ---------------------------------------------
+    def compile_fused(self, plan: L.Aggregate, pilot_table: str,
+                      runtimes: Dict[str, ScanRuntime],
+                      solve_channels: Tuple[int, ...]) -> CompiledFused:
+        """The single-launch TAQA program: pilot scan -> BSAP rate solve ->
+        final sampled aggregation in one call.  Callers gate it to the
+        ungrouped, pair-free, unsharded shape; the rate solve on the device
+        is ADVISORY (f32): the host re-solves in f64 and verifies the
+        device's final draw before trusting its sums (see
+        ``core.taqa.PilotDB.run_fused``)."""
+        needed = _needed_by_table(plan, self.catalog)
+        num_blocks = self.catalog[pilot_table].num_blocks
+        key = ("fused", pilot_table, tuple(solve_channels), num_blocks,
+               plan_signature(plan, runtimes, self._geometry_sig(needed)))
+        return self._lookup(key, lambda: self._build_fused(
+            plan_template(plan), pilot_table, runtimes, needed,
+            tuple(solve_channels), num_blocks))
+
+    def _build_fused(self, template, pilot_table, runtimes, needed,
+                     solve_channels, num_blocks) -> CompiledFused:
+        """The solo pilot body (the column kernels where the plan takes
+        them), then ``taqa_solve_rate`` and ``taqa_draw_compact`` on the
+        pilot's device outputs, then the solo final body.
+
+        Unlike the reference's one XLA program, the host reads (nsel,
+        flags), 8 bytes, before the final: the final then runs the solo
+        callable at the solo path's bucket (``ids = padded[:bucket]``,
+        ``n_real = nsel``), the same shapes and the same reductions as a
+        two-stage final on the same draw, so its sums are that final's bits
+        by construction.  A final of another padded length would sum in
+        another order; a padding-invariant final reduction would remove the
+        read.  With nsel 0 the final is skipped: the caller then takes the
+        two-stage path's exact or solo route anyway."""
+        methods = {t: r.method for t, r in runtimes.items()}
+        buckets = fused_buckets(num_blocks)
+        pilot_run = self._build_pilot(template, pilot_table,
+                                      runtimes[pilot_table].n_phys, None, needed).fn
+        final_run, route = self._query_run(template, runtimes, needed)
+        ch_idx = torch.tensor(solve_channels, dtype=torch.int32,
+                              device=self.catalog[pilot_table].device)
+
+        def run(rt):
+            bs, present, _ = pilot_run(rt)   # (n_phys_p, 1, n_ch), (1,)
+            theta, flags = taqa_solve_rate(bs[:, 0, :].contiguous(), present,
+                                           rt["nreal"][pilot_table], ch_idx,
+                                           rt["solve"], rt["scal"])
+            nsel_d, padded = taqa_draw_compact(rt["u"], theta[1:])
+            # the program's one host read before the final
+            nsel, flag_bits = torch.cat((nsel_d, flags)).tolist()
+            sums = counts = None
+            if nsel > 0:
+                b = buckets[sum(nsel > x for x in buckets[:-1])]
+                frt = dict(rt, ids={**rt["ids"], pilot_table: padded[:b]},
+                           nreal={**rt["nreal"], pilot_table: nsel})
+                sums, counts = final_run(frt)
+            return bs, present, theta, flag_bits, nsel, padded, sums, counts
+
+        return CompiledFused(fn=run, catalog=self.catalog, needed=needed,
+                             methods=methods, route=f"fused_{route}")
 
     # -- kernel lowering of per-block stats ----------------------------------
     def _lower_block_stats(self, table: str, preds: List[Expr],

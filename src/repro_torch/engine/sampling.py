@@ -97,6 +97,28 @@ def pad_block_ids(ids: np.ndarray, num_blocks: int) -> tuple[np.ndarray, int, in
     return phys, n_real, n_phys
 
 
+def block_sample(table: BlockTable, rate: float, seed: int) -> tuple[BlockTable, SampleInfo]:
+    """TABLESAMPLE SYSTEM analogue for the eager executor: Bernoulli over
+    blocks, the hit slabs gathered.
+
+    The gathered table is padded to the bucketed block count with invalid
+    copies of block 0 (they contribute nothing to any statistic and are not
+    listed in ``sampled_block_ids``); ``scanned_bytes`` counts real blocks
+    only."""
+    from repro_torch.engine.physical import scan_cost_bytes
+
+    ids = draw_block_ids(table.num_blocks, rate, seed)
+    phys, n_real, _ = pad_block_ids(ids, table.num_blocks)
+    sampled = table.gather_blocks(phys)
+    if len(phys) > n_real:
+        real = torch.arange(len(phys) * table.block_rows, device=table.device) \
+            < n_real * table.block_rows
+        sampled = dataclasses.replace(sampled, valid=sampled.valid & real)
+    info = SampleInfo("block", rate, seed, n_real, table.num_blocks, ids,
+                      scanned_bytes=scan_cost_bytes(table, "block", n_real))
+    return sampled, info
+
+
 def draw_row_mask(padded_rows: int, rate: float, seed: int) -> np.ndarray:
     """The host-side Bernoulli row draw — the TABLESAMPLE BERNOULLI
     decision, one uniform per padded row."""

@@ -26,7 +26,7 @@ import torch
 # each library and the shared headers of csrc/ that its .cu includes
 HEADERS = {"filtered_agg": ("block_reduce.cuh",), "block_agg": ("block_reduce.cuh",),
            "flash_attn": ("float_io.cuh", "hopper.cuh"), "gla_chunk": ("float_io.cuh",),
-           "segment_sum": ("block_reduce.cuh",)}
+           "segment_sum": ("block_reduce.cuh",), "taqa_solve": ()}
 KERNELS = tuple(HEADERS)
 
 _KERNELS_DIR = Path(__file__).resolve().parent
@@ -78,6 +78,10 @@ _SIGNATURES = {
                                _P, _L, _P, _P],
         "segment_sum_slab_launch": [_P, _P, _L, _I, _L, _L, _L, _I, _P, _P],
         "segment_sum_few_launch": [_P, _P, _L, _I, _L, _L, _I, _P, _P, _P],
+    },
+    "taqa_solve": {
+        "taqa_solve_rate_launch": [_P, _L, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P],
+        "taqa_draw_compact_launch": [_P, _L, _P, _P, _P, _P, _P],
     },
 }
 

@@ -88,6 +88,9 @@ def execute_group(session: "Session", handles: List["QueryHandle"]) -> None:
             for h in live:
                 session._run_handle(h)
             continue
+        if session.config.fused_taqa and len(live) == 1 \
+                and _try_fused(session, live[0]):
+            continue  # the single-launch program delivered the answer
         shared.append(live)
 
     # Several pilot subgroups: their pilots run first, one after another on
@@ -150,6 +153,25 @@ def execute_group(session: "Session", handles: List["QueryHandle"]) -> None:
     for pend, box in zip(subgroups, boxes):
         for p in pend:
             _complete_one(session, p, box)
+
+
+def _try_fused(session: "Session", h: "QueryHandle") -> bool:
+    """The single-launch fused TAQA program for a singleton subgroup.  True
+    when the handle completed (answered, or failed by the program's error or
+    the completion guard); False when the query's shape is outside the
+    fused envelope — the caller then runs the shared-pilot path, nothing
+    having executed."""
+    h._mark_running()
+    gen = session._scan_generations(h.query)
+    try:
+        ans = session._run_fused(h)
+    except Exception as e:  # a failing member fails alone, as in _run_handle
+        h._mark_failed(f"{type(e).__name__}: {e}")
+        return True
+    if ans is None:
+        return False
+    session._complete_handle(h, ans, gen)
+    return True
 
 
 def _pilot_and_prepare(session: "Session", live: List["QueryHandle"],

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.api import Session
+from repro_torch.api import Session, SessionConfig
 from repro_torch.engine.datagen import tpch_catalog
 from repro_torch.kernels.block_agg import (block_agg, block_agg_batched,
                                            block_agg_batched_ref, block_agg_ref)
@@ -18,6 +18,8 @@ from repro_torch.kernels.filtered_agg import (filtered_agg, filtered_agg_batched
                                               filtered_agg_ref)
 from repro_torch.kernels.segment_sum import ops as segment_ops
 from repro_torch.kernels.segment_sum import segment_sum, segment_sum_ref
+from repro_torch.kernels.taqa_solve import (taqa_draw_compact, taqa_draw_compact_ref,
+                                            taqa_solve_rate, taqa_solve_rate_ref)
 from segment_sum_mirror import mirror_few, mirror_slab, slab_keys
 
 pytestmark = pytest.mark.cuda
@@ -769,3 +771,64 @@ def test_gla_chunked_matches_plain_version_on_the_card(cuda, case):
     tol = 2e-2 if dtype == torch.bfloat16 else 3e-3
     torch.testing.assert_close(o.float(), wo.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(s, ws, rtol=3e-3, atol=3e-3)
+
+
+def _pilot_inputs(n_phys, n_real, seed, dev):
+    """Pilot-shaped solve inputs: block sums of revenue and row counts, zero
+    past n_real, with Q6-like quantile rows and an SF10-like cost line."""
+    rng = np.random.default_rng(seed)
+    bs = np.zeros((n_phys, 3), np.float32)
+    bs[:n_real, 0] = rng.gamma(2.0, 5_000.0, n_real)
+    bs[:n_real, 1] = rng.normal(1.2e6, 1e5, n_real)
+    bs[:n_real, 2] = 32.0
+    solve = np.array([[2.6, 0.9 * (n_real - 1), 2.2, 2.8, 0.05],
+                      [2.6, 0.9 * (n_real - 1), 2.2, 2.8, 0.05]], np.float32)
+    scal = np.array([1_875_000, 1.0, 1e-6, 1.5e9, 2e5, 1.6e9], np.float32)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return (t(bs), t(np.array([True])), n_real, t(np.array([0, 1], np.int32)),
+            t(solve), t(scal))
+
+
+@pytest.mark.parametrize("n_phys,n_real", [(64, 2), (2048, 1400), (4096, 4096), (300, 299)])
+def test_taqa_solve_rate_bitwise_its_plain_version(cuda, n_phys, n_real):
+    args = _pilot_inputs(n_phys, n_real, n_real, cuda)
+    launches = taqa_solve_rate.launches
+    theta, flags = taqa_solve_rate(*args)
+    again, _ = taqa_solve_rate(*args)
+    ref_theta, ref_flags = taqa_solve_rate_ref(*args)
+    torch.cuda.synchronize()
+    assert taqa_solve_rate.launches == launches + 2
+    assert torch.equal(theta.view(torch.int32), again.view(torch.int32))
+    assert torch.equal(theta.view(torch.int32), ref_theta.view(torch.int32))
+    assert torch.equal(flags, ref_flags)
+
+
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 100_000, 1_875_000])
+def test_taqa_draw_compact_equals_its_plain_version(cuda, n):
+    u = torch.from_numpy(np.random.default_rng(n).random(n).astype(np.float32)).to(cuda)
+    for theta in (0.0, 0.0005, 0.3, 1.0, 2.0):
+        th = torch.tensor([theta], dtype=torch.float32, device=cuda)
+        nsel, padded = taqa_draw_compact(u, th)
+        ref_nsel, ref_padded = taqa_draw_compact_ref(u, th)
+        assert torch.equal(nsel, ref_nsel) and torch.equal(padded, ref_padded)
+
+
+def test_fused_session_on_the_card_is_bitwise_two_stage(cuda):
+    cat = tpch_catalog(200_000, 32, seed=0)
+    vals = {}
+    for fused in (False, True):
+        s = Session(cat, seed=7, config=SessionConfig(fused_taqa=fused,
+                                                      result_cache_size=0))
+        calls = taqa_solve_rate.launches, taqa_draw_compact.launches
+        hs = [s.sql(q + " ERROR 10% CONFIDENCE 95%") for q in
+              ("SELECT SUM(l_extendedprice * l_discount) AS r FROM lineitem "
+               "WHERE l_shipdate BETWEEN 100 AND 1500 AND l_discount BETWEEN 0.02 AND 0.08",
+               "SELECT SUM(l_extendedprice) AS s, COUNT(*) AS n FROM lineitem")]
+        assert all(h.status == "done" for h in hs), [h.error for h in hs]
+        launched = (taqa_solve_rate.launches - calls[0], taqa_draw_compact.launches - calls[1])
+        assert launched == ((2, 2) if fused else (0, 0))
+        assert [h._fused for h in hs] == [fused, fused]
+        vals[fused] = [h.answer.values for h in hs]
+        s.close()
+    for a, b in zip(vals[False], vals[True]):
+        np.testing.assert_array_equal(a, b)

@@ -67,6 +67,10 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     assert {"repro_torch.engine.staged", "repro_torch.dist",
             "repro_torch.dist.shard", "repro_torch.dist.merge",
             "repro_torch.dist.executor"} <= mods
+    # the fused path's kernels, the Quickr baseline and the eager oracle
+    assert {"repro_torch.kernels.taqa_solve.ops", "repro_torch.kernels.taqa_solve.ref",
+            "repro_torch.core.quickr", "repro_torch.core.equivalence",
+            "repro_torch.engine.ops"} <= mods
 
 
 def test_no_source_imports_jax_or_the_reference():
