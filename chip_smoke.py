@@ -149,12 +149,16 @@ Phases, each printing its own lines:
              turns) split into pilot / rate solve / final, how often the
              verified solo re-run fired, each mode's device idle share, and
              the host draws the fused path makes.  Each taqa kernel input of
-             the first pass (first call per shape) is replayed: the solve's
-             theta within rtol 1e-6 of its plain version (bitwise expected)
-             and its flags exact, the draw's nsel and ids exact; then timed
-             (CUDA events, L2 flushed) beside its plain version, its bound,
-             the launch floor of its grids and, for the draw,
-             torch.nonzero(u < theta) plus the zero fill.  Then Quickr
+             the first pass (first call per shape) is replayed, then
+             scaling points (the solve at 8 and 64 channels over 1,024
+             blocks; the draw at 18,750,000 uniforms, more tiles than
+             resident CTAs, and at theta 0.3): the solve's theta and flags
+             and the draw's nsel and ids bitwise their plain versions and
+             a second launch, each call one kernel node in a CUDA graph
+             (``kernels/graph_nodes.py``); then timed (CUDA events, L2
+             flushed) beside its plain version, its bound, the launch
+             floor of its one grid and, for the draw, torch.nonzero(u <
+             theta) plus the zero fill.  Then Quickr
              (core/quickr.RowSamplingAQP, row sampling on the gather route)
              against PilotDB on Q6 at ERROR 10% CONFIDENCE 95%
              (benchmarks/bench_quickr.py's setting), 2 runs each in turns:
@@ -1288,26 +1292,59 @@ def draw_key(args):
     return tuple(args[0].shape)
 
 
+SOLVE_SCALE_N_SOLVE = (8, 64)    # solve channels of the solve's scaling points
+SOLVE_SCALE_N_PHYS = 1_024       # the fused pilot's block count
+DRAW_SCALE_N = 18_750_000        # uniforms: 1,145 tiles, more than the resident CTAs
+DRAW_SCALE_THETA = 0.3
+
+
+def solve_point(torch, np, n_phys, n_solve, dev):
+    """Pilot-shaped taqa_solve_rate inputs with n_solve channels (revenue-
+    and price-like in turn, then a row count), Q6-like quantile rows and
+    the SF10 cost line."""
+    rng = np.random.default_rng(n_solve)
+    bs = np.zeros((n_phys, n_solve + 1), np.float32)
+    for c in range(n_solve):
+        bs[:, c] = (rng.gamma(2.0, 5_000.0, n_phys) if c % 2 == 0
+                    else rng.normal(1.2e6, 1e5, n_phys))
+    bs[:, n_solve] = 32.0
+    solve = np.tile(np.array([2.6, 0.9 * (n_phys - 1), 2.2, 2.8, 0.05], np.float32),
+                    (n_solve, 1))
+    scal = np.array([1_875_000, 1.0, 1e-6, 1.5e9, 2e5, 1.6e9], np.float32)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return (t(bs), t(np.array([True])), n_phys, t(np.arange(n_solve, dtype=np.int32)),
+            t(solve), t(scal))
+
+
 def time_taqa_kernels(torch, np, calls, wrappers, refs, launch_floor, smi):
-    """Each recorded taqa_solve input against its plain version, then timed
-    (CUDA events, L2 flushed) beside the plain version, its bound, the
-    launch floor of its grids and, for the draw, the library yardstick
-    torch.nonzero(u < theta) plus the zero fill.  Returns {name: [row, ...]}."""
+    """Each recorded taqa_solve input, then the scaling points (the solve at
+    8 and 64 channels; the draw at 18,750,000 uniforms and at theta 0.3):
+    against its plain version bitwise (theta, flags, nsel, ids), the same
+    bits on a second launch, one kernel node in a CUDA graph of the call;
+    then timed (CUDA events, L2 flushed) beside its plain version, its
+    bound, the launch floor of its grid and, for the draw, the library
+    yardstick torch.nonzero(u < theta) plus the zero fill.  Returns {name:
+    [row, ...]}, the recorded inputs' rows first."""
+    from repro_torch.kernels.graph_nodes import captured_node_types
+    from repro_torch.kernels.taqa_solve import ops as taqa_ops
     out = {}
     solve, draw = wrappers
     solve_ref, draw_ref = refs
-    for args, _ in calls["taqa_solve_rate"].values():
+
+    def solve_row(args, tag):
         bs, _, n_real, channels, solve_rows, _ = args
         theta, flags = solve(*args)
-        again, _ = solve(*args)
+        again, again_flags = solve(*args)
         ref_theta, ref_flags = solve_ref(*args)
-        check(torch.equal(theta.view(torch.int32), again.view(torch.int32)),
+        bits = lambda x: x.view(torch.int32)
+        check(torch.equal(bits(theta), bits(again)) and torch.equal(flags, again_flags),
               "taqa_solve_rate: launches differ bitwise")
         check(torch.equal(flags, ref_flags), f"taqa_solve_rate: flags {flags} vs {ref_flags}")
-        torch.testing.assert_close(theta, ref_theta, rtol=1e-6, atol=0,
-                                   msg="taqa_solve_rate: theta vs its plain version")
-        err = float((theta - ref_theta).abs().max())
-        bitwise = torch.equal(theta.view(torch.int32), ref_theta.view(torch.int32))
+        check(torch.equal(bits(theta), bits(ref_theta)),
+              f"taqa_solve_rate: theta {theta.tolist()} is not bitwise its plain version's "
+              f"{ref_theta.tolist()}")
+        nodes = captured_node_types(lambda: solve(*args))
+        check(nodes == ["kernel"], f"taqa_solve_rate: a call enqueues {nodes}")
         n_phys, n_solve = bs.shape[0], channels.shape[0]
         # bytes: the solve channels' block sums, the quantile rows, the
         # scalars, channels and present, the three outputs
@@ -1316,9 +1353,9 @@ def time_taqa_kernels(torch, np, calls, wrappers, refs, launch_floor, smi):
         # feasibility tests of ~16 f32 operations per channel
         flops = 3 * n_phys * n_solve + (1 + 48) * n_solve * 16
         byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["torch.float32"] * 1e3
-        row = {"shape": "x".join(map(str, bs.shape)), "n_real": n_real, "n_solve": n_solve,
-               "max_abs_err": err, "bitwise": bitwise, "theta": ref_theta.tolist(),
-               "flags": int(flags[0]),
+        row = {"input": tag, "shape": "x".join(map(str, bs.shape)), "n_real": n_real,
+               "n_solve": n_solve, "max_abs_err": 0.0, "bitwise": True,
+               "theta": ref_theta.tolist(), "flags": int(flags[0]), "graph_nodes": nodes,
                "ms": time_cold(torch, lambda: solve(*args)),
                "plain_ms": time_cold(torch, lambda: solve_ref(*args), 5),
                "bound_ms": max(byte_ms, op_ms),
@@ -1326,12 +1363,14 @@ def time_taqa_kernels(torch, np, calls, wrappers, refs, launch_floor, smi):
                "library_ms": None,
                "floor_ms": time_cold(torch, lambda: launch_floor(1, 1))}
         out.setdefault("taqa_solve_rate", []).append(row)
-        print(f"[fused] taqa_solve_rate block sums {row['shape']} (n_real {n_real}, "
-              f"{n_solve} solve channels): theta {'bitwise' if bitwise else f'within {err:.3g}'} "
-              f"its plain version, flags {row['flags']} equal; kernel {row['ms'] * 1e3:.2f} us, "
-              f"plain {row['plain_ms']:.2f} ms, bound {row['bound_ms'] * 1e3:.4f} us "
-              f"({row['bound_by']}), launch floor (1 CTA) {row['floor_ms'] * 1e3:.2f} us  [{smi}]")
-    for args, _ in calls["taqa_draw_compact"].values():
+        print(f"[fused] taqa_solve_rate ({tag}) block sums {row['shape']} (n_real {n_real}, "
+              f"{n_solve} solve channels): theta and flags bitwise its plain version, "
+              f"one kernel node; kernel {row['ms'] * 1e3:.2f} us, plain "
+              f"{row['plain_ms']:.2f} ms, bound {row['bound_ms'] * 1e3:.4f} us "
+              f"({row['bound_by']}), launch floor (1 CTA) {row['floor_ms'] * 1e3:.2f} us  "
+              f"[{smi}]")
+
+    def draw_row(args, tag):
         u, theta_eff = args
         nsel, padded = draw(*args)
         ref_nsel, ref_padded = draw_ref(*args)
@@ -1339,9 +1378,12 @@ def time_taqa_kernels(torch, np, calls, wrappers, refs, launch_floor, smi):
               f"taqa_draw_compact: nsel {int(nsel[0])} / {int(ref_nsel[0])} or ids differ "
               "from its plain version")
         again = draw(*args)
-        check(torch.equal(again[1], padded), "taqa_draw_compact: launches differ")
+        check(torch.equal(again[0], nsel) and torch.equal(again[1], padded),
+              "taqa_draw_compact: launches differ")
+        nodes = captured_node_types(lambda: draw(*args))
+        check(nodes == ["kernel"], f"taqa_draw_compact: a call enqueues {nodes}")
         n = u.shape[0]
-        tiles = -(-n // 4096)
+        tiles = -(-n // taqa_ops.TILE)
 
         def library():
             ids = torch.nonzero(u < theta_eff)
@@ -1349,20 +1391,37 @@ def time_taqa_kernels(torch, np, calls, wrappers, refs, launch_floor, smi):
             return ids, zeros
 
         nbytes = 4 * n + 4 * n + 8   # read u, write padded; theta_eff and nsel
-        row = {"shape": str(n), "nsel": int(nsel[0]), "theta_eff": float(theta_eff[0]),
-               "max_abs_err": 0.0,
+        row = {"input": tag, "shape": str(n), "nsel": int(nsel[0]),
+               "theta_eff": float(theta_eff[0]), "max_abs_err": 0.0, "graph_nodes": nodes,
                "ms": time_cold(torch, lambda: draw(*args)),
                "plain_ms": time_cold(torch, lambda: draw_ref(*args)),
                "library_ms": time_cold(torch, library),
                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-               "floor_ms": time_cold(torch, lambda: (launch_floor(tiles, 1),
-                                                     launch_floor(tiles, 1)))}
+               "floor_ms": time_cold(torch, lambda: launch_floor(tiles, 1))}
+        row["bound_share"] = row["bound_ms"] / row["ms"]
         out.setdefault("taqa_draw_compact", []).append(row)
-        print(f"[fused] taqa_draw_compact over {n:,} uniforms (nsel {row['nsel']:,}): equal "
-              f"to its plain version; kernel {row['ms'] * 1e3:.2f} us, plain "
-              f"{row['plain_ms'] * 1e3:.2f} us, torch.nonzero + zero fill "
-              f"{row['library_ms'] * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.2f} us "
-              f"(bytes), launch floor (2 x {tiles} CTAs) {row['floor_ms'] * 1e3:.2f} us  [{smi}]")
+        print(f"[fused] taqa_draw_compact ({tag}) over {n:,} uniforms (theta "
+              f"{row['theta_eff']:.6g}, nsel {row['nsel']:,}): bitwise its plain version, "
+              f"one kernel node; kernel {row['ms'] * 1e3:.2f} us "
+              f"({row['bound_share']:.1%} of the bound), plain {row['plain_ms'] * 1e3:.2f} "
+              f"us, torch.nonzero + zero fill {row['library_ms'] * 1e3:.2f} us, bound "
+              f"{row['bound_ms'] * 1e3:.2f} us (bytes), launch floor (1 x {tiles:,} CTAs) "
+              f"{row['floor_ms'] * 1e3:.2f} us  [{smi}]")
+
+    for args, _ in calls["taqa_solve_rate"].values():
+        solve_row(args, "main path")
+    dev = next(iter(calls["taqa_draw_compact"].values()))[0][0].device
+    for n_solve in SOLVE_SCALE_N_SOLVE:
+        solve_row(solve_point(torch, np, SOLVE_SCALE_N_PHYS, n_solve, dev), "scaling point")
+    for args, _ in calls["taqa_draw_compact"].values():
+        draw_row(args, "main path")
+    recorded_u, recorded_theta = next(iter(calls["taqa_draw_compact"].values()))[0]
+    big = torch.rand(DRAW_SCALE_N, generator=torch.Generator(device=dev).manual_seed(5),
+                     device=dev)
+    point = torch.tensor([DRAW_SCALE_THETA], dtype=torch.float32, device=dev)
+    for args in ((big, recorded_theta), (recorded_u, point), (big, point)):
+        draw_row(args, "scaling point")
+    del big
     return out
 
 
@@ -2445,7 +2504,10 @@ def main() -> int:
             "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "floor_ms": t["floor_ms"],
-            "shape": t["shape"], "main_path": fused["kernels"][k]})
+            "shape": t["shape"],
+            "main_path": [r for r in fused["kernels"][k] if r["input"] == "main path"],
+            "scaling_points": [r for r in fused["kernels"][k]
+                               if r["input"] == "scaling point"]})
     summary["drain"] = drain
     summary["fused"] = {k: v for k, v in fused.items() if k != "kernels"}
     summary["gather"] = gather

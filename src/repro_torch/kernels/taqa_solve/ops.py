@@ -10,7 +10,8 @@ outputs stay on the card for the next launch of the fused program.
 
 from __future__ import annotations
 
-from typing import Tuple
+import threading
+from typing import Dict, Tuple
 
 import torch
 
@@ -18,8 +19,32 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.taqa_solve.ref import taqa_draw_compact_ref, taqa_solve_rate_ref
 
 MAX_SOLVE = 64       # solve channels one call takes (csrc kMaxSolve)
-TILE = 4096          # uniforms per CTA of the compaction (csrc kTile)
+DRAW_THREADS = 1024  # the compaction's CTA, one row of a tile (csrc kDrawThreads)
+TILE_ROWS = 16       # rows of a tile (csrc kTileRows)
+TILE = DRAW_THREADS * TILE_ROWS  # uniforms per CTA of the compaction (csrc kTile)
 MAX_UNIFORMS = 2 ** 31 - 1  # ids travel as int32
+# the compaction's scratch (csrc 2 + kMaxTiles): epoch and ticket, the wrap
+# launch's done count, one status word per tile of the largest call
+SCRATCH_WORDS = 2 + -(-MAX_UNIFORMS // TILE)
+
+_scratch_lock = threading.Lock()
+_scratch: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _draw_scratch(dev: torch.device, stream: int) -> torch.Tensor:
+    """The compaction's scratch of (device, stream), made at its first use
+    (1 MiB; the one fill): epoch 1, ticket 0, no status published.  Each
+    launch advances the epoch on the card and leaves the ticket at zero;
+    launches on one stream never overlap, and PyTorch's streams live as long
+    as the process, so a key is never another stream's."""
+    key = (dev.index, stream)
+    with _scratch_lock:
+        buf = _scratch.get(key)
+        if buf is None:
+            buf = torch.zeros(SCRATCH_WORDS, dtype=torch.int64)
+            buf[0] = 1 << 32
+            buf = _scratch[key] = buf.to(dev)
+        return buf
 
 
 def _on(t: torch.Tensor, dev: torch.device, dtype, shape, what: str) -> None:
@@ -96,25 +121,25 @@ def taqa_draw_compact(u: torch.Tensor,
         return taqa_draw_compact_ref(u, theta_eff)
     if dev.type != "cuda":
         raise ValueError(f"taqa_draw_compact runs on cuda or cpu, not {dev}")
-    nsel = torch.zeros(1, dtype=torch.int32, device=dev)
     padded = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
-        return nsel, padded
+        return torch.zeros(1, dtype=torch.int32, device=dev), padded
+    nsel = torch.empty(1, dtype=torch.int32, device=dev)  # the last tile writes it
     lib = _build.load("taqa_solve")
-    tiles = torch.empty(-(-n // TILE), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.taqa_draw_compact_launch(
-            u.data_ptr(), n, theta_eff.data_ptr(), tiles.data_ptr(), padded.data_ptr(),
-            nsel.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            u.data_ptr(), n, theta_eff.data_ptr(), _draw_scratch(dev, stream).data_ptr(),
+            padded.data_ptr(), nsel.data_ptr(), stream)
     _build.check(lib, "taqa_solve", rc)
     _build.count(taqa_draw_compact, "launches")
     return nsel, padded
 
 
 # ``calls`` counts every call on either device; ``launches`` counts CUDA
-# launches only (one per call; taqa_draw_compact's count and scatter passes
-# are one launch).  Plain integers, bumped under ``_build.count``'s lock: a
-# run resets and reads them.
+# launches only: one per call, each one kernel launch (the compaction is
+# one single-pass launch).  Plain integers, bumped under ``_build.count``'s
+# lock: a run resets and reads them.
 taqa_solve_rate.calls = 0
 taqa_solve_rate.launches = 0
 taqa_draw_compact.calls = 0

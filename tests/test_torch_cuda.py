@@ -20,7 +20,10 @@ from repro_torch.kernels.segment_sum import ops as segment_ops
 from repro_torch.kernels.segment_sum import segment_sum, segment_sum_ref
 from repro_torch.kernels.taqa_solve import (taqa_draw_compact, taqa_draw_compact_ref,
                                             taqa_solve_rate, taqa_solve_rate_ref)
+from repro_torch.kernels.taqa_solve import ops as taqa_ops
+from repro_torch.kernels.graph_nodes import captured_node_types
 from segment_sum_mirror import mirror_few, mirror_slab, slab_keys
+from taqa_solve_mirror import solve_mirror
 
 pytestmark = pytest.mark.cuda
 
@@ -773,25 +776,31 @@ def test_gla_chunked_matches_plain_version_on_the_card(cuda, case):
     torch.testing.assert_close(s, ws, rtol=3e-3, atol=3e-3)
 
 
-def _pilot_inputs(n_phys, n_real, seed, dev):
-    """Pilot-shaped solve inputs: block sums of revenue and row counts, zero
-    past n_real, with Q6-like quantile rows and an SF10-like cost line."""
+def _pilot_inputs(n_phys, n_real, seed, dev, n_solve=2):
+    """Pilot-shaped solve inputs: n_solve block-sum channels (revenue-like
+    and price-like in turn) and a row-count channel, zero past n_real, with
+    Q6-like quantile rows and an SF10-like cost line."""
     rng = np.random.default_rng(seed)
-    bs = np.zeros((n_phys, 3), np.float32)
-    bs[:n_real, 0] = rng.gamma(2.0, 5_000.0, n_real)
-    bs[:n_real, 1] = rng.normal(1.2e6, 1e5, n_real)
-    bs[:n_real, 2] = 32.0
-    solve = np.array([[2.6, 0.9 * (n_real - 1), 2.2, 2.8, 0.05],
-                      [2.6, 0.9 * (n_real - 1), 2.2, 2.8, 0.05]], np.float32)
+    bs = np.zeros((n_phys, n_solve + 1), np.float32)
+    for c in range(n_solve):
+        bs[:n_real, c] = (rng.gamma(2.0, 5_000.0, n_real) if c % 2 == 0
+                          else rng.normal(1.2e6, 1e5, n_real))
+    bs[:n_real, n_solve] = 32.0
+    solve = np.tile(np.array([2.6, 0.9 * (n_real - 1), 2.2, 2.8, 0.05], np.float32),
+                    (n_solve, 1))
     scal = np.array([1_875_000, 1.0, 1e-6, 1.5e9, 2e5, 1.6e9], np.float32)
     t = lambda a: torch.from_numpy(a).to(dev)
-    return (t(bs), t(np.array([True])), n_real, t(np.array([0, 1], np.int32)),
+    return (t(bs), t(np.array([True])), n_real, t(np.arange(n_solve, dtype=np.int32)),
             t(solve), t(scal))
 
 
-@pytest.mark.parametrize("n_phys,n_real", [(64, 2), (2048, 1400), (4096, 4096), (300, 299)])
-def test_taqa_solve_rate_bitwise_its_plain_version(cuda, n_phys, n_real):
-    args = _pilot_inputs(n_phys, n_real, n_real, cuda)
+@pytest.mark.parametrize("n_solve", [1, 2, 8, 64])
+@pytest.mark.parametrize("n_phys,n_real", [(64, 2), (2048, 1400), (4096, 4096), (300, 299),
+                                           (65_536, 65_536), (65_536, 1_024)])
+def test_taqa_solve_rate_bitwise_its_plain_version(cuda, n_phys, n_real, n_solve):
+    """Bitwise the plain version's sequential loop and the numpy mirror of
+    the kernel's speculative rounds."""
+    args = _pilot_inputs(n_phys, n_real, n_real, cuda, n_solve)
     launches = taqa_solve_rate.launches
     theta, flags = taqa_solve_rate(*args)
     again, _ = taqa_solve_rate(*args)
@@ -801,16 +810,77 @@ def test_taqa_solve_rate_bitwise_its_plain_version(cuda, n_phys, n_real):
     assert torch.equal(theta.view(torch.int32), again.view(torch.int32))
     assert torch.equal(theta.view(torch.int32), ref_theta.view(torch.int32))
     assert torch.equal(flags, ref_flags)
+    host = [a.cpu().numpy() if torch.is_tensor(a) else a for a in args]
+    mirror_theta, mirror_flags = solve_mirror(*host)
+    assert np.array_equal(theta.cpu().numpy().view(np.int32), mirror_theta.view(np.int32))
+    assert int(flags[0]) == mirror_flags
 
 
-@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 100_000, 1_875_000])
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 16_383, 16_384, 16_385, 100_000, 1_875_000,
+                               18_750_000])
 def test_taqa_draw_compact_equals_its_plain_version(cuda, n):
+    """Equal to the plain version for every theta, one kernel launch per
+    call (a CUDA graph of the call holds one kernel node and nothing else);
+    at 18,750,000 uniforms the 1,145 tiles outnumber the resident CTAs."""
     u = torch.from_numpy(np.random.default_rng(n).random(n).astype(np.float32)).to(cuda)
     for theta in (0.0, 0.0005, 0.3, 1.0, 2.0):
+        th = torch.tensor([theta], dtype=torch.float32, device=cuda)
+        launches = taqa_draw_compact.launches
+        nsel, padded = taqa_draw_compact(u, th)
+        assert taqa_draw_compact.launches == launches + 1
+        ref_nsel, ref_padded = taqa_draw_compact_ref(u, th)
+        assert torch.equal(nsel, ref_nsel) and torch.equal(padded, ref_padded)
+    th = torch.tensor([0.3], dtype=torch.float32, device=cuda)
+    assert captured_node_types(lambda: taqa_draw_compact(u, th)) == ["kernel"]
+
+
+def test_taqa_draw_compact_on_one_scratch_across_sizes_and_the_epoch_wrap(cuda):
+    """Calls of shrinking and growing size on one stream's scratch (stale
+    statuses never count), then across the epoch wrap: the launch of the
+    last epoch clears every status and the epochs start again at 1."""
+    dev = torch.device("cuda", torch.cuda.current_device())  # the index a tensor carries
+    scratch = taqa_ops._draw_scratch(dev, torch.cuda.current_stream(dev).cuda_stream)
+    rng = np.random.default_rng(8)
+
+    def check(n, theta):
+        u = torch.from_numpy(rng.random(n).astype(np.float32)).to(cuda)
         th = torch.tensor([theta], dtype=torch.float32, device=cuda)
         nsel, padded = taqa_draw_compact(u, th)
         ref_nsel, ref_padded = taqa_draw_compact_ref(u, th)
         assert torch.equal(nsel, ref_nsel) and torch.equal(padded, ref_padded)
+
+    for n in (18_750_000, 100_000, 1_875_000, 17, 18_750_000):
+        check(n, float(rng.choice([0.0005, 0.3])))
+    last = 2 ** 32 - 1
+    scratch[0] = ((last - 1) << 32) - 2 ** 64           # epoch last - 1, ticket 0 (as int64)
+    check(1_875_000, 0.3)
+    check(2_000_000, 0.0005)                             # the wrap launch
+    torch.cuda.synchronize()
+    assert int(scratch[0]) == 1 << 32 and int(scratch[1]) == 0
+    assert not scratch[2:].any()
+    for n in (18_750_000, 4097):
+        check(n, 0.3)
+    assert int(scratch[0]) == 3 << 32
+
+
+def test_taqa_kernels_give_the_same_bits_launch_to_launch(cuda):
+    """20 launches of each kernel on one input: one set of bits, and each
+    call is one kernel node."""
+    args = _pilot_inputs(2048, 1400, 5, cuda, 2)
+    first = taqa_solve_rate(*args)
+    for _ in range(19):
+        again = taqa_solve_rate(*args)
+        assert torch.equal(again[0].view(torch.int32), first[0].view(torch.int32))
+        assert torch.equal(again[1], first[1])
+    assert captured_node_types(lambda: taqa_solve_rate(*args)) == ["kernel"]
+    u = torch.from_numpy(np.random.default_rng(3).random(1_875_000)
+                         .astype(np.float32)).to(cuda)
+    th = torch.tensor([0.01], dtype=torch.float32, device=cuda)
+    nsel, padded = taqa_draw_compact(u, th)
+    for _ in range(19):
+        n2, p2 = taqa_draw_compact(u, th)
+        assert torch.equal(n2, nsel) and torch.equal(p2, padded)
+    torch.cuda.synchronize()
 
 
 def test_fused_session_on_the_card_is_bitwise_two_stage(cuda):
