@@ -166,6 +166,32 @@ Phases, each printing its own lines:
              fallback).  Last, one 1%-block-sampled Q6 through
              ``Executor(use_compiled=False)`` against the compiled route:
              the same draw, counts equal, sums within rtol 1e-5.
+11. obs     — streaming, tracing, audit and telemetry (run right after phase
+             10 on its SF10 lineitem): equal-seed sessions (seed 42, result
+             cache off, async_workers=2) with every hook off and with every
+             hook on (tracing, audit, telemetry, trace_sample 1.0, a flight
+             recorder under build/obs/, one SLO target).  The hooks-on
+             session answers Q6 and SUM/COUNT at ERROR 5% CONFIDENCE 95%
+             through Session.sql(stream=True), and phase 6's herd plus the
+             grouped Q1 through submit(stream=True) + drain(); a fused
+             session answers Q6 and a cache-on session re-issues it.
+             Counters zeroed just before and read just after: filtered_agg,
+             block_agg, both batched kernels, segment_sum and both taqa
+             kernels must have launched.  The script fails on an answer that
+             is not bitwise the hooks-off session's, a final frame that is
+             not the handle's answer bitwise, a pilot frame after its final,
+             an audited answer whose observed error exceeds the promise, a
+             span shorter than the stage time its TaqaReport records, or a
+             flight-recorder log that, replayed, does not rebuild the live
+             time-series.  Prints the walls of off, stream-only, all hooks
+             but the audit, and all hooks (median of 15 in turns after an
+             untimed round, the median paired difference from off, and the
+             least wall; the sql queries and the herd's drain), the time
+             from submission to the
+             pilot frame and to the final frame, each span against
+             TaqaReport's pilot / rate-solve / final times, the audit's
+             exact-scan wall, the recorder's events and bytes, and the
+             device idle share of one traced query.
 3b. model kernels — flash_attention and gla_chunked (run right after phase
              3) at fixed scaling points in bf16: flash at hymba's width (2 x 25
              q heads over 5 kv heads, 2048 tokens, d 64) causal without a
@@ -263,6 +289,16 @@ PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 FUSED_QUERIES = {"q6": Q6, "sum_count": SUM_COUNT}
 QUICKR_ERROR = 0.10
 QUICKR_RUNS = 2                  # timed runs each of Quickr and PilotDB, in turns
+# phase 11: the sql queries and the herd (phase 6's, plus the grouped Q1,
+# whose pilot and final take segment_sum) that the hooks-off and hooks-on
+# sessions answer; an SLO target no query should breach
+OBS_QUERIES = {"q6": Q6, "sum_count": SUM_COUNT}
+OBS_HERD = HERD + [GATHER_QUERIES["q1"] + GUARANTEE]
+OBS_SLO_P95_S = 10.0
+# timed rounds of phase 11, after one untimed round: single walls on the
+# host are bimodal (~21 / ~31 ms for Q6 on an H100 host), so 5 cannot
+# resolve a hook's ~1 ms
+OBS_RUNS = 15
 # phase 7: guaranteed-error evaluation of hymba-1.5b at full width
 EVAL_ARCH = "hymba-1.5b"
 EVAL_SHARDS = 128                # eval corpus: shards of EVAL_BSZ x EVAL_SEQ tokens
@@ -1614,6 +1650,288 @@ def run_fused_quickr_eager(torch, np, li, Session, SessionConfig, kernels, recor
 
 
 # ---------------------------------------------------------------------------
+# phase 11 helpers: streaming, tracing, audit and continuous telemetry
+# ---------------------------------------------------------------------------
+
+def check_stream(np, h, what):
+    """A streamed handle's frames: at most one advisory pilot frame, before
+    exactly one terminal frame whose answer is the handle's, bitwise."""
+    frames = h.frames()
+    kinds = [f.kind for f in frames]
+    check(bool(frames) and frames[-1].terminal and kinds.count("pilot") <= 1
+          and all(not f.terminal for f in frames[:-1]),
+          f"{what}: frames {kinds}")
+    final = frames[-1]
+    check(final.answer is h.answer and same_bits(np, final.answer.values,
+                                                  h.answer.values),
+          f"{what}: the final frame is not the handle's answer, bitwise")
+    for f in frames[:-1]:
+        check(f.seq < final.seq and f.t_emit <= final.t_emit,
+              f"{what}: a pilot frame arrived after its final frame")
+    return kinds
+
+
+def span_vs_report(h):
+    """(span s, report s) of the pilot, rate-solve and final stages of one
+    traced query (first span of each name)."""
+    rep = h.report
+    out = {}
+    for name, rt in (("pilot", rep.pilot_time_s), ("rate_solve", rep.plan_time_s),
+                     ("final", rep.final_time_s)):
+        spans = h._trace.find(name)
+        out[name] = (spans[0].duration_s if spans else None, rt)
+    return out
+
+
+def run_obs(torch, np, li, Session, SessionConfig, kernels, smi):
+    """Phase 11 on SF10 lineitem: equal-seed sessions with every hook off
+    and every hook on answer the same queries bitwise; the streams, the
+    audit, the spans and the flight recorder are checked, then timed."""
+    import shutil
+    from repro_torch.obs.events import rebuild_timeseries, replay
+    from repro_torch.obs.slo import SloTarget
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(ROOT, "build", "obs")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    summary = {}
+
+    def hooks(tag, **kw):
+        return dict(tracing=True, audit=True, telemetry=True, trace_sample=1.0,
+                    flight_recorder=os.path.join(out_dir, f"{tag}.jsonl"),
+                    flight_recorder_max_bytes=1 << 26,
+                    slo_targets=(SloTarget(p95_latency_s=OBS_SLO_P95_S),), **kw)
+
+    base = dict(result_cache_size=0, async_workers=2)
+    configs = {"off": base, "on": {**base, **hooks("on")},
+               "fused_off": {**base, "fused_taqa": True},
+               "fused_on": {**base, **hooks("fused_on"), "fused_taqa": True},
+               "cached_on": {**hooks("cached_on"), "async_workers": 2}}
+    sessions = {}
+    for tag, kw in configs.items():
+        sessions[tag] = Session(seed=42, config=SessionConfig(**kw))
+        sessions[tag].register_table("lineitem", li)
+    off, on = sessions["off"], sessions["on"]
+    herd = OBS_HERD
+
+    # the hooks-on path, counters zeroed just before and read just after
+    zero_counters(kernels)
+    t0 = time.perf_counter()
+    solo = {qn: on.sql(sql + GUARANTEE, stream=True) for qn, sql in OBS_QUERIES.items()}
+    hs = [on.submit(q, stream=True) for q in herd]
+    on.drain()
+    fused = sessions["fused_on"].sql(Q6 + GUARANTEE, stream=True)
+    cached_first = sessions["cached_on"].sql(Q6 + GUARANTEE, stream=True)
+    cached = sessions["cached_on"].sql(Q6 + GUARANTEE, stream=True)
+    torch.cuda.synchronize()
+    first_pass_s = time.perf_counter() - t0
+    launches = read_counters(kernels)
+    drain_stats = on.scheduler.last_drain
+    print(f"[obs] the hooks-on pass ({len(solo)} sql, a {len(herd)}-query drain, a "
+          f"fused Q6, a cached re-issue) in {first_pass_s:.2f} s; launches {launches}")
+    for name, n in launches.items():
+        check(n > 0, f"phase 11 never launched {name}")
+
+    # every answer bitwise the hooks-off session's; every stream well formed
+    kinds = {}
+    for qn, h in solo.items():
+        check(h.status == "done", f"obs {qn}: {h.error}")
+        ref = off.sql(OBS_QUERIES[qn] + GUARANTEE)
+        check(same_bits(np, h.answer.values, ref.answer.values),
+              f"obs {qn}: {h.answer.values} is not bitwise the hooks-off "
+              f"{ref.answer.values}")
+        kinds[qn] = check_stream(np, h, f"obs {qn}")
+        check(h._trace is not None and h._trace.open_spans() == [],
+              f"obs {qn}: open spans {h._trace and h._trace.open_spans()}")
+    offs = [off.submit(q) for q in herd]
+    off.drain()
+    for h, r in zip(hs, offs):
+        check(h.status == "done" and r.status == "done",
+              f"obs herd: {h.error or r.error}\n{h.sql}")
+        check(same_bits(np, h.answer.values, r.answer.values),
+              f"obs herd: {h.answer.values} is not bitwise the hooks-off "
+              f"{r.answer.values}\n{h.sql}")
+        check_stream(np, h, f"obs herd {h.sql}")
+        check(h._trace.open_spans() == [], f"obs herd: open spans\n{h.sql}")
+    check(drain_stats.frames_emitted >= len(herd), f"obs drain: {drain_stats}")
+    kinds["herd"] = [f.kind for f in hs[0].frames()]
+    f_off = sessions["fused_off"].sql(Q6 + GUARANTEE)
+    check(fused._fused and f_off._fused, "obs: the fused Q6 did not take the fused program")
+    check(same_bits(np, fused.answer.values, f_off.answer.values),
+          "obs fused: not bitwise the hooks-off fused answer")
+    check(same_bits(np, fused.answer.values, solo["q6"].answer.values),
+          "obs fused: not bitwise the two-stage answer")
+    check(bool(fused._trace.find("fused")) and fused._trace.find("fused")[0].attrs["engaged"],
+          "obs fused: no engaged fused span")
+    kinds["fused"] = check_stream(np, fused, "obs fused")
+    check(cached.cached and not cached_first.cached, "obs: the re-issue was not cached")
+    kinds["cached"] = check_stream(np, cached, "obs cached")
+    check(kinds["cached"] == ["pilot", "final"] and cached.frames()[0].from_cache,
+          f"obs cached: frames {kinds['cached']}")
+    check(same_bits(np, cached.answer.values, solo["q6"].answer.values),
+          "obs cached: not bitwise the fresh answer")
+    print(f"[obs] hooks on: every answer bitwise the hooks-off session's (sql, "
+          f"{len(herd)}-query drain, fused, cached); frames {kinds}; drain "
+          f"frames_emitted {drain_stats.frames_emitted}, time to first frame "
+          f"{drain_stats.time_to_first_frame_s * 1e3:.2f} ms, to the last final "
+          f"{drain_stats.time_to_final_s * 1e3:.2f} ms")
+
+    # the audit: observed error within the promise on every audited answer
+    records = []
+    for tag in ("on", "fused_on", "cached_on"):
+        s = sessions[tag]
+        records += s.auditor.records()
+        summ = s.auditor.summary()
+        check(summ["errors"] == 0, f"obs {tag}: audit errors {summ}")
+    audited = [r for r in records if r.skipped is None]
+    for r in audited:
+        check(r.observed_error <= r.promised_error,
+              f"obs audit: query {r.query_id} observed {r.observed_error} above "
+              f"the promised {r.promised_error} ({r.provenance})")
+    exact_ms = [r.exact_wall_s * 1e3 for r in audited]
+    summary["audit"] = {"records": len(records), "audited": len(audited),
+                        "max_error_ratio": max(r.error_ratio for r in audited),
+                        "exact_wall_ms": exact_ms,
+                        "provenance": sorted({r.provenance for r in records})}
+    print(f"[obs] audit: {len(audited)} audited of {len(records)} records, every "
+          f"observed error within its promise (max ratio "
+          f"{summary['audit']['max_error_ratio']:.4f}); provenance "
+          f"{summary['audit']['provenance']}; the exact scan's wall median "
+          f"{statistics.median(exact_ms):.2f} ms (min {min(exact_ms):.2f}, max "
+          f"{max(exact_ms):.2f})  [{smi}]")
+
+    # each span against TaqaReport's stage times: a span encloses the stage
+    # its report times, and every stage ends in a host read
+    spans = {}
+    for qn, h in solo.items():
+        spans[qn] = span_vs_report(h)
+        for name, (sp, rt) in spans[qn].items():
+            check(sp is not None and sp >= rt,
+                  f"obs {qn}: span {name} {sp} s shorter than the report's {rt} s")
+        print(f"[obs] {qn} spans against TaqaReport (ms): " + "; ".join(
+            f"{n} {sp * 1e3:.3f} vs {rt * 1e3:.3f}" for n, (sp, rt) in spans[qn].items())
+            + f"  [{smi}]")
+    summary["spans_ms"] = {qn: {n: [v * 1e3 for v in pair] for n, pair in d.items()}
+                           for qn, d in spans.items()}
+
+    # the flight recorder: replayed offline, it rebuilds the live time-series
+    on.close()
+    path = os.path.join(out_dir, "on.jsonl")
+    events = list(replay(path))
+    rebuilt, live = rebuild_timeseries(replay(path)), on.timeseries
+    check(set(rebuilt.keys()) == set(live.keys()), "obs: rebuilt templates differ")
+    for key in live.keys():
+        a, b = live.series(key), rebuilt.series(key)
+        fields = ("deliveries", "cached", "shared", "fused", "staged", "fallbacks",
+                  "failures", "audited", "audit_violations")
+        check([getattr(a, f) for f in fields] == [getattr(b, f) for f in fields],
+              f"obs: rebuilt counters of {key} differ: live "
+              f"{[getattr(a, f) for f in fields]}, rebuilt "
+              f"{[getattr(b, f) for f in fields]} ({fields})")
+        check(len(a.latency_s.values()) == len(b.latency_s.values()) and all(
+            abs(x - y) <= 1e-6 for x, y in zip(a.latency_s.values(), b.latency_s.values())),
+            f"obs: rebuilt latencies of {key} differ")
+    rec = on.recorder.stats()
+    ev_types = {}
+    for e in events:
+        ev_types[e["ev"]] = ev_types.get(e["ev"], 0) + 1
+    summary["recorder"] = {**rec, "bytes": os.path.getsize(path), "events": ev_types,
+                           "templates": len(live.keys())}
+    check(rec["dropped"] == 0 and rec["emitted"] == len(events),
+          f"obs: recorder {rec}, {len(events)} replayed")
+    print(f"[obs] flight recorder: {rec['emitted']} events, "
+          f"{summary['recorder']['bytes']:,} bytes ({ev_types}); replayed, it "
+          f"rebuilds the live time-series of {len(live.keys())} templates")
+    print(f"[obs] SLO (p95 <= {OBS_SLO_P95_S} s): {on.slo.summary()['targets']} "
+          f"targets, breaches {on.slo.summary()['breaches_total']}")
+
+    # walls off against on, in turns: the sql queries and the herd's drain
+    timing = {"off": {}, "stream": {}, "on_no_audit": {**hooks("t_noaudit"), "audit": False},
+              "on": hooks("t_on")}
+    tsess = {}
+    for tag, kw in timing.items():
+        tsess[tag] = Session(seed=42, config=SessionConfig(**base, **kw))
+        tsess[tag].register_table("lineitem", li)
+    runs = {(tag, qn): {"wall": [], "pilot_frame": [], "final_frame": []}
+            for tag in tsess for qn in (*OBS_QUERIES, "herd")}
+    for i in range(-1, OBS_RUNS):  # round -1 warms each session, untimed
+        order = list(tsess.items()) if i % 2 == 0 else list(tsess.items())[::-1]
+        for qn, sql in OBS_QUERIES.items():
+            for tag, s in order:
+                t0 = time.perf_counter()
+                h = s.sql(sql + GUARANTEE, stream=tag != "off")
+                torch.cuda.synchronize()
+                check(h.status == "done", f"obs timing {tag} {qn}: {h.error}")
+                if i < 0:
+                    continue
+                r = runs[(tag, qn)]
+                r["wall"].append(time.perf_counter() - t0)
+                for f in h.frames():
+                    r["pilot_frame" if f.kind == "pilot" else "final_frame"].append(
+                        f.emitted_at)
+        for tag, s in order:
+            t0 = time.perf_counter()
+            batch = [s.submit(q, stream=tag != "off") for q in herd]
+            s.drain()
+            torch.cuda.synchronize()
+            check(all(h.status == "done" for h in batch), f"obs timing {tag} herd")
+            if i < 0:
+                continue
+            runs[(tag, "herd")]["wall"].append(time.perf_counter() - t0)
+            st = s.scheduler.last_drain
+            if tag != "off":
+                runs[(tag, "herd")]["pilot_frame"].append(st.time_to_first_frame_s)
+                runs[(tag, "herd")]["final_frame"].append(st.time_to_final_s)
+    walls = {}
+    for (tag, qn), r in runs.items():
+        med = {k: (statistics.median(v) * 1e3 if v else None) for k, v in r.items()}
+        med["walls_ms"] = [v * 1e3 for v in r["wall"]]
+        med["min_wall"] = min(r["wall"]) * 1e3
+        # the median of the round-by-round differences from the hooks-off
+        # wall of the same round (the two ran next to each other)
+        med["paired_diff"] = statistics.median(
+            (a - b) * 1e3 for a, b in zip(r["wall"], runs[("off", qn)]["wall"]))
+        walls[f"{tag} {qn}"] = med
+    for qn in (*OBS_QUERIES, "herd"):
+        w_off = walls[f"off {qn}"]["wall"]
+        line = "; ".join(
+            f"{tag} {walls[f'{tag} {qn}']['wall']:.2f} ({walls[f'{tag} {qn}']['wall'] - w_off:+.2f}; "
+            f"paired {walls[f'{tag} {qn}']['paired_diff']:+.2f}; min "
+            f"{walls[f'{tag} {qn}']['min_wall']:.2f})"
+            for tag in tsess)
+        frames = "; ".join(
+            f"{tag} pilot {walls[f'{tag} {qn}']['pilot_frame']:.2f} / final "
+            f"{walls[f'{tag} {qn}']['final_frame']:.2f}"
+            for tag in tsess if tag != "off" and walls[f"{tag} {qn}"]["final_frame"] is not None)
+        since = "the drain's start" if qn == "herd" else "submission"
+        print(f"[obs] {qn} walls, median of {OBS_RUNS} in turns (ms, against off): "
+              f"{line}; frames from {since} (ms): {frames}  [{smi}]")
+    summary["walls"] = walls
+
+    # the device idle share of one traced query (hooks on but the audit, so
+    # the profiled call is the query alone), and of one with every hook on
+    idle = {}
+    for tag in ("on_no_audit", "on"):
+        busy, pwall = device_busy_ms(
+            torch, lambda: tsess[tag].sql(Q6 + GUARANTEE, stream=True))
+        idle[tag] = {"device_busy_ms": busy, "profiled_wall_ms": pwall,
+                     "idle_share": None if busy is None else 1 - busy / pwall}
+        share = "not measured" if busy is None else f"{1 - busy / pwall:.1%}"
+        print(f"[obs] traced Q6 ({tag}) under torch.profiler: device kernels "
+              f"{busy if busy is None else round(busy, 4)} ms of {pwall:.2f} ms; "
+              f"device idle share {share}  [{smi}]")
+    summary["idle"] = idle
+    for s in (*sessions.values(), *tsess.values()):
+        s.close()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    summary["launches"] = launches
+    summary["frames"] = kinds
+    summary["phase_s"] = time.perf_counter() - t_phase
+    print(f"[obs] phase 11 in {summary['phase_s']:.1f} s  [{smi}]")
+    return summary
+
+
+# ---------------------------------------------------------------------------
 # phase 3b / 7 helpers: the model kernels and the eval slice
 # ---------------------------------------------------------------------------
 
@@ -2365,6 +2683,11 @@ def main() -> int:
     for name in ("taqa_solve_rate", "taqa_draw_compact"):
         check(bool(fused["kernels"].get(name)), f"{name}: no call of phase 10 was recorded")
     torch.cuda.synchronize()
+
+    # -- 11. streaming, tracing, audit and telemetry on the same lineitem ------
+    obs = run_obs(torch, np, li, Session, SessionConfig,
+                  (*wrappers, segment_sum, *taqa_wrappers), smi)
+    torch.cuda.synchronize()
     del session, catalog, cols, li, ids, lanes, q6_cols
     torch.cuda.empty_cache()
 
@@ -2435,7 +2758,8 @@ def main() -> int:
             "launches": (drain["launches"] if path == "drain" else launches)[k],
             "launches_by_path": {"sql": launches[k], "drain": drain["launches"][k],
                                  **({"staged_shards": staged_launches[k]}
-                                    if k in staged_launches else {})},
+                                    if k in staged_launches else {}),
+                                 "obs": obs["launches"][k]},
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "library_ms": None, "floor_ms": t["floor_ms"],
@@ -2456,7 +2780,8 @@ def main() -> int:
                          "physical.py:256, :276, :877-878, :1072-1082); no Pallas original",
         "launches": gather["launches"],
         "launches_by_path": {"gather": gather["launches_by_query"],
-                             "staged_shards": staged_launches["segment_sum"]},
+                             "staged_shards": staged_launches["segment_sum"],
+                             "obs": obs["launches"]["segment_sum"]},
         "max_abs_err": head["max_abs_err"], "ms": head["ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": "bytes", "library_ms": head["library_ms"],
@@ -2501,6 +2826,8 @@ def main() -> int:
             "launches": fused["launches"][k],
             "launches_per_query": {qn: r["launches"][k]
                                    for qn, r in fused["per_query"].items()},
+            "launches_by_path": {"fused": fused["launches"][k],
+                                 "obs": obs["launches"][k]},
             "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "floor_ms": t["floor_ms"],
@@ -2513,6 +2840,7 @@ def main() -> int:
     summary["gather"] = gather
     summary["staged_shards"] = {k: v for k, v in staged.items() if k != "kernels"}
     summary["eval"] = evaluation
+    summary["obs"] = obs
     print(f"[done] {time.perf_counter() - t_start:.1f} s; main path {json.dumps(summary)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

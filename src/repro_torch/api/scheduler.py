@@ -49,7 +49,9 @@ class DrainStats:
     session never leaks in.  ``compile_misses``/``compile_hits`` diff the
     session's compile cache around the drain — exact when nothing else
     executes concurrently.  Every field is PER DRAIN: a fresh ``DrainStats``
-    replaces ``scheduler.last_drain`` on each call.
+    replaces ``scheduler.last_drain`` on each call; cumulative totals live
+    in ``scheduler.total_drained``, the session's cache infos and its
+    metrics registry (``session.metrics``).
     """
 
     n_queries: int = 0
@@ -68,6 +70,14 @@ class DrainStats:
     # the runtime pool widths this drain ran on (resolved, not the config)
     workers: int = 0
     pilot_workers: int = 0
+    # progressive streaming (repro_torch.stream), over this drain's
+    # STREAMING handles: frames emitted, drain-relative time of the first
+    # frame of any kind (the first advisory estimate a client could
+    # render), and of the last terminal frame (every guarantee delivered).
+    # All 0.0 when no handle in the batch streamed.
+    frames_emitted: int = 0
+    time_to_first_frame_s: float = 0.0
+    time_to_final_s: float = 0.0
 
     @property
     def cache_hit_rate(self) -> float:
@@ -84,6 +94,7 @@ class QueryScheduler:
         # async drain must not re-queue a handle a worker is executing
         self._in_flight: Dict[int, "QueryHandle"] = {}
         self.last_drain: Optional[DrainStats] = None
+        self.total_drained = 0
 
     def _prune_in_flight(self) -> None:
         self._in_flight = {qid: h for qid, h in self._in_flight.items()
@@ -102,6 +113,10 @@ class QueryScheduler:
             handle.group_key = template_signature(handle.query)
         self._queued.add(handle.query_id)
         self._pending.append(handle)
+        if handle._trace is not None:
+            # opened here on the client thread, closed by whichever worker
+            # starts the query (_mark_running): the wait in the queue
+            handle._trace.open_span("schedule")
         return handle
 
     @property
@@ -173,8 +188,50 @@ class QueryScheduler:
         stats.pilot_fanouts = fan1[0] - fan0[0]
         stats.pilot_fanout_wall_s = fan1[1] - fan0[1]
         stats.pilot_fanout_serial_s = fan1[2] - fan0[2]
+        # streaming latency, drain-relative: emission stamps predating this
+        # drain (frames replayed onto pre-enabled handles) clamp to 0
+        emits: List[float] = []
+        finals: List[float] = []
+        for h in completed:
+            if not h.streaming:
+                continue
+            for f in h.frames():
+                emits.append(f.t_emit)
+                if f.terminal:
+                    finals.append(f.t_emit)
+        stats.frames_emitted = len(emits)
+        if emits:
+            stats.time_to_first_frame_s = max(0.0, min(emits) - t0)
+        if finals:
+            stats.time_to_final_s = max(0.0, max(finals) - t0)
         stats.wall_time_s = time.perf_counter() - t0
         self.last_drain = stats
+        self.total_drained += len(completed)
+        metrics = self._session.metrics  # cumulative totals live there
+        metrics.counter("pilotdb_drains_total",
+                        "drain() calls completed").inc()
+        metrics.counter("pilotdb_drained_queries_total",
+                        "Queries completed via drain()").inc(len(completed))
+        metrics.histogram("pilotdb_drain_wall_seconds",
+                          "Wall time per drain() call").observe(
+                              stats.wall_time_s)
+        # observed only when the batch streamed (zeros would poison the
+        # quantiles)
+        if emits:
+            metrics.histogram(
+                "pilotdb_time_to_first_frame_seconds",
+                "Drain-relative time of the first streamed frame"
+            ).observe(stats.time_to_first_frame_s)
+        if finals:
+            metrics.histogram(
+                "pilotdb_time_to_final_seconds",
+                "Drain-relative time of the last terminal frame"
+            ).observe(stats.time_to_final_s)
+        ts = self._session.timeseries
+        if ts is not None:
+            ts.record_drain(
+                stats.time_to_first_frame_s if emits else None,
+                stats.time_to_final_s if finals else None)
         return completed
 
     def drain_async(self) -> List["QueryHandle"]:
@@ -185,4 +242,5 @@ class QueryScheduler:
         batches = self._take_batch(None)
         handles = [h for b in batches for h in b]
         self._session.runtime.run_groups(batches, block=False)
+        self.total_drained += len(handles)
         return handles

@@ -18,8 +18,10 @@ batched call per same-signature bucket); its pilots through
 :meth:`PilotDB.run_pilots_batched`, which runs each member's solo pilot.
 :meth:`PilotDB.run_fused` runs both stages as one program on the device
 (the pilot, an f32 rate solve and the final draw on the card, then the
-final), bitwise the two-stage answer.  The advisory path waits for a later
-slice of the port.
+final), bitwise the two-stage answer.  :func:`advisory_estimate` turns a pilot
+outcome into the provisional estimate a streaming client sees before the
+guaranteed answer (host f64 over the pilot's block sums, as in the
+reference).
 """
 
 from __future__ import annotations
@@ -187,6 +189,100 @@ class FinalStage:
     report: TaqaReport
     final_plan: Optional["L.Aggregate"] = None
     answer: Optional[ApproxAnswer] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class PilotEstimate:
+    """An ADVISORY pilot-stage estimate of every user-facing aggregate.
+
+    This is what progressive streaming shows while the guarantee converges
+    (:mod:`repro_torch.stream`) and what the result cache records so cached
+    re-issues can replay a provisional frame: Hájek point estimates per
+    group plus provisional CI half-widths — compact (two
+    ``(num_aggs, max_groups)`` arrays), never the per-block matrix.
+
+    The interval is the pilot sample's t-interval propagated through the
+    Table-2 composite rules (:mod:`repro_torch.core.propagation`); it carries NO
+    a-priori guarantee — only the final answer's §4 report does.
+    """
+
+    names: Tuple[str, ...]
+    values: np.ndarray          # (num_aggs, max_groups) float64
+    half_widths: np.ndarray     # absolute CI half-widths, same shape
+    group_present: np.ndarray   # (max_groups,) bool — groups seen by the pilot
+    confidence: float
+    theta_pilot: float
+    n_pilot_blocks: int
+
+    def nbytes(self) -> int:
+        """Byte footprint for result-cache accounting."""
+        return (self.values.nbytes + self.half_widths.nbytes
+                + self.group_present.nbytes
+                + sum(len(n) for n in self.names))
+
+    def scalar(self, name: str, group: int = 0) -> float:
+        return float(self.values[self.names.index(name), group])
+
+    def half_width(self, name: str, group: int = 0) -> float:
+        return float(self.half_widths[self.names.index(name), group])
+
+
+def advisory_estimate(q: Query, outcome: "PilotOutcome",
+                      confidence: float) -> Optional[PilotEstimate]:
+    """Construct the advisory estimate a pilot outcome already paid for.
+
+    Point estimates are the Hájek totals ``N·ȳ_p`` per simple channel,
+    combined into composites by the same rules as the final answer
+    (:func:`_combine`).  Half-widths are two-sided t-intervals on each
+    channel total, propagated to composites through the Table-2 relative-
+    error rules (:mod:`repro_torch.core.propagation`): division/avg
+    ``(e1+e2)/(1−max)``, product ``e1+e2+e1·e2``, addition ``max(e1,e2)``
+    — ``inf`` wherever a channel cannot be bounded (zero estimate, or a
+    propagated relative error ≥ 1).
+
+    Returns None when no advisory estimate exists: the pilot never ran,
+    sampled fewer than 2 blocks, or stage 1 already decided on the exact
+    fallback (the terminal frame will be exact — a provisional estimate
+    would only mislead).
+    """
+    pilot = outcome.pilot
+    if pilot is None or outcome.fallback is not None:
+        return None
+    bs = np.asarray(pilot.block_sums, dtype=np.float64)
+    n_p = bs.shape[0]
+    if n_p < 2:
+        return None
+    N = float(pilot.n_total_blocks)
+    # channel totals and t-interval half-widths: (channels, max_groups)
+    ch_vals = (N * bs.mean(axis=0)).T
+    delta = min(max((1.0 - confidence) / 2.0, 1e-12), 0.5)
+    t_q = student_t_ppf(1.0 - delta, n_p - 1)
+    ch_hw = (N * t_q / np.sqrt(n_p) * bs.std(axis=0, ddof=1)).T
+    values = _combine(q, outcome.comp_channels, ch_vals)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        rel = np.where(ch_vals != 0.0,
+                       np.abs(ch_hw / np.where(ch_vals == 0.0, 1.0, ch_vals)),
+                       np.inf)
+        half = np.full_like(values, np.inf)
+        for k, (comp, idxs) in enumerate(zip(q.aggs, outcome.comp_channels)):
+            if comp.num_channels == 1:
+                half[k] = np.abs(ch_hw[idxs[0]])
+                continue
+            e1, e2 = rel[idxs[0]], rel[idxs[1]]
+            if comp.kind in ("avg", "ratio"):
+                m = np.maximum(e1, e2)
+                e = np.where(m < 1.0, (e1 + e2) / np.maximum(1.0 - m, 1e-300),
+                             np.inf)
+            elif comp.kind == "product":
+                e = e1 + e2 + e1 * e2
+            else:  # "add"
+                e = np.maximum(e1, e2)
+            half[k] = e * np.abs(values[k])
+    return PilotEstimate(
+        names=tuple(c.name for c in q.aggs), values=values, half_widths=half,
+        group_present=np.asarray(pilot.group_present, dtype=bool),
+        confidence=float(confidence), theta_pilot=float(outcome.theta_p),
+        n_pilot_blocks=int(pilot.n_sampled_blocks))
 
 
 @dataclasses.dataclass

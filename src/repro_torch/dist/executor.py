@@ -53,6 +53,7 @@ from repro_torch.engine.staged import (DEFAULT_STAGED_RATES,
                                        build_sharded_ladder,
                                        prepare_dist_subdraw)
 from repro_torch.engine.table import BlockTable
+from repro_torch.obs import trace as _trace
 
 
 class DistExecutor(Executor):
@@ -153,6 +154,8 @@ class DistExecutor(Executor):
             info.size += shard_info.size
             info.staged_hits += shard_info.staged_hits
             info.staged_misses += shard_info.staged_misses
+            info.pilot_hits += shard_info.pilot_hits
+            info.pilot_misses += shard_info.pilot_misses
             info.batched_hits += shard_info.batched_hits
             info.batched_misses += shard_info.batched_misses
             info.fused_hits += shard_info.fused_hits
@@ -250,7 +253,8 @@ class DistExecutor(Executor):
     def _shard_plan(self, table: str, rate: float, seed: int,
                     sharded: ShardedTable, executors: List[Executor]):
         """The dist draw of ``table`` at ``rate``: ``(seed, global ids,
-        items)``, one item ``(shard index, start block, local ids, runtime,
+        staged, items)``: ``staged`` says whether staged rung parts serve
+        it, and one item ``(shard index, start block, local ids, runtime,
         compiler)`` per shard holding sampled blocks, in shard order.
 
         A table with a ladder draws under its pinned seed.  When the ladder
@@ -276,7 +280,7 @@ class DistExecutor(Executor):
                 self.staged.note_hit()
         if staged is not None:
             global_ids, splits = staged
-            return seed, global_ids, [
+            return seed, global_ids, True, [
                 (sd.part.shard_index, sd.part.start_block, sd.local_ids,
                  ScanRuntime("block", sd.n_real, sd.n_phys, sd.phys,
                              ids_dev=sd.phys_dev, nreal_dev=sd.nreal_dev),
@@ -290,17 +294,22 @@ class DistExecutor(Executor):
             items.append((s.index, s.start_block, local_ids,
                           ScanRuntime("block", n_real, n_phys, phys),
                           executors[s.index].physical))
-        return seed, global_ids, items
+        return seed, global_ids, False, items
 
     def _execute_dist(self, plan: L.Aggregate, table: str,
                       sample: L.SampleClause, sharded: ShardedTable,
                       executors: List[Executor]) -> QueryResult:
         t0 = time.perf_counter()
-        seed, global_ids, items = self._shard_plan(
-            table, sample.rate, sample.seed, sharded, executors)
-        if len(global_ids) == 0:
-            raise EmptySampleError(table, "block", sample.rate)
-        parts = self._dispatch(L.strip_samples(plan), table, sharded, items)
+        with _trace.span("shard_fanout", table=table,
+                         shards=sharded.num_shards) as sp:
+            seed, global_ids, staged, items = self._shard_plan(
+                table, sample.rate, sample.seed, sharded, executors)
+            sp.set(staged=staged)
+            if len(global_ids) == 0:
+                raise EmptySampleError(table, "block", sample.rate)
+            parts = self._dispatch(L.strip_samples(plan), table, sharded, items)
+            sp.set(shards_hit=len(parts),
+                   scanned_bytes=sum(p.scanned_bytes for p in parts))
         _, block_sums = merge.merge_block_stats(parts)
         sums, counts = merge.reduce_group_totals(block_sums)
 
@@ -365,11 +374,16 @@ class DistExecutor(Executor):
         replicated = sum(
             self.catalog[t].total_bytes()
             for t in {s.table for s in plan.scans()} if t != pilot_table)
-        _, global_ids, items = self._shard_plan(pilot_table, theta_p, seed,
-                                                sharded, executors)
-        parts = (self._dispatch(L.strip_samples(plan), pilot_table, sharded,
-                                items, pair_table)
-                 if len(global_ids) else [])
+        with _trace.span("shard_fanout", table=pilot_table, pilot=True,
+                         shards=sharded.num_shards) as sp:
+            _, global_ids, staged, items = self._shard_plan(
+                pilot_table, theta_p, seed, sharded, executors)
+            sp.set(staged=staged)
+            parts = (self._dispatch(L.strip_samples(plan), pilot_table, sharded,
+                                    items, pair_table)
+                     if len(global_ids) else [])
+            sp.set(shards_hit=len(parts),
+                   scanned_bytes=sum(p.scanned_bytes for p in parts))
         has_pair = bool(parts) and parts[0].pair_sums is not None
         return merge.merge_pilot_stats(
             table=pilot_table,

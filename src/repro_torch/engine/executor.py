@@ -54,6 +54,7 @@ from repro_torch.engine.sampling import (SampleInfo, block_sample, draw_block_id
 from repro_torch.engine.staged import (DEFAULT_STAGED_RATES, SampleCatalog,
                                        build_ladder, prepare_mono_subdraw)
 from repro_torch.engine.table import BlockTable
+from repro_torch.obs import trace as _trace
 
 
 class EmptySampleError(RuntimeError):
@@ -352,8 +353,15 @@ class Executor:
     # -- public API ----------------------------------------------------------
     def execute(self, plan: L.Aggregate) -> QueryResult:
         self._count("queries_run")
-        if not self.use_compiled:
-            return self._execute_eager(plan)
+        # the span ends after the query's host read, so its time is the
+        # device's too (no synchronization is added for it)
+        with _trace.span("scan") as sp:
+            res = (self._execute_compiled(plan) if self.use_compiled
+                   else self._execute_eager(plan))
+            sp.set(scanned_bytes=res.scanned_bytes)
+        return res
+
+    def _execute_compiled(self, plan: L.Aggregate) -> QueryResult:
         route = self._staged_route(plan)
         if route is not None:
             result = self._execute_staged(plan, *route)
@@ -403,6 +411,8 @@ class Executor:
         if sub is None:
             return None
         self.staged.note_hit()
+        _trace.annotate(staged=True, staged_table=table,
+                        staged_rate=sample.rate, staged_rung=rung.rate)
         if sub.n_real == 0:
             # a fresh draw under the pinned seed would be empty too
             raise EmptySampleError(table, "block", sample.rate)
@@ -575,10 +585,24 @@ class Executor:
         Not counted here: ``pilots_run`` counts pilot *stages* and is
         incremented by :meth:`repro_torch.core.taqa.PilotDB.run_pilot`.
         """
-        if not self.use_compiled:
-            return self._execute_pilot_eager(
-                plan, pilot_table, theta_p,
-                self.staged.seed_for(pilot_table, seed), pair_tables)
+        # One "scan" span per attempt: a stage's undershoot retries show as
+        # sibling spans under the handle's "pilot" span.
+        with _trace.span("scan", pilot=True, table=pilot_table,
+                         theta_pilot=theta_p) as sp:
+            if self.use_compiled:
+                stats = self._execute_pilot_compiled(
+                    plan, pilot_table, theta_p, seed, pair_tables)
+            else:
+                stats = self._execute_pilot_eager(
+                    plan, pilot_table, theta_p,
+                    self.staged.seed_for(pilot_table, seed), pair_tables)
+            sp.set(scanned_bytes=stats.scanned_bytes,
+                   n_blocks=stats.n_sampled_blocks)
+        return stats
+
+    def _execute_pilot_compiled(self, plan: L.Aggregate, pilot_table: str,
+                                theta_p: float, seed: int,
+                                pair_tables: Tuple[str, ...]) -> PilotStats:
         t0 = time.perf_counter()
         table = self.catalog[pilot_table]
         lad = self.staged.ladder(pilot_table)
@@ -590,6 +614,8 @@ class Executor:
                if rung is not None else None)
         if sub is not None:
             self.staged.note_hit()
+            _trace.annotate(staged=True, staged_table=pilot_table,
+                            staged_rate=theta_p, staged_rung=rung.rate)
             n_real = sub.n_real
         else:
             if lad is not None:
@@ -716,20 +742,23 @@ class Executor:
         """
         compiled = self.physical.compile_fused(plan, pilot_table, runtimes,
                                                tuple(solve_channels))
-        self._count("device_dispatches")
-        bs_d, present_d, theta_d, flags, nsel, padded_d, sums_d, counts_d = \
-            compiled.call_fused(runtimes, plan_constants(plan), solve, scal, u)
-        # the program's device→host boundary
-        theta, theta_eff = theta_d.tolist()
-        out = {
-            "block_sums": bs_d.double().cpu().numpy(),
-            "present": present_d.cpu().numpy().astype(bool),
-            "theta": theta,
-            "theta_eff": theta_eff,
-            "flags": flags,
-            "nsel": nsel,
-            "padded": padded_d[:nsel].cpu().numpy(),
-            "sums": None if sums_d is None else sums_d.double().cpu().numpy(),
-            "counts": None if counts_d is None else counts_d.double().cpu().numpy(),
-        }
+        with _trace.span("scan", fused=True, table=pilot_table) as sp:
+            self._count("device_dispatches")
+            bs_d, present_d, theta_d, flags, nsel, padded_d, sums_d, counts_d = \
+                compiled.call_fused(runtimes, plan_constants(plan), solve, scal, u)
+            # the program's device→host boundary
+            theta, theta_eff = theta_d.tolist()
+            out = {
+                "block_sums": bs_d.double().cpu().numpy(),
+                "present": present_d.cpu().numpy().astype(bool),
+                "theta": theta,
+                "theta_eff": theta_eff,
+                "flags": flags,
+                "nsel": nsel,
+                "padded": padded_d[:nsel].cpu().numpy(),
+                "sums": None if sums_d is None else sums_d.double().cpu().numpy(),
+                "counts": None if counts_d is None else counts_d.double().cpu().numpy(),
+            }
+            sp.set(n_blocks=runtimes[pilot_table].n_real,
+                   theta_final=theta, fused_flags=int(flags))
         return out, compiled

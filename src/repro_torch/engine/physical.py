@@ -74,6 +74,7 @@ from repro_torch.kernels.block_agg import block_agg, block_agg_batched
 from repro_torch.kernels.filtered_agg import filtered_agg, filtered_agg_batched
 from repro_torch.kernels.segment_sum import segment_sum
 from repro_torch.kernels.taqa_solve import taqa_draw_compact, taqa_solve_rate
+from repro_torch.obs import trace as _trace
 
 _BIG_BOUND = 3.0e38       # "unbounded" predicate slot, f32-safe
 _INT_MAX = 2 ** 31 - 1    # join key of an invalid right row
@@ -668,7 +669,10 @@ class CacheInfo:
     hits: int = 0
     misses: int = 0
     size: int = 0
-    # the share of hits / misses above that were drain-group batch callables
+    # the share of hits / misses above that were pilot lowerings
+    pilot_hits: int = 0
+    pilot_misses: int = 0
+    # ... drain-group batch callables
     batched_hits: int = 0
     batched_misses: int = 0
     # ... and single-launch fused TAQA programs
@@ -693,6 +697,8 @@ class PhysicalCompiler:
         self._lock = threading.Lock()
         self.hits = 0
         self.misses = 0
+        self.pilot_hits = 0
+        self.pilot_misses = 0
         self.batched_hits = 0
         self.batched_misses = 0
         self.fused_hits = 0
@@ -703,8 +709,12 @@ class PhysicalCompiler:
             size = sum(1 for v in self._cache.values()
                        if not isinstance(v, Future))
             return CacheInfo(self.hits, self.misses, size,
-                             self.batched_hits, self.batched_misses,
-                             self.fused_hits, self.fused_misses)
+                             pilot_hits=self.pilot_hits,
+                             pilot_misses=self.pilot_misses,
+                             batched_hits=self.batched_hits,
+                             batched_misses=self.batched_misses,
+                             fused_hits=self.fused_hits,
+                             fused_misses=self.fused_misses)
 
     def _geometry_sig(self, needed) -> tuple:
         """The geometry of every table the plan scans: the gather route's
@@ -719,19 +729,28 @@ class PhysicalCompiler:
         return tuple(out)
 
     def _lookup(self, key, build):
-        batched, fused = key[0] == "batched", key[0] == "fused"
+        pilot, batched, fused = (key[0] == "pilot", key[0] == "batched",
+                                 key[0] == "fused")
         with self._lock:
             entry = self._cache.get(key)
             if entry is None:  # this thread builds; others wait on the Future
                 self.misses += 1
+                self.pilot_misses += pilot
                 self.batched_misses += batched
                 self.fused_misses += fused
                 placeholder: Future = Future()
                 self._cache[key] = placeholder
             else:
                 self.hits += 1
+                self.pilot_hits += pilot
                 self.batched_hits += batched
                 self.fused_hits += fused
+        if _trace.active() is not None:  # tag the enclosing stage span
+            _trace.annotate_count(
+                "compile_misses" if entry is None else "compile_hits")
+            # a span attribute only: the key holds torch devices and dtypes,
+            # so the hash is not the reference's
+            _trace.annotate(compile_sig=_trace.sig_hash(key))
         if entry is None:
             try:
                 compiled = build()

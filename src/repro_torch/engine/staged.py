@@ -47,6 +47,7 @@ from repro_torch.engine.physical import PhysicalCompiler
 from repro_torch.engine.sampling import (bucket_blocks, draw_block_ids,
                                          restrict_block_ids, subdraw_positions)
 from repro_torch.engine.table import BlockTable
+from repro_torch.obs import trace as _trace
 
 DEFAULT_STAGED_RATES: Tuple[float, ...] = (0.01, 0.04, 0.16)
 
@@ -227,13 +228,16 @@ class SampleCatalog:
         return lad.seed if lad is not None else default
 
     # -- counters (the one staged hit / miss choke point, mono and dist) -------
+    # the trace tags ride along with the counters (no-ops untraced)
     def note_hit(self) -> None:
         with self._lock:
             self.hits += 1
+        _trace.annotate_count("staged_hits")
 
     def note_miss(self) -> None:
         with self._lock:
             self.misses += 1
+        _trace.annotate_count("staged_misses")
 
     # -- budget ---------------------------------------------------------------
     def _enforce_budget(self) -> None:  # caller holds the lock

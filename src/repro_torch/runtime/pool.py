@@ -10,17 +10,20 @@ same outcomes without a hand-off between threads.
 Every failure is captured on the affected handles (``shared_pilot`` per
 member, a last-resort net here for faults of the group machinery itself
 and for a failing batched launch) — nothing raises through ``run_groups``
-and no worker death loses a handle.
+and no worker death loses a handle.  The same capture path closes every
+*streaming* handle's frame stream with a terminal
+:class:`repro_torch.stream.ErrorFrame` (``QueryHandle._mark_failed`` emits
+it), so a blocked ``stream()`` iterator always terminates.
 
 Backpressure is the admission side's job: :class:`BackpressureError` is for
-callers that bound their queue; the pool itself never drops or blocks
-submissions.
+callers that bound ``in_flight`` plus their queue; the pool itself never
+drops or blocks submissions.
 """
 
 from __future__ import annotations
 
 import threading
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor, wait
 from typing import TYPE_CHECKING, List, Optional
 
 if TYPE_CHECKING:
@@ -59,6 +62,9 @@ class AsyncRuntime:
         self._pool: Optional[ThreadPoolExecutor] = None
         self._pilot_pool: Optional[ThreadPoolExecutor] = None
         self._lock = threading.Lock()
+        self._in_flight = 0          # handles dispatched, not yet finished
+        self._futures: List[Future] = []
+        self.total_groups = 0
         # pilot fan-out accounting (scheduler drains diff these): wall is
         # the concurrent span, serial the sum of the per-subgroup stage
         # durations it overlapped
@@ -69,6 +75,13 @@ class AsyncRuntime:
     @property
     def is_async(self) -> bool:
         return self.workers > 0
+
+    @property
+    def in_flight(self) -> int:
+        """Handles currently dispatched to workers and not yet finished —
+        the admission-control signal a serving front bounds against."""
+        with self._lock:
+            return self._in_flight
 
     def _ensure_pool(self) -> ThreadPoolExecutor:
         with self._lock:
@@ -107,21 +120,55 @@ class AsyncRuntime:
             return (self.pilot_fanouts, self.pilot_fanout_wall_s,
                     self.pilot_fanout_serial_s)
 
+    def totals(self) -> dict:
+        """One consistent snapshot of the runtime's cumulative counters —
+        the metrics registry's ``runtime`` collector reads this."""
+        with self._lock:
+            return {
+                "workers": self.workers,
+                "pilot_workers": self.pilot_workers,
+                "in_flight": self._in_flight,
+                "groups_total": self.total_groups,
+                "pilot_fanouts": self.pilot_fanouts,
+                "pilot_fanout_wall_s": self.pilot_fanout_wall_s,
+                "pilot_fanout_serial_s": self.pilot_fanout_serial_s,
+            }
+
     # -- execution -----------------------------------------------------------
     def run_groups(self, groups: List[List["QueryHandle"]],
                    block: bool = True) -> None:
         """Execute signature groups; with ``block=False`` they run in the
         background and callers observe completion via handle.poll()/wait()."""
         groups = [g for g in groups if g]
+        if not groups:
+            return
+        with self._lock:
+            self.total_groups += len(groups)
         if not self.is_async:
             for g in groups:
                 self._run_group_captured(g)
             return
         pool = self._ensure_pool()
-        futures = [pool.submit(self._run_group_captured, g) for g in groups]
+        futures = []
+        for g in groups:
+            with self._lock:
+                self._in_flight += len(g)
+            futures.append(pool.submit(self._worker, g))
+        with self._lock:
+            self._futures = [f for f in self._futures if not f.done()]
+            self._futures.extend(futures)
         if block:
             for f in futures:
                 f.result()  # re-raises only what the capture let through
+
+    def wait_idle(self, timeout: Optional[float] = None) -> bool:
+        """Block until every dispatched group finished; False on timeout."""
+        with self._lock:
+            outstanding = list(self._futures)
+        _, not_done = wait(outstanding, timeout=timeout)
+        with self._lock:
+            self._futures = [f for f in self._futures if not f.done()]
+        return not not_done
 
     def shutdown(self) -> None:
         with self._lock:
@@ -133,6 +180,13 @@ class AsyncRuntime:
             pilot_pool.shutdown(wait=True)
 
     # -- worker side ---------------------------------------------------------
+    def _worker(self, group: List["QueryHandle"]) -> None:
+        try:
+            self._run_group_captured(group)
+        finally:
+            with self._lock:
+                self._in_flight -= len(group)
+
     def _run_group_captured(self, group: List["QueryHandle"]) -> None:
         try:
             self._session._execute_group(group)

@@ -902,3 +902,50 @@ def test_fused_session_on_the_card_is_bitwise_two_stage(cuda):
         s.close()
     for a, b in zip(vals[False], vals[True]):
         np.testing.assert_array_equal(a, b)
+
+
+# -- streaming, tracing, audit and telemetry on the card ---------------------------
+
+def test_hooks_on_the_card_are_bitwise_the_hooks_off_session(cuda, tmp_path):
+    """Every hook on (streams, traces, the audit, telemetry, the flight
+    recorder) against every hook off, on the card: sql, a threaded drain
+    and the fused program answer bitwise alike; each final frame is the
+    answer; every audited answer keeps its promise; the replayed log
+    rebuilds the live time-series."""
+    from repro_torch.obs.events import rebuild_timeseries
+    cat = tpch_catalog(200_000, 32, seed=0)
+    q6 = ("SELECT SUM(l_extendedprice * l_discount) AS r FROM lineitem "
+          "WHERE l_shipdate BETWEEN 100 AND 1500 AND l_discount BETWEEN 0.02 AND 0.08")
+    sqls = [q6, "SELECT SUM(l_extendedprice) AS s, COUNT(*) AS n FROM lineitem",
+            "SELECT SUM(l_quantity) AS q, COUNT(*) AS n FROM lineitem "
+            "GROUP BY l_returnflag"]
+    sqls = [q + " ERROR 10% CONFIDENCE 95%" for q in sqls]
+    base = dict(result_cache_size=0, async_workers=2)
+    hooks = dict(tracing=True, audit=True, telemetry=True, trace_sample=1.0,
+                 flight_recorder=str(tmp_path / "ev.jsonl"))
+    out = {}
+    for tag, kw in (("off", base), ("on", {**base, **hooks})):
+        s = Session(cat, seed=7, config=SessionConfig(**kw))
+        solo = [s.sql(q, stream=tag == "on") for q in sqls]
+        herd = [s.submit(q, stream=tag == "on") for q in sqls]
+        s.drain()
+        kw_f = {**kw, "fused_taqa": True}
+        if tag == "on":
+            kw_f["flight_recorder"] = str(tmp_path / "ev_fused.jsonl")
+        f = Session(cat, seed=7, config=SessionConfig(**kw_f))
+        fused = f.sql(sqls[0], stream=tag == "on")
+        assert fused._fused
+        out[tag] = (solo + herd + [fused], s, f)
+        s.close()
+        f.close()
+    for a, b in zip(out["off"][0], out["on"][0]):
+        assert a.status == b.status == "done", (a.error, b.error)
+        np.testing.assert_array_equal(_bits64(a.answer.values), _bits64(b.answer.values))
+        assert b.frames()[-1].answer is b.answer and b._trace.open_spans() == []
+        assert b.audit_record is not None
+        assert b.audit_record.observed_error <= b.audit_record.promised_error
+    s = out["on"][1]
+    rebuilt = rebuild_timeseries(str(tmp_path / "ev.jsonl"))
+    for key in s.timeseries.keys():
+        a, b = s.timeseries.series(key), rebuilt.series(key)
+        assert (a.deliveries, a.shared, a.audited) == (b.deliveries, b.shared, b.audited)

@@ -71,11 +71,18 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     assert {"repro_torch.kernels.taqa_solve.ops", "repro_torch.kernels.taqa_solve.ref",
             "repro_torch.core.quickr", "repro_torch.core.equivalence",
             "repro_torch.engine.ops"} <= mods
+    # streaming and observability stand alone too
+    assert {"repro_torch.stream", "repro_torch.stream.buffer",
+            "repro_torch.stream.frames", "repro_torch.obs",
+            "repro_torch.obs.trace", "repro_torch.obs.metrics",
+            "repro_torch.obs.audit", "repro_torch.obs.timeseries",
+            "repro_torch.obs.slo", "repro_torch.obs.events"} <= mods
 
 
 def test_no_source_imports_jax_or_the_reference():
     scripts = [ROOT / "chip_smoke.py", ROOT / "examples" / "torch_approx_eval.py",
-               ROOT / "examples" / "torch_aqp_analytics.py"]
+               ROOT / "examples" / "torch_aqp_analytics.py",
+               ROOT / "examples" / "torch_quickstart.py"]
     files = sorted(PKG.rglob("*.py")) + scripts
     assert all(f.exists() for f in scripts)
     offenders = [str(f) for f in files if _FORBIDDEN.search(f.read_text())]
