@@ -192,6 +192,43 @@ Phases, each printing its own lines:
              TaqaReport's pilot / rate-solve / final times, the audit's
              exact-scan wall, the recorder's events and bytes, and the
              device idle share of one traced query.
+12. serve   — serving, both users' fronts.  (a) The SQL gateway (run right
+             after phase 11 on its SF10 lineitem): ``SqlGateway`` over a
+             session (seed 42, telemetry on); 4 clients post phase 6's herd
+             through submit and a fifth streams it through submit_streaming,
+             one run().  Counters zeroed just before and read just after:
+             all four column kernels must launch; every answer bitwise an
+             equal-seed Session.sql's with the result cache off; each
+             streamed ticket one pilot frame, then a final frame bitwise its
+             answer; 9 pilots.  Then warm rounds (every ticket a result-cache
+             hit, counted; no launch), one client's herd through the gateway
+             against the session's own drain of it (cache cleared, 5 each in
+             turns), the device idle share of one round, a gateway of
+             max_pending 4 refusing the fifth submission with
+             BackpressureError, stats_payload() and metrics_text() carrying
+             the gateway's counters, and write_dashboard's page under
+             build/serve/ (sparklines, one row per template).  Each column
+             kernel input of the cold round is replayed as in phases 4 and 6.
+             (b)-(d) LM serving (run before phase 7): hymba-1.5b at full
+             width in bf16 (phase 7's weights): prefill over 1,536 tokens
+             (past the 1,024 window: the ring rolls), 32 decode steps against
+             the forward over 1,568 tokens, in bf16 and on the same weights in
+             f32 (f32: mean |diff| / mean |logit| <= 1e-3, argmax all but one;
+             bf16: max |diff| <= 3x the bf16 forward's own distance from the
+             f32 forward, argmax agreement >= n (2a - 1) - 3); flash and GLA
+             launch 32 times each in the prefill; ServeEngine(batch_slots=8,
+             cache_len=2048) over 16 requests (prompts 8-128, 32-64 new
+             tokens), every request served, request 0 re-served alone in a
+             fresh 8-slot engine gives the same tokens; tokens/s, the median
+             decode step beside its bytes bound, one step's idle share.
+             granite-moe-1b-a400m at full width in bf16: a forward over 2,048
+             tokens through moe_ffn (capacity 640; the aux loss), prefill
+             1,024 and 16 decode steps against the forward at a dropless
+             capacity, checked as above; ServeEngine(batch_slots=4) over 8
+             requests.  Small f32 hymba and granite-moe at head_dim 64 on the
+             card against the CPU port: prefill 24 and 16 decode steps,
+             logits within 1e-4.  Each flash and GLA input of the bf16
+             prefills is replayed like phase 3b.
 3b. model kernels — flash_attention and gla_chunked (run right after phase
              3) at fixed scaling points in bf16: flash at hymba's width (2 x 25
              q heads over 5 kv heads, 2048 tokens, d 64) causal without a
@@ -306,6 +343,24 @@ EVAL_BSZ, EVAL_SEQ = 2, 2048     # at 2048 tokens the 1024 window binds
 EVAL_SEED = 0                    # the random weights
 EVAL_EVAL_SEED = 3               # the evaluator's host draws
 EVAL_ERROR, EVAL_CONFIDENCE, EVAL_PILOT_BLOCKS = 0.05, 0.9, 16
+# phase 12: serving.  (a) the gateway: 4 clients post phase 6's herd and a
+# fifth streams it; the backpressure check's max_pending; rounds of one
+# client's herd against the session's drain of it, in turns
+GATEWAY_CLIENTS, GATEWAY_PENDING, GATEWAY_RUNS = 4, 4, 5
+# (b) hymba-1.5b: a prompt longer than the 1024 window, so the prefill rolls
+# the ring; 16 requests of 8-128 prompt and 32-64 new tokens on 8 slots
+SERVE_ARCH, SERVE_PREFILL, SERVE_DECODE = "hymba-1.5b", 1536, 32
+SERVE_SLOTS, SERVE_CACHE_LEN, SERVE_REQUESTS = 8, 2048, 16
+SERVE_PROMPT, SERVE_NEW = (8, 128), (32, 64)
+# (c) granite-moe-1b-a400m: moe_ffn over 2048 tokens (capacity 640), a
+# prefill of 1024 and 16 decode steps, 8 requests on 4 slots
+SERVE_MOE_ARCH, MOE_FORWARD, MOE_PREFILL, MOE_DECODE = "granite-moe-1b-a400m", 2048, 1024, 16
+MOE_SLOTS, MOE_REQUESTS, MOE_CACHE_LEN = 4, 8, 256
+# (d) small f32 configs at the widths the kernels take, card against CPU:
+# f32 on both sides, sums in other orders (phase 7's small forward: 1.4e-5)
+SERVE_SMALL = {"hymba-1.5b": dict(head_dim=64, ssm_state=16, sliding_window=16),
+               "granite-moe-1b-a400m": dict(head_dim=64)}
+SMALL_TOL = 1e-4
 
 
 def check(cond, msg):
@@ -1932,6 +1987,472 @@ def run_obs(torch, np, li, Session, SessionConfig, kernels, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 12 helpers: serving — the SQL gateway, and LM serving
+# ---------------------------------------------------------------------------
+
+def gateway_round(torch, gw, clients, streaming):
+    """One gateway round: ``streaming`` (a client name or None) posts the
+    herd through submit_streaming first, then every client in ``clients``
+    posts it through submit; one run().  Returns (ticket -> sql, streaming
+    tickets, results, wall s from the first submission, start time)."""
+    t0 = time.perf_counter()
+    tickets, streamed = {}, []
+    if streaming:
+        for sql in HERD:
+            t = gw.submit_streaming(streaming, sql)
+            tickets[t] = sql
+            streamed.append(t)
+    for c in clients:
+        for sql in HERD:
+            tickets[gw.submit(c, sql)] = sql
+    results = gw.run()
+    torch.cuda.synchronize()
+    return tickets, streamed, results, time.perf_counter() - t0, t0
+
+
+def check_round(np, tickets, results, want, what):
+    check(set(results) == set(tickets),
+          f"{what}: {len(results)} of {len(tickets)} tickets delivered")
+    for t, sql in tickets.items():
+        h = results[t]
+        check(h.status == "done", f"{what}: {h.error}\n{sql}")
+        check(same_bits(np, h.answer.values, want[sql]),
+              f"{what}: {h.answer.values} is not bitwise Session.sql's "
+              f"{want[sql]}\n{sql}")
+
+
+def run_gateway(torch, np, li, Session, SessionConfig, kernels, recorder, smi):
+    """Phase 12 (a) on SF10 lineitem: ``SqlGateway`` over a session (seed
+    42, telemetry on), four clients posting phase 6's herd and a fifth
+    streaming it; every answer bitwise an equal-seed ``Session.sql``'s with
+    the result cache off; the streams, the result cache, backpressure, the
+    payload and the dashboard checked."""
+    from repro_torch.api import BackpressureError
+    from repro_torch.serve import SqlGateway, write_dashboard
+    t_phase = time.perf_counter()
+    for fn in kernels:
+        recorder.calls[fn.__name__].clear()
+    ref = Session(seed=42, config=SessionConfig(result_cache_size=0))
+    ref.register_table("lineitem", li)
+    want = {}
+    for sql in HERD:
+        h = ref.sql(sql)
+        check(h.status == "done", f"gateway reference: {h.error}\n{sql}")
+        want[sql] = h.answer.values
+    ref.close()
+
+    session = Session(seed=42, config=SessionConfig(telemetry=True))
+    session.register_table("lineitem", li)
+    gw = SqlGateway(session)
+    clients = [f"client{i}" for i in range(GATEWAY_CLIENTS)]
+
+    # the cold round, counters zeroed just before and read just after
+    zero_counters(kernels)
+    recorder.active = {fn.__name__ for fn in kernels}
+    tickets, streamed, results, cold_s, t0 = gateway_round(torch, gw, clients, "stream")
+    recorder.active = set()
+    launches = read_counters(kernels)
+    drain = gw.scheduler.last_drain
+    check_round(np, tickets, results, want, "gateway cold round")
+    for name, n in launches.items():
+        check(n > 0, f"the gateway round never launched {name}")
+    frames = gw.frames_for("stream")
+    by_ticket = {}
+    for f in frames:
+        by_ticket.setdefault(f.query_id, []).append(f)
+    kinds = set()
+    for t in streamed:
+        fs = by_ticket.get(t, [])
+        k = tuple(f.kind for f in fs)
+        kinds.add(k)
+        check(len(fs) == 2 and k[0] == "pilot" and fs[1].terminal,
+              f"gateway stream {tickets[t]}: frames {k}")
+        check(fs[1].answer is results[t].answer
+              and same_bits(np, fs[1].answer.values, results[t].answer.values),
+              f"gateway stream {tickets[t]}: the final frame is not the answer")
+        check(fs[0].t_emit <= fs[1].t_emit, "a pilot frame after its final")
+    first_pilot_ms = (min(f.t_emit for f in frames if f.kind == "pilot") - t0) * 1e3
+    cold = gw.stats.as_dict()
+    print(f"[gateway] cold round: {len(tickets)} tickets ({GATEWAY_CLIENTS} clients x "
+          f"{len(HERD)} + {len(streamed)} streamed) in {cold_s * 1e3:.2f} ms; pilots "
+          f"{cold['pilots_run']}, result hits {cold['result_hits']}, drains "
+          f"{cold['drains']}; first pilot frame {first_pilot_ms:.2f} ms after the first "
+          f"submission (drain: first frame {drain.time_to_first_frame_s * 1e3:.2f} ms, "
+          f"last final {drain.time_to_final_s * 1e3:.2f} ms); stream frames "
+          f"{sorted(kinds)}; launches {launches}  [{smi}]")
+    check(cold["pilots_run"] == HERD_PILOTS,
+          f"gateway cold round: {cold['pilots_run']} pilots, expected {HERD_PILOTS}")
+
+    # warm rounds: every ticket from the result cache, no launch
+    warm_walls = []
+    for _ in range(3):
+        hits = gw.stats.result_hits
+        zero_counters(kernels)
+        tickets, _, results, wall, _ = gateway_round(torch, gw, clients, "stream")
+        warm_walls.append(wall * 1e3)
+        check_round(np, tickets, results, want, "gateway warm round")
+        check(all(h.cached for h in results.values()), "gateway warm round: a ticket ran")
+        check(gw.stats.result_hits - hits == len(tickets),
+              f"gateway warm round: {gw.stats.result_hits - hits} result hits")
+        check(not any(read_counters(kernels).values()),
+              f"gateway warm round launched {read_counters(kernels)}")
+        gw.frames_for("stream")
+    warm_ms = statistics.median(warm_walls)
+    print(f"[gateway] warm rounds (result cache): {len(tickets)} tickets each, all "
+          f"cached, {gw.stats.result_hits} result hits so far, no launch; wall median "
+          f"{warm_ms:.2f} ms of {[round(w, 2) for w in warm_walls]}  [{smi}]")
+
+    # one client's herd through the gateway against the session's own drain
+    # of it, the result cache cleared before each, in turns
+    one = SqlGateway(session)
+    walls = {"gateway": [], "drain": []}
+    for i in range(GATEWAY_RUNS):
+        for mode in (("gateway", "drain") if i % 2 == 0 else ("drain", "gateway")):
+            session.result_cache.clear()
+            if mode == "gateway":
+                _, _, results, wall, _ = gateway_round(torch, one, ["solo"], None)
+                answers = {h.sql: h.answer.values for h in results.values()}
+            else:
+                t0 = time.perf_counter()
+                hs = [session.submit(sql) for sql in HERD]
+                session.drain()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                answers = {h.sql: h.answer.values for h in hs}
+            walls[mode].append(wall * 1e3)
+            check(all(same_bits(np, answers[sql], want[sql]) for sql in HERD),
+                  f"gateway vs drain ({mode}): an answer is not bitwise Session.sql's")
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    paired = statistics.median(a - b for a, b in zip(walls["gateway"], walls["drain"]))
+    print(f"[gateway] one client's {len(HERD)}-query herd, result cache cleared, "
+          f"{GATEWAY_RUNS} each in turns: gateway round median {med['gateway']:.2f} ms "
+          f"{[round(w, 2) for w in walls['gateway']]}; session drain median "
+          f"{med['drain']:.2f} ms {[round(w, 2) for w in walls['drain']]}; paired "
+          f"difference median {paired:+.2f} ms  [{smi}]")
+
+    # the device idle share of one full round, the result cache cleared
+    session.result_cache.clear()
+    busy, pwall = device_busy_ms(torch, lambda: gateway_round(torch, gw, clients, "stream"))
+    gw.frames_for("stream")
+    share = "not measured" if busy is None else f"{1 - busy / pwall:.1%}"
+    print(f"[gateway] one round (result cache cleared) under torch.profiler: device "
+          f"kernels {busy if busy is None else round(busy, 4)} ms of {pwall:.2f} ms wall; "
+          f"device idle share {share}  [{smi}]")
+
+    # backpressure: the fifth submission to a gateway of max_pending 4
+    small = SqlGateway(session, max_pending=GATEWAY_PENDING)
+    for sql in HERD[:GATEWAY_PENDING]:
+        small.submit("c", sql)
+    try:
+        small.submit("c", HERD[GATEWAY_PENDING])
+        refused = False
+    except BackpressureError:
+        refused = True
+    check(refused and small.stats.throttled == 1 and small.stats.requests == GATEWAY_PENDING,
+          f"max_pending={GATEWAY_PENDING}: the fifth submission was not refused")
+    check(len(small.run()) == GATEWAY_PENDING, "the admitted four did not drain")
+
+    # the payload, the Prometheus text and the dashboard
+    payload, text = gw.stats_payload(), gw.metrics_text()
+    json.dumps(payload)
+    g = payload["gateway"]
+    for key in ("requests", "served", "drains", "pilots_run", "result_hits", "streams",
+                "frames_pushed"):
+        check(g[key] == getattr(gw.stats, key) > 0, f"payload gateway.{key}: {g[key]}")
+        check(f"{gw._collector_name}_{key} {getattr(gw.stats, key)}\n" in text,
+              f"metrics_text lacks {gw._collector_name}_{key}")
+    check(payload["result_cache"]["hits"] >= gw.stats.result_hits,
+          f"payload result_cache {payload['result_cache']}")
+    path = os.path.join(ROOT, "build", "serve", "dashboard.html")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    check(write_dashboard(path, session) == path, "write_dashboard failed")
+    with open(path, encoding="utf-8") as fh:
+        doc = fh.read()
+    templates = session.timeseries.snapshot()["templates"]
+    table = doc.split("<h2>Per-template time-series</h2>")[1].split("<h2>")[0]
+    rows = table.count("<tr><td class='k'>")
+    check("<svg" in doc and rows == len(templates) >= 1,
+          f"dashboard: {rows} template rows for {len(templates)} templates")
+    print(f"[gateway] stats_payload: gateway {g}; metrics_text {len(text.splitlines())} "
+          f"lines; dashboard {path} ({len(doc):,} B, {rows} template rows, sparklines); "
+          f"max_pending={GATEWAY_PENDING} refused the fifth submission  [{smi}]")
+    session.close()
+    calls = {}
+    for fn in kernels:
+        calls[fn.__name__] = dict(recorder.calls[fn.__name__])
+        recorder.calls[fn.__name__].clear()
+    summary = {"tickets": len(tickets), "cold_ms": cold_s * 1e3, "warm_ms": warm_ms,
+               "warm_walls_ms": warm_walls, "first_pilot_frame_ms": first_pilot_ms,
+               "drain_ttff_ms": drain.time_to_first_frame_s * 1e3,
+               "drain_ttf_ms": drain.time_to_final_s * 1e3,
+               "one_client_gateway_ms": med["gateway"], "one_client_drain_ms": med["drain"],
+               "one_client_paired_ms": paired, "one_client_walls_ms": walls,
+               "device_busy_ms": busy, "profiled_wall_ms": pwall, "launches": launches,
+               "gateway": g, "calls": calls, "phase_s": time.perf_counter() - t_phase}
+    print(f"[gateway] phase 12 (a) in {summary['phase_s']:.1f} s  [{smi}]")
+    return summary
+
+
+def logit_gap(torch, got, want, vocab):
+    """Gaps between two (positions, Vp) logit stacks: max |diff|, mean |diff|
+    over mean |logit|, and argmax agreement over the real vocab."""
+    d = (got - want).abs()
+    return {"max_abs": float(d.max()), "mean_rel": float(d.mean() / want.abs().mean()),
+            "argmax_agree": int((got[:, :vocab].argmax(-1) == want[:, :vocab].argmax(-1)).sum()),
+            "positions": int(got.shape[0])}
+
+
+def teacher_forcing(torch, model, tokens, n_prompt, cache_len, kernels, recorder=None):
+    """The forward's logits over ``tokens`` (1, N) at positions n_prompt - 1
+    .. N - 1, and prefill(tokens[:, :n_prompt]) then N - n_prompt decode
+    steps at the same positions; the kernels' launches counted (and, with a
+    ``recorder``, their inputs recorded) over the prefill alone.  Returns
+    (decode logits, forward logits, launches)."""
+    with torch.inference_mode():
+        full, _ = model({"tokens": tokens})
+        want = full[0, n_prompt - 1:].float()
+        del full
+        zero_counters(kernels)
+        if recorder is not None:
+            recorder.active = {fn.__name__ for fn in kernels}
+        lg, cache = model.prefill({"tokens": tokens[:, :n_prompt]}, cache_len=cache_len)
+        torch.cuda.synchronize()
+        if recorder is not None:
+            recorder.active = set()
+        launches = read_counters(kernels)
+        got = [lg[0].float()]
+        for t in range(n_prompt, tokens.shape[1]):
+            lg, cache = model.decode_step(cache, tokens[:, t])
+            got.append(lg[0].float())
+    return torch.stack(got), want, launches
+
+
+def check_teacher_forcing(torch, np, model, tokens, n_prompt, cache_len, kernels, recorder,
+                          what, smi):
+    """Decode against the forward in the model's bf16 and, on the same
+    weights, in f32.  f32: mean |diff| / mean |logit| <= 1e-3 and every
+    argmax but one equal (only summation orders differ).  bf16: each side
+    rounds differently, so the bound is the bf16 forward's own distance
+    from the f32 forward at the same positions: max |diff| at most 3x it,
+    and the argmax agreement at least n (2a - 1) - 3, a the fraction of
+    positions where the bf16 and f32 forwards agree."""
+    from repro_torch.models import Model
+    vocab = model.cfg.vocab_size
+    got, want, launches = teacher_forcing(torch, model, tokens, n_prompt, cache_len, kernels,
+                                          recorder)
+    m32 = Model(dataclasses.replace(model.cfg, dtype="float32"))
+    m32.load_state_dict(model.state_dict())
+    got32, want32, _ = teacher_forcing(torch, m32, tokens, n_prompt, cache_len, kernels)
+    del m32
+    torch.cuda.empty_cache()
+    bf16 = logit_gap(torch, got, want, vocab)
+    f32 = logit_gap(torch, got32, want32, vocab)
+    noise = logit_gap(torch, want, want32, vocab)
+    n = bf16["positions"]
+    a = noise["argmax_agree"] / n
+    print(f"[serve] {what}: decode vs forward at {n} positions: bf16 max |diff| "
+          f"{bf16['max_abs']:.4g} (mean rel {bf16['mean_rel']:.3g}), argmax "
+          f"{bf16['argmax_agree']}/{n}; f32 max |diff| {f32['max_abs']:.4g} (mean rel "
+          f"{f32['mean_rel']:.3g}), argmax {f32['argmax_agree']}/{n}; the bf16 forward vs "
+          f"the f32 forward: max |diff| {noise['max_abs']:.4g} (mean rel "
+          f"{noise['mean_rel']:.3g}), argmax {noise['argmax_agree']}/{n}  [{smi}]")
+    check(f32["mean_rel"] <= 1e-3 and f32["argmax_agree"] >= n - 1,
+          f"{what}: f32 decode disagrees with the f32 forward: {f32}")
+    check(bf16["max_abs"] <= 3 * noise["max_abs"],
+          f"{what}: bf16 decode max |diff| {bf16['max_abs']} above 3x the bf16 "
+          f"forward's own {noise['max_abs']}")
+    check(bf16["argmax_agree"] >= n * (2 * a - 1) - 3,
+          f"{what}: bf16 argmax agreement {bf16['argmax_agree']}/{n} (bf16 vs f32 "
+          f"forward {noise['argmax_agree']}/{n})")
+    return {"bf16": bf16, "f32": f32, "bf16_forward_vs_f32": noise,
+            "prefill_launches": launches}
+
+
+def serve_requests(np, vocab, n, prompt, new, seed):
+    """``n`` (prompt, max_new_tokens) pairs from ``seed``: prompt lengths in
+    ``prompt`` and budgets in ``new``, both inclusive ranges."""
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, vocab, int(rng.integers(prompt[0], prompt[1] + 1))).tolist(),
+             int(rng.integers(new[0], new[1] + 1))) for _ in range(n)]
+
+
+def run_engine(torch, np, model, slots, cache_len, requests, what, smi):
+    """``ServeEngine`` over ``requests`` on ``model``: every request served
+    with its count of tokens in [0, vocab), the cache in place; each decode
+    step timed (host clock to a synchronize) beside the step's bytes bound
+    (weights and cache read once at 3.35 TB/s); one step under the
+    profiler.  Returns (engine, outputs, summary)."""
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(model, batch_slots=slots, cache_len=cache_len)
+    step, step_ms = model.decode_step, []
+
+    def timed_step(cache, token):
+        t0 = time.perf_counter()
+        out = step(cache, token)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    layout = {k: (v.data_ptr(), tuple(v.shape)) for k, v in eng.cache.items()}
+    for prompt, budget in requests:
+        eng.submit(prompt, budget)
+    model.decode_step = timed_step
+    try:
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            out = eng.run()
+            wall = time.perf_counter() - t0
+    finally:
+        del model.decode_step
+    vocab = model.cfg.vocab_size
+    check(sorted(out) == list(range(len(requests))), f"{what}: served {sorted(out)}")
+    for i, (_, budget) in enumerate(requests):
+        check(len(out[i]) == budget and all(0 <= t < vocab for t in out[i]),
+              f"{what}: request {i} gave {len(out[i])} of {budget} tokens")
+    check({k: (v.data_ptr(), tuple(v.shape)) for k, v in eng.cache.items()} == layout,
+          f"{what}: the cache moved")
+    tokens = sum(len(v) for v in out.values())
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    cache_bytes = {k: v.numel() * v.element_size() for k, v in eng.cache.items()}
+    bound_ms = (weights + sum(cache_bytes.values())) / HBM_BYTES_PER_S * 1e3
+    med = statistics.median(step_ms)
+    tok = torch.zeros(slots, dtype=torch.int64, device="cuda")
+    with torch.inference_mode():
+        busy, pwall, top = device_profile(torch, lambda: model.decode_step(eng.cache, tok), top=6)
+    share = "not measured" if busy is None else f"{1 - busy / pwall:.1%}"
+    print(f"[serve] {what}: ServeEngine(batch_slots={slots}, cache_len={cache_len}) "
+          f"served {len(out)} requests, {tokens} tokens in {wall:.2f} s = "
+          f"{tokens / wall:,.1f} tokens/s over {eng.steps} engine steps; decode step "
+          f"median {med:.2f} ms (p10 {np.percentile(step_ms, 10):.2f}, p90 "
+          f"{np.percentile(step_ms, 90):.2f}) against a bound of {bound_ms:.3f} ms "
+          f"(weights {weights / 1e9:.3f} GB + cache {sum(cache_bytes.values()) / 1e6:.1f} MB "
+          f"{ {k: round(v / 1e6, 1) for k, v in cache_bytes.items()} } at 3.35 TB/s); one "
+          f"step under torch.profiler: device {busy if busy is None else round(busy, 3)} ms "
+          f"of {pwall:.2f} ms wall, device idle share {share}  [{smi}]")
+    for kname, kms, count in top:
+        print(f"[serve]   device {kms:8.3f} ms  x{count:<4d} {kname[:110]}")
+    return eng, out, {"requests": len(out), "tokens": tokens, "wall_s": wall,
+                      "tokens_per_s": tokens / wall, "steps": eng.steps,
+                      "step_ms_median": med, "step_ms_p10": float(np.percentile(step_ms, 10)),
+                      "step_ms_p90": float(np.percentile(step_ms, 90)),
+                      "bound_ms": bound_ms, "weights_bytes": weights,
+                      "cache_bytes": cache_bytes, "device_busy_ms": busy,
+                      "profiled_wall_ms": pwall, "device_top": top}
+
+
+def run_lm_serving(torch, np, smi, recorder, model_wrappers):
+    """Phase 12 (b)-(d): hymba-1.5b and granite-moe-1b-a400m at full width in
+    bf16 — prefill and decode against teacher forcing, ServeEngine — and
+    small f32 configs on the card against the CPU port."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serve import ServeEngine
+    t_phase = time.perf_counter()
+    summary = {}
+
+    # (b) hymba-1.5b: the ring rolls in the prefill; the SSM state seeds decode
+    cfg = get_config(SERVE_ARCH)
+    model = Model(cfg).init(torch.Generator(device="cuda").manual_seed(EVAL_SEED))
+    rng = np.random.default_rng(21)
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (1, SERVE_PREFILL + SERVE_DECODE))).cuda()
+    tf = check_teacher_forcing(torch, np, model, tokens, SERVE_PREFILL, SERVE_CACHE_LEN,
+                               model_wrappers, recorder, f"{cfg.name} prefill "
+                               f"{SERVE_PREFILL} + {SERVE_DECODE} decode steps", smi)
+    launches = tf["prefill_launches"]
+    check(all(n == cfg.num_layers for n in launches.values()),
+          f"{cfg.name} prefill launches {launches}, expected {cfg.num_layers} each")
+    requests = serve_requests(np, cfg.vocab_size, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, 22)
+    eng, out, engine = run_engine(torch, np, model, SERVE_SLOTS, SERVE_CACHE_LEN,
+                                  requests, cfg.name, smi)
+    again = ServeEngine(model, batch_slots=SERVE_SLOTS, cache_len=SERVE_CACHE_LEN)
+    again.submit(*requests[0])
+    with torch.inference_mode():
+        check(again.run()[0] == out[0],
+              f"{cfg.name}: request 0 re-served in a fresh engine gave other tokens")
+    print(f"[serve] {cfg.name}: prefill launches {launches}; request 0 re-served alone "
+          f"in a fresh {SERVE_SLOTS}-slot engine: the same {len(out[0])} tokens  [{smi}]")
+    summary[cfg.name] = {"teacher_forcing": tf, "engine": engine}
+    del model, eng, again
+    torch.cuda.empty_cache()
+
+    # (c) granite-moe-1b-a400m: the forward through moe_ffn, then serving
+    cfg = get_config(SERVE_MOE_ARCH)
+    model = Model(cfg).init(torch.Generator(device="cuda").manual_seed(EVAL_SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, MOE_FORWARD))).cuda()
+    capacity = max(int(MOE_FORWARD * cfg.top_k * cfg.capacity_factor / cfg.num_experts),
+                   cfg.top_k)
+    zero_counters(model_wrappers)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        logits, aux = model({"tokens": tokens})
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+    fwd_launches = read_counters(model_wrappers)
+    check(bool(torch.isfinite(logits).all()) and np.isfinite(float(aux)) and float(aux) > 0,
+          f"{cfg.name}: forward logits or aux loss not finite ({float(aux)})")
+    print(f"[serve] {cfg.name} at full width ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_experts} experts top-{cfg.top_k}, d_ff {cfg.d_ff}), "
+          f"{cfg.dtype}: {n_params:,} parameters, {n_params * 2 / 1e9:.3f} GB; forward over "
+          f"1 x {MOE_FORWARD} tokens through moe_ffn (capacity {capacity}) {fwd_ms:.1f} ms, "
+          f"aux loss {float(aux):.6f}, launches {fwd_launches}  [{smi}]")
+    del logits
+    # teacher forcing at a dropless capacity (E / K): the forward's dispatch
+    # then routes every pair, as the decode's dense route does (the
+    # reference's teacher-forcing test raises capacity_factor for the same
+    # reason)
+    model.cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.top_k)
+    tokens = tokens[:, :MOE_PREFILL + MOE_DECODE]
+    tf = check_teacher_forcing(torch, np, model, tokens, MOE_PREFILL,
+                               MOE_PREFILL + MOE_DECODE, model_wrappers, recorder,
+                               f"{cfg.name} prefill {MOE_PREFILL} + {MOE_DECODE} "
+                               "decode steps", smi)
+    check(tf["prefill_launches"]["flash_attention"] == cfg.num_layers,
+          f"{cfg.name} prefill launches {tf['prefill_launches']}")
+    model.cfg = cfg
+    requests = serve_requests(np, cfg.vocab_size, MOE_REQUESTS, SERVE_PROMPT, SERVE_NEW, 23)
+    _, _, engine = run_engine(torch, np, model, MOE_SLOTS, MOE_CACHE_LEN, requests,
+                              cfg.name, smi)
+    summary[cfg.name] = {"teacher_forcing": tf, "engine": engine, "forward_ms": fwd_ms,
+                         "aux_loss": float(aux), "capacity": capacity,
+                         "forward_launches": fwd_launches}
+    del model
+    torch.cuda.empty_cache()
+
+    # (d) small f32 configs whose widths the kernels take: the card against
+    # the CPU port, prefill and 16 decode steps
+    small_err = {}
+    for arch, kw in SERVE_SMALL.items():
+        small = get_config(arch).reduced(**kw)
+        cpu = Model(small, device="cpu").init(torch.Generator().manual_seed(5))
+        gpu = Model(small)
+        gpu.load_state_dict(cpu.state_dict())
+        toks = torch.from_numpy(np.random.default_rng(6).integers(0, small.vocab_size, (2, 40)))
+        errs = []
+        with torch.inference_mode():
+            lc, cc = cpu.prefill({"tokens": toks[:, :24]}, cache_len=48)
+            lg, cg = gpu.prefill({"tokens": toks[:, :24].cuda()}, cache_len=48)
+            errs.append(float((lg.cpu() - lc).abs().max()))
+            for t in range(24, 40):
+                lc, cc = cpu.decode_step(cc, toks[:, t])
+                lg, cg = gpu.decode_step(cg, toks[:, t].cuda())
+                errs.append(float((lg.cpu() - lc).abs().max()))
+        small_err[arch] = max(errs)
+        check(small_err[arch] <= SMALL_TOL,
+              f"small f32 {arch}: card vs CPU logits max |diff| {small_err[arch]}")
+        print(f"[serve] small f32 {arch} ({small.num_layers} layers, d_model "
+              f"{small.d_model}, head_dim {small.head_dim}"
+              f"{', window %d' % small.sliding_window if small.sliding_window else ''}): "
+              f"prefill 24 + 16 decode steps, card vs the CPU port, max |diff| "
+              f"{small_err[arch]:.3g} (tolerance {SMALL_TOL:g})  [{smi}]")
+    summary["small_max_abs_err"] = small_err
+    summary["phase_s"] = time.perf_counter() - t_phase
+    print(f"[serve] phase 12 (b)-(d) in {summary['phase_s']:.1f} s  [{smi}]")
+    return summary
+
+
+# ---------------------------------------------------------------------------
 # phase 3b / 7 helpers: the model kernels and the eval slice
 # ---------------------------------------------------------------------------
 
@@ -2688,6 +3209,24 @@ def main() -> int:
     obs = run_obs(torch, np, li, Session, SessionConfig,
                   (*wrappers, segment_sum, *taqa_wrappers), smi)
     torch.cuda.synchronize()
+
+    # -- 12 (a). the SQL gateway over phase 6's herd on the same lineitem -------
+    gateway = run_gateway(torch, np, li, Session, SessionConfig, wrappers, recorder, smi)
+    # every column-kernel input of the gateway's cold round (first call per
+    # shape): against its plain version (batched: each lane bitwise a solo
+    # launch), then timed, as phases 4 and 6 do
+    solo_of = {"filtered_agg_batched": filtered_agg, "block_agg_batched": block_agg}
+    refs = {"filtered_agg": filtered_agg_ref, "block_agg": block_agg_ref,
+            "filtered_agg_batched": filtered_agg_batched_ref,
+            "block_agg_batched": block_agg_batched_ref}
+    gateway_calls = gateway.pop("calls")
+    gateway["kernels"] = {
+        fn.__name__: [time_kernel(torch, np, fn.__name__, fn, refs[fn.__name__],
+                                  solo_of.get(fn.__name__), args, smi, floor)
+                      for args, _ in gateway_calls[fn.__name__].values()]
+        for fn in wrappers}
+    del gateway_calls
+    torch.cuda.synchronize()
     del session, catalog, cols, li, ids, lanes, q6_cols
     torch.cuda.empty_cache()
 
@@ -2720,6 +3259,20 @@ def main() -> int:
     print(f"[devices] 200k rows: CUDA and CPU sessions agree (pilot draws and final "
           f"ids equal; rates within 1e-6; answers within 1e-5): "
           f"{[h.answer.values.ravel().tolist() for h in gh]}")
+
+    # -- 12 (b)-(d). LM serving: prefill, decode_step and ServeEngine ----------
+    serving = run_lm_serving(torch, np, smi, recorder, model_wrappers)
+    # the model kernels at the serving prefills' own inputs (first call per
+    # q shape), held and timed like phase 7's; then the recorder starts afresh
+    serving["kernels"] = {}
+    for kname, (fn, ref) in model_kernels.items():
+        calls = recorder.calls[kname]
+        check(bool(calls), f"{kname}: no call of the serving prefills was recorded")
+        serving["kernels"][kname] = [time_model_kernel(torch, np, kname, fn, ref, args, kw, smi)
+                                     for args, kw in calls.values()]
+        calls.clear()
+        recorder.shapes[kname].clear()
+    torch.cuda.empty_cache()
 
     # -- 7. the eval path: hymba-1.5b through GuaranteedEvaluator ---------------
     evaluation = run_eval(torch, np, smi, recorder, model_wrappers)
@@ -2759,7 +3312,8 @@ def main() -> int:
             "launches_by_path": {"sql": launches[k], "drain": drain["launches"][k],
                                  **({"staged_shards": staged_launches[k]}
                                     if k in staged_launches else {}),
-                                 "obs": obs["launches"][k]},
+                                 "obs": obs["launches"][k],
+                                 "serve_gateway": gateway["launches"][k]},
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "library_ms": None, "floor_ms": t["floor_ms"],
@@ -2768,6 +3322,7 @@ def main() -> int:
             "main_path": timed[k]["main_path"],
             "scaling_points": timed[k]["scaling_points"], "k_sweep": sweep[k],
             "staged_shards": staged["kernels"].get(k),
+            "serve_gateway": gateway["kernels"][k],
         })
     # segment_sum's headline: its recorded input with the most work (the
     # largest bytes bound)
@@ -2801,13 +3356,17 @@ def main() -> int:
         kernels.append({
             "name": k, "route": "cuda", "source": source, "replaces": replaced,
             "launches": evaluation["launches"][k],
-            "launches_by_path": {"eval": evaluation["launches"][k]},
+            "launches_by_path": {
+                "eval": evaluation["launches"][k],
+                "serve_prefill": {arch: serving[arch]["teacher_forcing"]["prefill_launches"][k]
+                                  for arch in (SERVE_ARCH, SERVE_MOE_ARCH)}},
             "launches_per_forward": evaluation["launches_per_forward"][k],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"], "main_path": model_timed[k]["main_path"],
             "scaling_points": model_timed[k]["scaling_points"],
+            "serve_prefill": serving["kernels"][k],
         })
     # the fused path's two kernels: no Pallas original (the reference's fused
     # program computes the solve and the draw in XLA); each headline is the
@@ -2841,6 +3400,8 @@ def main() -> int:
     summary["staged_shards"] = {k: v for k, v in staged.items() if k != "kernels"}
     summary["eval"] = evaluation
     summary["obs"] = obs
+    summary["serve"] = {"gateway": {k: v for k, v in gateway.items() if k != "kernels"},
+                        "lm": {k: v for k, v in serving.items() if k != "kernels"}}
     print(f"[done] {time.perf_counter() - t_start:.1f} s; main path {json.dumps(summary)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

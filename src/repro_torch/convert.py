@@ -7,7 +7,8 @@ package): a mapping with ``columns`` (name → 1-D array), ``valid``,
 arrays are copied byte for byte, in their dtypes, onto ``device``.  A
 model's parameter tree comes over the same way
 (:func:`model_params_from_arrays`), so both packages compute with the same
-weights.
+weights, and so does a decode cache (:func:`cache_from_arrays`), so both
+can decode from one prefilled state.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.engine.table import BlockTable
+from repro_torch.models.model import cache_spec, layer_shapes
 
 _DTYPES = {np.dtype(np.float32), np.dtype(np.int32), np.dtype(np.bool_)}
 
@@ -76,10 +78,42 @@ def model_params_from_arrays(cfg, params: Mapping[str, Any],
     dev = resolve_device(device)
     out = {name: _weight(params[name], name, dev)
            for name in ("embed", "final_norm", "head")}
+    shapes = layer_shapes(cfg)
+    missing = sorted(set(shapes) - set(params["layers"]))
+    if missing:
+        raise ValueError(f"{cfg.name}: layer parameters missing: {missing}")
     for name, a in params["layers"].items():
         t = _weight(a, f"layers.{name}", dev)
-        if t.dim() < 2 or t.shape[0] != cfg.num_layers:
-            raise ValueError(f"layers.{name}: expected {cfg.num_layers} layers "
-                             f"stacked on axis 0, got shape {tuple(t.shape)}")
+        want = (cfg.num_layers, *shapes.get(name, t.shape[1:]))
+        if tuple(t.shape) != want:
+            raise ValueError(f"layers.{name}: expected shape {want} (layers "
+                             f"stacked on axis 0), got {tuple(t.shape)}")
         out[f"layers.{name}"] = t
+    return out
+
+
+def cache_from_arrays(cfg, cache: Mapping[str, Any],
+                      device="cuda") -> Dict[str, torch.Tensor]:
+    """The reference's decode cache of ``cfg`` (numpy arrays keyed as its
+    ``Model.cache_spec``: ``pos``, and ``k`` / ``v`` / ``ssm`` as the family
+    has them) as the port's, bits unchanged, on ``device``."""
+    dev = resolve_device(device)
+    pos = np.asarray(cache["pos"])
+    ring = np.asarray(cache["k"]).shape[3] if cfg.has_attention else 1
+    spec = cache_spec(cfg, pos.shape[0], ring)
+    if set(cache) != set(spec):
+        raise ValueError(f"cache keys {sorted(cache)}, expected {sorted(spec)}")
+    out = {}
+    for name, (shape, dt) in spec.items():
+        arr = np.ascontiguousarray(np.asarray(cache[name]))
+        if name == "pos" and arr.dtype == np.int32:
+            t = torch.from_numpy(arr.copy()).to(dev)
+        elif name == "pos":
+            raise ValueError(f"cache pos: expected int32, got {arr.dtype}")
+        else:
+            t = _weight(arr, name, dev)
+        if tuple(t.shape) != shape or t.dtype != dt:
+            raise ValueError(f"cache {name}: expected {shape} {dt}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        out[name] = t
     return out

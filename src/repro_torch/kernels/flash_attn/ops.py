@@ -43,8 +43,9 @@ def _check(q, k, v, window: int, q_offset: int) -> None:
         raise ValueError(f"window {window} < 0")
     if q_offset != 0:
         raise NotImplementedError(
-            "q_offset != 0 (prefill resume) is not ported yet: ROADMAP queue 1 "
-            "item 14 (prefill, decode_step)")
+            "q_offset != 0 is not supported: no path of the reference passes "
+            "a non-zero offset (prefill and forward pass 0; decode_step "
+            "attends through decode_attention)")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

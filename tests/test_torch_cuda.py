@@ -949,3 +949,70 @@ def test_hooks_on_the_card_are_bitwise_the_hooks_off_session(cuda, tmp_path):
     for key in s.timeseries.keys():
         a, b = s.timeseries.series(key), rebuilt.series(key)
         assert (a.deliveries, a.shared, a.audited) == (b.deliveries, b.shared, b.audited)
+
+
+# reduced hymba and granite-moe at head_dim 64 (and hymba's SSM state 16),
+# the widths the flash and GLA kernels take; f32 on both devices
+SERVE_CARD_CASES = {
+    "hymba-1.5b": dict(head_dim=64, ssm_state=16, sliding_window=16),
+    "granite-moe-1b-a400m": dict(head_dim=64),
+}
+
+
+def _small_model(arch, device, seed=5):
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = get_config(arch).reduced(**SERVE_CARD_CASES[arch])
+    cpu = Model(cfg, device="cpu").init(torch.Generator().manual_seed(seed))
+    model = Model(cfg, device=device)
+    model.load_state_dict(cpu.state_dict())
+    return cpu, model
+
+
+@pytest.mark.parametrize("arch", sorted(SERVE_CARD_CASES))
+def test_prefill_and_decode_on_the_card_match_the_cpu(cuda, arch):
+    """Prefill over 24 tokens (past hymba's ring of 16) through the flash
+    and GLA kernels, then 16 decode steps, against the CPU port: logits
+    within 1e-4 (f32 on both; the kernels' sums run in other orders)."""
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.kernels.gla_chunk import gla_chunked
+    cpu, gpu = _small_model(arch, cuda)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cpu.cfg.vocab_size, (2, 24)))
+    launches = flash_attention.launches, gla_chunked.launches
+    lc, cc = cpu.prefill({"tokens": toks}, cache_len=48)
+    lg, cg = gpu.prefill({"tokens": toks.to(cuda)}, cache_len=48)
+    torch.cuda.synchronize()
+    L = cpu.cfg.num_layers
+    assert flash_attention.launches - launches[0] == L
+    assert gla_chunked.launches - launches[1] == (L if cpu.cfg.has_ssm else 0)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    for t in range(16):
+        tok = torch.full((2,), t, dtype=torch.int64)
+        lc, cc = cpu.decode_step(cc, tok)
+        lg, cg = gpu.decode_step(cg, tok.to(cuda))
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    assert torch.equal(cg["pos"].cpu(), cc["pos"])
+
+
+def test_serve_engine_keeps_its_cache_storage_on_the_card(cuda):
+    """The card's counterpart of one compiled graph: the engine's cache
+    tensors keep their storage, shapes and dtypes across steps, runs and
+    admissions; and the tokens are the CPU engine's on these weights."""
+    from repro_torch.serve import ServeEngine
+    cpu, gpu = _small_model("hymba-1.5b", cuda)
+    engines = [ServeEngine(m, batch_slots=2, cache_len=32) for m in (cpu, gpu)]
+    eng = engines[1]
+    layout = {k: (v.data_ptr(), tuple(v.shape), v.dtype) for k, v in eng.cache.items()}
+    outs = []
+    for e in engines:
+        e.submit([1, 2, 3], max_new_tokens=5)
+        e.submit([4], max_new_tokens=3)
+        e.submit([5, 6], max_new_tokens=4)  # admitted into a reused slot
+        first = e.run()
+        e.submit([7, 8], max_new_tokens=4)
+        outs.append((first, e.run()))
+    assert {k: (v.data_ptr(), tuple(v.shape), v.dtype)
+            for k, v in eng.cache.items()} == layout
+    assert all(v.device.type == "cuda" for v in eng.cache.values())
+    assert outs[0] == outs[1]

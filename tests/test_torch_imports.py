@@ -77,12 +77,19 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "repro_torch.obs.trace", "repro_torch.obs.metrics",
             "repro_torch.obs.audit", "repro_torch.obs.timeseries",
             "repro_torch.obs.slo", "repro_torch.obs.events"} <= mods
+    # serving: the gateway, the dashboard, the slot engine, the MoE FFN and
+    # the serving CLI stand alone too
+    assert {"repro_torch.serve", "repro_torch.serve.sql_gateway",
+            "repro_torch.serve.dashboard", "repro_torch.serve.engine",
+            "repro_torch.models.moe", "repro_torch.launch",
+            "repro_torch.launch.serve"} <= mods
 
 
 def test_no_source_imports_jax_or_the_reference():
     scripts = [ROOT / "chip_smoke.py", ROOT / "examples" / "torch_approx_eval.py",
                ROOT / "examples" / "torch_aqp_analytics.py",
-               ROOT / "examples" / "torch_quickstart.py"]
+               ROOT / "examples" / "torch_quickstart.py",
+               ROOT / "examples" / "torch_serve_llm.py"]
     files = sorted(PKG.rglob("*.py")) + scripts
     assert all(f.exists() for f in scripts)
     offenders = [str(f) for f in files if _FORBIDDEN.search(f.read_text())]
@@ -127,3 +134,41 @@ def test_wrappers_never_take_the_plain_version_off_the_cpu():
     ids = torch.zeros(2, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         block_agg(v, m, 32, ids)
+
+
+@pytest.mark.parametrize("name,loads,skips", [
+    ("SqlGateway", "repro_torch.serve.sql_gateway", "repro_torch.models"),
+    ("GatewayStats", "repro_torch.serve.sql_gateway", "repro_torch.models"),
+    ("render_dashboard", "repro_torch.serve.dashboard", "repro_torch.models"),
+    ("ServeEngine", "repro_torch.serve.engine", "repro_torch.api"),
+])
+def test_serve_exports_are_lazy(name, loads, skips):
+    """``repro_torch.serve`` resolves each export on first access: the SQL
+    gateway does not import the model stack, and the slot engine does not
+    import the query engine."""
+    code = (
+        "import sys\n"
+        "import repro_torch.serve as serve\n"
+        "assert not any(m.startswith('repro_torch.serve.') for m in sys.modules)\n"
+        f"getattr(serve, {name!r})\n"
+        f"assert {loads!r} in sys.modules\n"
+        f"bad = sorted(m for m in sys.modules if m == {skips!r} or m.startswith({skips!r} + '.'))\n"
+        "print('BAD', bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    import repro_torch.serve as serve
+    with pytest.raises(AttributeError):
+        serve.NoSuchThing
+
+
+def test_serving_entry_points_raise_without_cuda(monkeypatch):
+    from repro_torch.launch import serve as launch_serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for arch in ("granite-moe-1b-a400m", "olmoe-1b-7b"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            Model(get_config(arch).reduced())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launch_serve.main(["--reduced"])
