@@ -255,6 +255,42 @@ Phases, each printing its own lines:
              The first call per shape of each model kernel is recorded and
              replayed like phase 3b.
 
+13. train   — training (run last): (a) the flash and GLA backward kernels
+             against their plain backward versions on the same inputs
+             (flash at internlm2's (1, 16, 4096, 128) causal and hymba's
+             (1, 25, 2048, 64) window 1024, and Sq 1 / 65 / 127 / 200 with
+             GQA 1, 2, 5; GLA at (1, 25, 2048, 16 / 64) and (1, 64, 2048,
+             64 / 64), T 130 and 200, decays below -8 and on both bounds,
+             with and without a final-state gradient), bf16 and f32: f32
+             within 1e-4 of the call's largest plain gradient, bf16 within 3x
+             the plain bf16 backward's own distance from the plain f32 one;
+             two launches bitwise equal; the forward's lse within 1e-5 and o
+             bitwise unchanged by asking for it.  (b) internlm2-1.8b at full
+             width (24 layers, d 2048, 1,889,110,016 parameters, bf16) through
+             ``launch.train.main`` for 10 steps of 2 x 4096 tokens with
+             ``--lr 3e-4 --aqp-mixture --approx-eval`` (the default 3e-3
+             overshoots at full width; every phase-13 run takes 3e-4): losses finite and falling, 24
+             backward and 48 forward flash launches a step (remat), the
+             mixture weights from a sampled plan and the eval estimate
+             printed, segment_sum launched; median step ms (p10, p90),
+             tokens/s, MFU against 989 TFLOP/s, one step's device idle share
+             and top kernels under torch.profiler, peak device memory.  (c)
+             one step's gradients at full width with depth cut to 2 layers:
+             per leaf, ||kernels - plain|| / ||plain|| within 3x the plain
+             bf16 step's own distance from a plain f32 step.  (d) hymba-1.5b
+             at full width, 5 steps of 2 x 2048 through make_train_step: the
+             same checks on one batch stepped on 5 times (fresh batches'
+             spread hides the fall at this lr), GLA's backward launched 32
+             times a step.  (e)
+             internlm2 at full width, 2 layers: 4 steps with a checkpoint at
+             step 2 (the reference's layout, under build/train_ckpt, removed
+             after), restored into a fresh state: steps 3-4 bitwise the
+             uninterrupted run's, losses and parameters; microbatches 2 vs 1
+             within 2^-7; 3 compressed steps falling.  Each backward
+             kernel's recorded training input (first call per shape) is then
+             timed beside its plain version, SDPA's backward (flash), its
+             bound and the launch floor of its grids.
+
 Then one JSON line of per-kernel numbers, the ``nvidia-smi`` line again, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 script exits non-zero; so it does, printing no result, when there is no CUDA
@@ -372,6 +408,15 @@ def nvidia_smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def gpu_clocks():
+    """The card's SM clock, power draw and temperature now, as nvidia-smi
+    reads them (a sustained run may sit below the boost clock)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
 
 
@@ -2774,6 +2819,574 @@ def run_eval(torch, np, smi, recorder, model_wrappers):
             "small_max_abs_err": small_err, "parameters": n_params}
 
 
+# ---------------------------------------------------------------------------
+# phase 13 helpers: training — train/ and launch/train.py with the backward
+# kernels
+# ---------------------------------------------------------------------------
+
+# (b) internlm2-1.8b at full width through the launcher; (d) hymba-1.5b at
+# full width through make_train_step; (c) and (e) internlm2 at full width
+# with depth cut to 2 layers (the plain attention's (B, H, S, S) scores must
+# fit; a full-depth checkpoint is 22.7 GB of disk)
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "internlm2-1.8b", 10, 2, 4096
+TRAIN_HYMBA_STEPS, TRAIN_HYMBA_SEQ = 5, 2048
+TRAIN_CUT_LAYERS, TRAIN_RESUME_STEPS, TRAIN_RESUME_AT = 2, 4, 2
+TRAIN_PROFILED_STEP = 3          # the step whose device idle share is printed
+# the learning rate of every phase-13 run.  The launcher's default, 3e-3
+# (the reference's, sized for its reduced CPU configs), overshoots at full
+# width: one H100 run took internlm2-1.8b from 11.93 up to 12.77 and back
+# to 12.09 in 10 steps (PERF.md, PR 24).  Adam's first steps move every
+# weight by ~lr, 14 % of the 0.022 scale of a d-2048 matrix at 3e-3
+TRAIN_LR = 3e-4
+# (a) the backward kernels at the paths' shapes (B 1), bf16 and f32, and
+# small odd shapes: (B, Hq, Hkv, S, d, causal, window)
+FLASH_BWD_POINTS = [(1, 16, 8, 4096, 128, True, 0), (1, 25, 5, 2048, 64, True, 1024),
+                    (1, 2, 2, 1, 64, True, 0), (1, 4, 2, 65, 64, True, 0),
+                    (2, 5, 1, 127, 128, True, 16), (1, 5, 5, 200, 64, False, 0)]
+# (B, H, T, dk, with a final-state gradient): hymba's (16, 64) and rwkv6's
+# (64, 64) at T 2048, T off the chunk, decays below -8 and on both bounds
+GLA_BWD_POINTS = [(1, 25, 2048, 16, False), (1, 64, 2048, 64, False),
+                  (1, 3, 130, 16, True), (2, 2, 200, 64, False)]
+# f32: each gradient within this share of the call's largest plain gradient
+# (dq of one query is 0 up to rounding and has no scale of its own); bf16:
+# within 3x the plain bf16 backward's own distance from the plain f32 one,
+# or within the f32 share where that distance is 0 (the same one-query dq)
+BWD_F32_REL, BWD_BF16_FACTOR = 1e-4, 3.0
+
+
+def flash_bwd_work(np, q, k, causal, window):
+    """(flops, bytes) a flash backward needs: per kept (q, k) pair five
+    2 d-flop products (S recomputed, dO V^T, dV, dK, dQ); q, k, v, o, dO read
+    and lse read once, dq, dk, dv written once."""
+    b, hq, sq, d = q.shape
+    pairs = attention_pairs(np, sq, k.shape[2], causal, window)
+    nbytes = 4 * (q.numel() + k.numel()) * q.element_size() + b * hq * sq * 4
+    return 10 * d * pairs * b * hq, nbytes
+
+
+def gla_bwd_work(q, v):
+    """(flops, bytes) a GLA backward needs at chunk 64: per chunk the
+    state-gradient contribution, the inter terms of dq, dk and dv (2 C dk dv
+    each), B and dv's intra term (2 dv per pair), A and the intra terms of
+    dq and dk (2 dk per pair); q, k, g, v, dO and the chunk-start states
+    read once, dq, dk, dv, dg written once."""
+    b, h, t, dk = q.shape
+    dv = v.shape[-1]
+    c = 64
+    chunks = -(-t // c)
+    tri = c * (c + 1) // 2
+    flops = b * h * chunks * (8 * c * dk * dv + 2 * tri * (2 * dv + 3 * dk))
+    nbytes = (5 * q.numel() + 3 * v.numel()) * q.element_size() + b * h * chunks * dk * dv * 4
+    return flops, nbytes
+
+
+def sdpa_backward(torch, q, k, v, do, causal, window):
+    """scaled_dot_product_attention's backward with GQA and the same mask
+    (the library yardstick, timed only): a closure running autograd.grad
+    over one recorded forward."""
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = sdpa(torch, *leaves, causal, window)()
+    return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+
+def check_backward(torch, name, got, again, plain, plain32, dtype):
+    """Hold one backward's gradients to the plain backward's (``BWD_*``);
+    two launches bitwise equal.  Returns (max |kernel - plain|, the
+    tolerance's measure: the f32 share or the bf16 ratio)."""
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{name}: two launches differ bitwise")
+    err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, plain))
+    if dtype == torch.float32:
+        scale = max(float(w.abs().max()) for w in plain)
+        check(err <= BWD_F32_REL * scale,
+              f"{name}: max |kernel - plain| {err:.3g} above {BWD_F32_REL} x {scale:.3g}")
+        return err, err / scale
+    ratio = 0.0
+    noise = BWD_F32_REL * max(float(w.float().abs().max()) for w in plain32)
+    for i, (g, w, w32) in enumerate(zip(got, plain, plain32)):
+        own = float((w.float() - w32.float()).abs().max())
+        mine = float((g.float() - w32.float()).abs().max())
+        check(mine <= max(BWD_BF16_FACTOR * own, noise),
+              f"{name} gradient {i}: |kernel - f32 plain| {mine:.3g} above "
+              f"{BWD_BF16_FACTOR} x the bf16 plain's {own:.3g} and the f32 noise {noise:.3g}")
+        ratio = max(ratio, mine / max(own, noise))
+    return err, ratio
+
+
+def backward_kernel_checks(torch, np, dev):
+    """Phase 13 (a): both backward kernels against their plain versions at
+    the paths' shapes and at small odd ones, in bf16 and f32; the flash
+    forward's lse against the plain one's."""
+    from repro_torch.kernels.flash_attn import flash_attention_bwd_ref, flash_attention_lse_ref
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.kernels.gla_chunk import gla_chunked_bwd_ref, gla_chunked_fwd_ref
+    from repro_torch.kernels.gla_chunk import ops as gla_ops
+    rows = []
+
+    def normal(rng, shape, dtype, scale=1.0):
+        a = (rng.standard_normal(shape) * scale).astype(np.float32)
+        return torch.from_numpy(a).to(dev).to(dtype)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, hq, hkv, s, d, causal, window in FLASH_BWD_POINTS:
+            rng = np.random.default_rng(s + d + hq)
+            q, k, v, do = (normal(rng, (b, h, s, d), dtype) for h in (hq, hkv, hkv, hq))
+            scale = 1.0 / d ** 0.5
+            o, lse = flash_ops._forward(q, k, v, causal, window, scale, True)
+            o_plain, _ = flash_ops._forward(q, k, v, causal, window, scale, False)
+            check(torch.equal(o, o_plain), "flash forward: asking for lse changed o")
+            _, want_lse = flash_attention_lse_ref(q, k, v, causal=causal, window=window)
+            lse_err = float((lse - want_lse).abs().max())
+            check(lse_err <= 1e-5 * max(1.0, float(want_lse.abs().max())),
+                  f"flash lse off by {lse_err:.3g}")
+            got = flash_ops._backward(q, k, v, o, lse, do, causal, window, scale)
+            again = flash_ops._backward(q, k, v, o, lse, do, causal, window, scale)
+            plain = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window)
+            plain32 = (plain if dtype == torch.float32 else flash_attention_bwd_ref(
+                q.float(), k.float(), v.float(), o.float(), lse, do.float(), causal=causal,
+                window=window))
+            what = f"flash_attention_bwd {(b, hq, hkv, s, d)} {str(dtype)[6:]} causal={causal} window={window}"
+            err, measure = check_backward(torch, what, got, again, plain, plain32, dtype)
+            rows.append({"name": "flash_attention_bwd", "shape": [b, hq, s, d], "kv_heads": hkv,
+                         "dtype": str(dtype), "causal": causal, "window": window,
+                         "max_abs_err": err, "lse_max_abs_err": lse_err,
+                         ("rel_to_scale" if dtype == torch.float32 else "bf16_ratio"): measure})
+            print(f"[train] (a) {what}: max |kernel - plain| {err:.3g} "
+                  f"({'share of scale' if dtype == torch.float32 else 'ratio to the bf16 plain'} "
+                  f"{measure:.3g}); lse {lse_err:.3g}; bitwise stable")
+            del q, k, v, do, o, lse, got, again, plain, plain32
+        for b, h, t, dk, with_ds in GLA_BWD_POINTS:
+            rng = np.random.default_rng(t + dk)
+            q, k = normal(rng, (b, h, t, dk), dtype, 0.5), normal(rng, (b, h, t, dk), dtype, 0.5)
+            v, do = normal(rng, (b, h, t, 64), dtype), normal(rng, (b, h, t, 64), dtype)
+            g = torch.from_numpy(-rng.uniform(0.0, 0.3, (b, h, t, dk)).astype(np.float32))
+            g[..., :3, :] = -9.0
+            g[..., 3, :] = -8.0
+            g[..., 4, :] = 0.0
+            g = g.to(dev).to(dtype)
+            ds = (torch.from_numpy(rng.standard_normal((b, h, dk, 64)).astype(np.float32)).to(dev)
+                  if with_ds else None)
+            o, st, states = gla_ops._forward(q, k, v, g)
+            got = gla_ops._backward(q, k, v, g, states, st, do, ds)
+            again = gla_ops._backward(q, k, v, g, states, st, do, ds)
+            plain = gla_chunked_bwd_ref(q, k, v, g, gla_chunked_fwd_ref(q, k, v, g)[2], do, ds)
+            wide = [x.float() for x in (q, k, v, g)]
+            plain32 = (plain if dtype == torch.float32 else gla_chunked_bwd_ref(
+                *wide, gla_chunked_fwd_ref(*wide)[2], do.float(), ds))
+            what = f"gla_chunked_bwd {(b, h, t, dk, 64)} {str(dtype)[6:]} dstate={with_ds}"
+            err, measure = check_backward(torch, what, got, again, plain, plain32, dtype)
+            rows.append({"name": "gla_chunked_bwd", "shape": [b, h, t, dk, 64],
+                         "dtype": str(dtype), "dstate": with_ds, "max_abs_err": err,
+                         ("rel_to_scale" if dtype == torch.float32 else "bf16_ratio"): measure})
+            print(f"[train] (a) {what}: max |kernel - plain| {err:.3g} "
+                  f"({'share of scale' if dtype == torch.float32 else 'ratio to the bf16 plain'} "
+                  f"{measure:.3g}); bitwise stable")
+            del q, k, v, g, do, o, st, states, got, again, plain, plain32
+        torch.cuda.empty_cache()
+    return rows
+
+
+def time_backward_kernel(torch, np, name, args, smi, launch_floor):
+    """A recorded backward input of the main path: the kernel (L2 flushed,
+    CUDA events) beside its plain version, the library call (flash: SDPA's
+    backward), its bound and the launch floor of its grids."""
+    from repro_torch.kernels.flash_attn import flash_attention_bwd_ref
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.kernels.gla_chunk import gla_chunked_bwd_ref
+    from repro_torch.kernels.gla_chunk import ops as gla_ops
+    q = args[0]
+    if name == "flash_attention_bwd":
+        q, k, v, o, lse, do, causal, window, scale = args
+        b, hq, sq, d = q.shape
+        kernel = lambda: flash_ops._backward(*args)
+        plain = lambda: flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                                window=window, scale=scale)
+        flops, nbytes = flash_bwd_work(np, q, k, causal, window)
+        library_ms = time_cold(torch, sdpa_backward(torch, q, k, v, do, causal, window), iters=10)
+        grids = [(-(-sq // 64) * b, hq), (-(-k.shape[2] // 64) * b, k.shape[1])]
+        where = f"{tuple(q.shape)} x {tuple(k.shape)} causal={causal} window={window}"
+    else:
+        q, k, v, g, states, state, do, dstate = args
+        b, h, t, dk = q.shape
+        kernel = lambda: gla_ops._backward(*args)
+        plain = lambda: gla_chunked_bwd_ref(q, k, v, g, states, do, dstate)
+        flops, nbytes = gla_bwd_work(q, v)
+        library_ms = None
+        chunks = -(-t // 64)
+        grids = [(chunks, b * h), (-(-b * h * dk * 64 // 256), 1), (chunks, b * h),
+                 (chunks, b * h)]
+        where = f"{tuple(q.shape)} x {tuple(v.shape)}"
+    got, want = kernel(), plain()
+    err = max(float((a.float() - w.float()).abs().max()) for a, w in zip(got, want))
+    ms = time_cold(torch, kernel, iters=10)
+    plain_ms = time_cold(torch, plain, iters=5)
+    floor_ms = sum(time_cold(torch, lambda g=g: launch_floor(*g), iters=10) for g in grids)
+    bound_ms, by = least_ms(flops, nbytes, q.dtype)
+    lib = "" if library_ms is None else f", SDPA backward {library_ms * 1e3:.2f} us"
+    print(f"[train] {name} {where} {str(q.dtype)[6:]}: {ms * 1e3:.2f} us (plain "
+          f"{plain_ms * 1e3:.2f} us{lib}; bound {bound_ms * 1e3:.3f} us by {by}: "
+          f"{flops / 1e9:.3f} GFLOP / {PEAK_FLOPS[str(q.dtype)] / 1e12:.0f} TFLOP/s vs "
+          f"{nbytes:,} B / 3.35 TB/s; {bound_ms / ms:.1%} of bound; launch floor of its "
+          f"{len(grids)} grids {floor_ms * 1e3:.2f} us); max |kernel - plain| {err:.3g}  [{smi}]")
+    return {"shape": list(q.shape), "dtype": str(q.dtype), "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": by, "flops": flops,
+            "bytes": nbytes, "floor_ms": floor_ms, "max_abs_err": err}
+
+
+class BackwardRecorder:
+    """Stands in for the two wrappers' backward launchers (``ops._backward``,
+    looked up at call time) and keeps the first call per q shape while
+    active: the training path's own backward inputs, replayed by
+    ``time_backward_kernel``."""
+
+    def __init__(self, targets):
+        self.active = False
+        self.calls = {}
+        for name, module in targets.items():
+            self.calls[name] = {}
+            setattr(module, "_backward", self._wrap(name, module._backward))
+
+    def _wrap(self, name, fn):
+        def recorded(*args):
+            if self.active:
+                self.calls[name].setdefault(
+                    tuple(args[0].shape),
+                    tuple(a.detach() if hasattr(a, "detach") else a for a in args))
+            return fn(*args)
+        return recorded
+
+
+def train_flops(np, cfg, n_params, batch, seq):
+    """Model FLOPs of one step: 6 N per token, plus attention's own (4 d per
+    kept pair forward, twice that backward, per q head and layer); the
+    remat forward not counted."""
+    tokens = batch * seq
+    pairs = attention_pairs(np, seq, seq, True, cfg.sliding_window) if cfg.has_attention else 0
+    attn = 12 * cfg.head_dim * pairs * batch * cfg.num_heads * cfg.num_layers
+    return 6 * n_params * tokens + attn
+
+
+class TimedSteps:
+    """Stands in for ``make_train_step``: each step of the function it
+    builds is timed host clock to a ``cuda.synchronize``, and step
+    ``TRAIN_PROFILED_STEP`` also runs under torch.profiler (its device busy
+    time and top kernels)."""
+
+    def __init__(self, torch, make):
+        self.torch, self.make = torch, make
+        self.walls, self.profile = [], None   # the profiled step's wall is None
+
+    def __call__(self, model, opt_cfg, **kw):
+        fn = self.make(model, opt_cfg, **kw)
+        self.model = model
+
+        def step(state, batch):
+            out = []
+            if len(self.walls) == TRAIN_PROFILED_STEP:
+                self.profile = device_profile(self.torch, lambda: out.append(fn(state, batch)),
+                                              top=8)
+                self.walls.append(None)
+            else:
+                t0 = time.perf_counter()
+                out.append(fn(state, batch))
+                self.torch.cuda.synchronize()
+                self.walls.append(time.perf_counter() - t0)
+            return out[0]
+        return step
+
+
+def step_summary(np, walls, flops, tokens, profile, what, smi):
+    """Median, p10 and p90 step ms over the steps after the first (which
+    builds the kernels and cuBLAS's state) but the profiled one; tokens/s,
+    MFU against the bf16 peak, and the profiled step's idle share."""
+    ms = np.asarray([w for w in walls[1:] if w is not None]) * 1e3
+    med, p10, p90 = (float(np.percentile(ms, p)) for p in (50, 10, 90))
+    mfu = flops / (med / 1e3) / PEAK_FLOPS["torch.bfloat16"]
+    busy, wall, top = profile if profile else (None, None, [])
+    idle = "not measured" if busy is None else f"{1 - busy / wall:.1%}"
+    print(f"[train] {what}: step median {med:.2f} ms (p10 {p10:.2f}, p90 {p90:.2f}; "
+          f"first {walls[0] * 1e3:.2f}); {tokens / (med / 1e3):,.0f} tokens/s; MFU "
+          f"{mfu:.2%} of 989 TFLOP/s ({flops / 1e12:.2f} TFLOP a step); step "
+          f"{TRAIN_PROFILED_STEP} under torch.profiler: device kernels "
+          f"{busy if busy is None else round(busy, 2)} ms of {wall:.2f} ms wall, idle {idle}  [{smi}]")
+    for kname, kms, count in top:
+        print(f"[train]   device {kms:9.3f} ms x{count:<5d} {kname[:100]}")
+    return {"step_ms": med, "step_ms_p10": p10, "step_ms_p90": p90,
+            "first_step_ms": walls[0] * 1e3, "tokens_per_s": tokens / (med / 1e3),
+            "mfu": mfu, "model_tflop_per_step": flops / 1e12, "device_busy_ms": busy,
+            "profiled_wall_ms": wall, "device_top": top}
+
+
+def run_train(torch, np, smi, launch_floor):
+    """Phase 13: training on the card — the backward kernels against their
+    plain versions, internlm2-1.8b and hymba-1.5b at full width, one step's
+    gradients against the plain versions, and the bitwise resume."""
+    import contextlib
+    import io
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.kernels.gla_chunk import gla_chunked
+    from repro_torch.kernels.gla_chunk import ops as gla_ops
+    from repro_torch.kernels.segment_sum import segment_sum
+    from repro_torch.launch import train as launch
+    from repro_torch.models import Model, layers
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.data import TokenPipeline
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import cross_entropy, init_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    summary = {}
+
+    # -- (a) the backward kernels against their plain versions --------------
+    summary["checks"] = backward_kernel_checks(torch, np, dev)
+
+    # -- (b) internlm2-1.8b at full width through the launcher ---------------
+    recorder = BackwardRecorder({"flash_attention_bwd": flash_ops, "gla_chunked_bwd": gla_ops})
+    timed = TimedSteps(torch, make_train_step)
+    saved_make = launch.make_train_step
+    launch.make_train_step = timed
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--lr", str(TRAIN_LR), "--aqp-mixture", "--approx-eval"]
+    wrappers = (flash_attention, segment_sum)
+    zero_counters(wrappers)
+    flash_attention.bwd_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    recorder.active = True
+    clocks = [gpu_clocks()]
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            losses = launch.main(argv)
+    finally:
+        launch.make_train_step = saved_make
+        recorder.active = False
+    wall = time.perf_counter() - t0
+    clocks.append(gpu_clocks())
+    print(f"[train] (b) SM clock, max clock, power draw, temperature before / after: "
+          f"{clocks[0]} / {clocks[1]}")
+    launches = {**read_counters(wrappers), "flash_attention_bwd": flash_attention.bwd_launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    text = out.getvalue()
+    for line in text.splitlines():
+        print(f"[train] (b) {line}")
+    cfg = get_config(TRAIN_ARCH)
+    model = timed.model
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == 1_889_110_016, f"{TRAIN_ARCH}: {n_params:,} parameters")
+    check(np.all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{TRAIN_ARCH}: losses {losses} not finite and falling")
+    check(launches["flash_attention_bwd"] == TRAIN_STEPS * cfg.num_layers,
+          f"flash backward launched {launches['flash_attention_bwd']} times, not "
+          f"{cfg.num_layers} a step")
+    # remat runs each layer's forward twice a step; the eval's forwards once
+    evaluated = int(text.split("(evaluated ")[1].split("/")[0]) if "(evaluated " in text else -1
+    check(launches["flash_attention"] == cfg.num_layers * (2 * TRAIN_STEPS + evaluated),
+          f"flash forward launched {launches['flash_attention']} times for {TRAIN_STEPS} "
+          f"remat steps and {evaluated} eval forwards of {cfg.num_layers} layers")
+    check(launches["segment_sum"] > 0, "--aqp-mixture never launched segment_sum")
+    check("[aqp-mixture] weights=" in text and "fallback=None" in text,
+          "the mixture weights did not print from a sampled plan")
+    check("[approx-eval] loss≈" in text, "the approximate eval did not print")
+    intern = step_summary(np, timed.walls, train_flops(np, cfg, n_params, TRAIN_BATCH, TRAIN_SEQ),
+                          TRAIN_BATCH * TRAIN_SEQ, timed.profile,
+                          f"(b) {TRAIN_ARCH} full width, batch {TRAIN_BATCH} x {TRAIN_SEQ}", smi)
+    print(f"[train] (b) {TRAIN_ARCH}: {n_params:,} parameters ({n_params * 2 / 1e9:.2f} GB "
+          f"bf16; gradients {n_params * 2 / 1e9:.2f} GB; AdamW moments "
+          f"{n_params * 8 / 1e9:.2f} GB); losses {[round(l, 4) for l in losses]}; launches "
+          f"{launches} (24 backward a step); peak device memory {peak_gb:.2f} GB "
+          f"(torch.cuda.max_memory_allocated); main() {wall:.1f} s  [{smi}]")
+    summary["internlm2"] = {**intern, "losses": losses, "launches": launches, "clocks": clocks,
+                            "eval_forwards": evaluated, "peak_memory_gb": peak_gb,
+                            "parameters": n_params, "main_s": wall}
+    del model, timed
+    torch.cuda.empty_cache()
+
+    # -- (c) one step's gradients at full width, kernels against plain ---------
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in pipe.next_batch().items()}
+
+    def grads_of(model, plain):
+        saved = layers.flash_attention
+        if plain:
+            layers.flash_attention = (
+                lambda *a, q_offset=0, **kw: flash_attention_ref(*a, **kw))
+        try:
+            logits, aux = model(batch)
+            loss = cross_entropy(logits, batch["labels"], cfg.vocab_size) + 0.01 * aux
+            del logits
+            names = [n for n, _ in model.named_parameters()]
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+            return float(loss.detach()), dict(zip(names, grads))
+        finally:
+            layers.flash_attention = saved
+
+    kernel_model = Model(dataclasses.replace(cfg, num_layers=TRAIN_CUT_LAYERS)).init(
+        torch.Generator(device="cuda").manual_seed(11)).requires_grad_(True)
+    bwd_before = flash_attention.bwd_launches
+    loss_k, g_kernel = grads_of(kernel_model, plain=False)
+    check(flash_attention.bwd_launches - bwd_before == TRAIN_CUT_LAYERS,
+          "the 2-layer step did not launch the flash backward once a layer")
+    loss_p, g_plain = grads_of(kernel_model, plain=True)
+    f32_model = Model(dataclasses.replace(cfg, num_layers=TRAIN_CUT_LAYERS, dtype="float32"))
+    f32_model.load_state_dict(kernel_model.state_dict())   # the same weights, widened
+    del kernel_model
+    loss_32, g_32 = grads_of(f32_model.requires_grad_(True), plain=True)
+    del f32_model
+    rel = lambda a, b: float((a.float() - b.float()).norm() / b.float().norm())
+    grad_rows = {}
+    for n in g_kernel:
+        mine, own = rel(g_kernel[n], g_plain[n]), rel(g_plain[n], g_32[n])
+        grad_rows[n] = {"kernel_vs_plain": mine, "plain_bf16_vs_f32": own}
+        check(mine <= 3 * own, f"{n}: kernels vs plain {mine:.3g} above 3x the bf16 "
+                               f"plain's distance from f32 {own:.3g}")
+    worst = max(grad_rows.items(), key=lambda kv: kv[1]["kernel_vs_plain"] / kv[1]["plain_bf16_vs_f32"])
+    print(f"[train] (c) {TRAIN_ARCH} full width, {TRAIN_CUT_LAYERS} layers, one step's "
+          f"gradients (bf16): loss kernels {loss_k:.6f}, plain {loss_p:.6f}, f32 plain "
+          f"{loss_32:.6f}; per-leaf ||kernels - plain|| / ||plain|| against the bf16 plain's "
+          f"own distance from f32 (limit 3x): "
+          + ", ".join(f"{n} {r['kernel_vs_plain']:.3g}/{r['plain_bf16_vs_f32']:.3g}"
+                      for n, r in grad_rows.items())
+          + f"; worst ratio {worst[0]} {worst[1]['kernel_vs_plain'] / worst[1]['plain_bf16_vs_f32']:.2f}")
+    summary["gradients"] = {"loss_kernels": loss_k, "loss_plain": loss_p, "loss_f32": loss_32,
+                            "leaves": grad_rows}
+    del g_kernel, g_plain, g_32
+    torch.cuda.empty_cache()
+
+    # -- (d) hymba-1.5b at full width through make_train_step ----------------
+    hcfg = get_config("hymba-1.5b")
+    hmodel = Model(hcfg)
+    state = init_train_state(hmodel, torch.Generator(device="cuda").manual_seed(0))
+    htimed = TimedSteps(torch, make_train_step)
+    fn = htimed(hmodel, AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                    total_steps=TRAIN_HYMBA_STEPS, weight_decay=0.0))
+    hpipe = TokenPipeline(hcfg.vocab_size, TRAIN_BATCH, TRAIN_HYMBA_SEQ, seed=0)
+    zero_counters((flash_attention, gla_chunked))
+    flash_attention.bwd_launches = gla_chunked.bwd_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    hlosses = []
+    recorder.active = True
+    # one batch, stepped on 5 times (the reference's loss-decrease test
+    # memorizes a fixed batch): over 5 fresh random batches at lr 3e-4 the
+    # batch-to-batch spread of the loss (~5e-3) hides the fall
+    b = {k: torch.from_numpy(v).to(dev) for k, v in hpipe.next_batch().items()}
+    for _ in range(TRAIN_HYMBA_STEPS):
+        state, m = fn(state, b)
+        hlosses.append(float(m["loss"]))
+    recorder.active = False
+    print(f"[train] (d) SM clock, max clock, power draw, temperature after: {gpu_clocks()}")
+    hlaunch = {"flash_attention": flash_attention.launches,
+               "flash_attention_bwd": flash_attention.bwd_launches,
+               "gla_chunked": gla_chunked.launches, "gla_chunked_bwd": gla_chunked.bwd_launches}
+    hpeak = torch.cuda.max_memory_allocated() / 1e9
+    hn = sum(p.numel() for p in hmodel.parameters())
+    check(np.all(np.isfinite(hlosses)) and hlosses[-1] < hlosses[0],
+          f"hymba-1.5b: losses {hlosses} not finite and falling")
+    for k in ("flash_attention_bwd", "gla_chunked_bwd"):
+        check(hlaunch[k] == TRAIN_HYMBA_STEPS * hcfg.num_layers,
+              f"hymba-1.5b: {k} launched {hlaunch[k]} times")
+    for k in ("flash_attention", "gla_chunked"):
+        check(hlaunch[k] == 2 * TRAIN_HYMBA_STEPS * hcfg.num_layers,
+              f"hymba-1.5b: {k} launched {hlaunch[k]} times (remat: twice a layer a step)")
+    hymba = step_summary(np, htimed.walls,
+                         train_flops(np, hcfg, hn, TRAIN_BATCH, TRAIN_HYMBA_SEQ),
+                         TRAIN_BATCH * TRAIN_HYMBA_SEQ, htimed.profile,
+                         f"(d) hymba-1.5b full width, batch {TRAIN_BATCH} x {TRAIN_HYMBA_SEQ}",
+                         smi)
+    print(f"[train] (d) hymba-1.5b: {hn:,} parameters; losses {[round(l, 4) for l in hlosses]}; "
+          f"launches {hlaunch}; peak device memory {hpeak:.2f} GB  [{smi}]")
+    summary["hymba"] = {**hymba, "losses": hlosses, "launches": hlaunch,
+                        "peak_memory_gb": hpeak, "parameters": hn}
+    del hmodel, state, htimed, fn
+    torch.cuda.empty_cache()
+
+    # -- (e) resume bitwise; microbatches; compression -----------------------
+    ck_dir = os.path.join(ROOT, "build", "train_ckpt")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_RESUME_STEPS,
+                          weight_decay=0.0)
+
+    def fresh(**kw):
+        model = Model(dataclasses.replace(cfg, num_layers=TRAIN_CUT_LAYERS))
+        return model, init_train_state(model, torch.Generator(device="cuda").manual_seed(21),
+                                       **kw)
+
+    def run(steps, model, state, pipe, **kw):
+        fn = make_train_step(model, opt_cfg, **kw)
+        out = []
+        for _ in steps:
+            b = {k: torch.from_numpy(v).to(dev) for k, v in pipe.next_batch().items()}
+            state, m = fn(state, b)
+            out.append(float(m["loss"]))
+        return state, out
+
+    t_res = time.perf_counter()
+    model, state = fresh()
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=3)
+    state, first = run(range(TRAIN_RESUME_AT), model, state, pipe)
+    ckpt.save(ck_dir, TRAIN_RESUME_AT, state,
+              extra={"step": TRAIN_RESUME_AT, "data_step": pipe.state.step})
+    state, rest = run(range(TRAIN_RESUME_AT, TRAIN_RESUME_STEPS), model, state, pipe)
+    straight = {n: p.detach().clone() for n, p in model.named_parameters()}
+    del model, state
+    model, state = fresh()
+    state, extra = ckpt.restore(ck_dir, TRAIN_RESUME_AT, state)
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=3)
+    pipe.state.step = extra["data_step"]
+    state, resumed = run(range(TRAIN_RESUME_AT, TRAIN_RESUME_STEPS), model, state, pipe)
+    ck_bytes = sum(os.path.getsize(os.path.join(dp, f)) for dp, _, fs in os.walk(ck_dir) for f in fs)
+    check(resumed == rest, f"resumed losses {resumed} differ from {rest}")
+    check(all(torch.equal(p, straight[n]) for n, p in model.named_parameters()),
+          "resumed parameters differ bitwise from the uninterrupted run")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    del model, state, straight
+    print(f"[train] (e) {TRAIN_ARCH} full width, {TRAIN_CUT_LAYERS} layers: {TRAIN_RESUME_STEPS} "
+          f"steps {first + rest}; checkpoint at step {TRAIN_RESUME_AT} ({ck_bytes / 1e9:.2f} GB "
+          f"on disk), restored into a fresh state: steps {TRAIN_RESUME_AT + 1}-"
+          f"{TRAIN_RESUME_STEPS} {resumed}, losses and parameters bitwise the uninterrupted "
+          f"run's; {time.perf_counter() - t_res:.1f} s")
+
+    # --microbatches 2 against one batch, one step from one state
+    steps1 = []
+    for mb in (1, 2):
+        model, state = fresh()
+        pipe = TokenPipeline(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=5)
+        _, loss = run(range(1), model, state, pipe, microbatches=mb)
+        steps1.append(loss[0])
+        del model, state
+    check(abs(steps1[1] - steps1[0]) <= 2 ** -7 * abs(steps1[0]),
+          f"microbatches 2 vs 1: losses {steps1}")
+    # --compress-grads: the loss still falls
+    model, state = fresh(compress=True)
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=5)
+    _, closses = run(range(3), model, state, pipe, compress=True)
+    check(np.all(np.isfinite(closses)) and closses[-1] < closses[0],
+          f"--compress-grads: losses {closses} not falling")
+    del model, state
+    torch.cuda.empty_cache()
+    print(f"[train] (e) microbatches 1 / 2, one step: loss {steps1[0]:.6f} / {steps1[1]:.6f} "
+          f"(within 2^-7); with compression, 3 steps: {[round(l, 4) for l in closses]}")
+    summary["resume"] = {"losses": first + rest, "resumed": resumed,
+                         "checkpoint_gb": ck_bytes / 1e9, "microbatch_losses": steps1,
+                         "compressed_losses": closses}
+
+    # -- the backward kernels at the training paths' own inputs -----------------
+    summary["kernels"] = {}
+    for name, calls in recorder.calls.items():
+        check(bool(calls), f"{name}: no call of the training paths was recorded")
+        summary["kernels"][name] = [time_backward_kernel(torch, np, name, args, smi, launch_floor)
+                                    for args in calls.values()]
+    recorder.calls.clear()
+    torch.cuda.empty_cache()
+    summary["phase_s"] = time.perf_counter() - t_phase
+    print(f"[train] phase 13 in {summary['phase_s']:.1f} s  [{smi}]")
+    return summary
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -3288,6 +3901,9 @@ def main() -> int:
     recorder.calls.clear()
     torch.cuda.empty_cache()
 
+    # -- 13. training: the backward kernels, internlm2 and hymba at full width ---
+    training = run_train(torch, np, smi, launch_floor)
+
     # -- results ---------------------------------------------------------------
     sources = {
         "filtered_agg": "src/repro_torch/kernels/filtered_agg/csrc/filtered_agg.cu",
@@ -3359,7 +3975,9 @@ def main() -> int:
             "launches_by_path": {
                 "eval": evaluation["launches"][k],
                 "serve_prefill": {arch: serving[arch]["teacher_forcing"]["prefill_launches"][k]
-                                  for arch in (SERVE_ARCH, SERVE_MOE_ARCH)}},
+                                  for arch in (SERVE_ARCH, SERVE_MOE_ARCH)},
+                "train": {"internlm2-1.8b": training["internlm2"]["launches"].get(k, 0),
+                          "hymba-1.5b": training["hymba"]["launches"][k]}},
             "launches_per_forward": evaluation["launches_per_forward"][k],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -3394,6 +4012,37 @@ def main() -> int:
             "main_path": [r for r in fused["kernels"][k] if r["input"] == "main path"],
             "scaling_points": [r for r in fused["kernels"][k]
                                if r["input"] == "scaling point"]})
+    # the backward kernels: no Pallas original (the reference differentiates
+    # its XLA attention with jax.value_and_grad); each headline is the
+    # training path's first recorded call (internlm2's for flash, hymba's
+    # for GLA)
+    bwd_sources = {
+        "flash_attention_bwd": (
+            "src/repro_torch/kernels/flash_attn/csrc/flash_attn_bwd.cu",
+            "src/repro/kernels/flash_attn/kernel.py:76",
+            "the gradient of that kernel's function: the reference trains through its XLA "
+            "mea_attention (src/repro/models/layers.py:54) under jax.value_and_grad "
+            "(src/repro/train/step.py:68); no Pallas backward", "internlm2"),
+        "gla_chunked_bwd": (
+            "src/repro_torch/kernels/gla_chunk/csrc/gla_chunk_bwd.cu",
+            "src/repro/kernels/gla_chunk/kernel.py:103",
+            "the gradient of that kernel's function: the reference trains through its XLA "
+            "gla_chunked_xla (src/repro/models/linear_attn.py:25) under jax.value_and_grad "
+            "(src/repro/train/step.py:68); no Pallas backward", "hymba")}
+    for k, (source, replaced, note, path) in bwd_sources.items():
+        t = training["kernels"][k][0]
+        kernels.append({
+            "name": k, "route": "cuda", "source": source, "replaces": replaced,
+            "replaces_note": note,
+            "launches": training[path]["launches"][k],
+            "launches_by_path": {"train_internlm2": training["internlm2"]["launches"].get(k, 0),
+                                 "train_hymba": training["hymba"]["launches"][k]},
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "floor_ms": t["floor_ms"], "shape": t["shape"],
+            "main_path": training["kernels"][k], "checks": [
+                r for r in training["checks"] if r["name"] == k]})
+    summary["train"] = {k: v for k, v in training.items() if k not in ("kernels", "checks")}
     summary["drain"] = drain
     summary["fused"] = {k: v for k, v in fused.items() if k != "kernels"}
     summary["gather"] = gather

@@ -8,12 +8,14 @@ arrays are copied byte for byte, in their dtypes, onto ``device``.  A
 model's parameter tree comes over the same way
 (:func:`model_params_from_arrays`), so both packages compute with the same
 weights, and so does a decode cache (:func:`cache_from_arrays`), so both
-can decode from one prefilled state.
+can decode from one prefilled state, and a training state
+(:func:`train_state_from_arrays` and back, :func:`train_state_to_arrays`),
+so both can step from one state and be compared after it.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -117,3 +119,50 @@ def cache_from_arrays(cfg, cache: Mapping[str, Any],
                              f"{tuple(t.shape)} {t.dtype}")
         out[name] = t
     return out
+
+
+def train_state_from_arrays(cfg, params: Mapping[str, Any], opt: Mapping[str, Any],
+                            residual: Optional[Mapping[str, Any]] = None, device="cuda"):
+    """The reference's ``TrainState`` of ``cfg`` as the port's, bits
+    unchanged: ``params`` as :func:`model_params_from_arrays` takes it,
+    ``opt`` with ``step`` (int32, 0-d) and the f32 moment trees ``mu`` and
+    ``nu`` in the same layout, ``residual`` (f32, same layout) or None.  The
+    parameters come back as plain tensors keyed by state-dict name: load
+    them into a model and build the state on its own parameters to train."""
+    from repro_torch.train.optimizer import OptState
+    from repro_torch.train.step import TrainState
+    dev = resolve_device(device)
+    step = np.asarray(opt["step"])
+    if step.shape != () or step.dtype != np.int32:
+        raise ValueError(f"opt step: expected a 0-d int32, got {step.dtype} {step.shape}")
+    return TrainState(
+        params=model_params_from_arrays(cfg, params, dev),
+        opt=OptState(step=torch.from_numpy(step.copy()).to(dev),
+                     mu=model_params_from_arrays(cfg, opt["mu"], dev),
+                     nu=model_params_from_arrays(cfg, opt["nu"], dev)),
+        residual=None if residual is None else model_params_from_arrays(cfg, residual, dev))
+
+
+def _tree_to_arrays(tree: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    out: Dict[str, Any] = {"layers": {}}
+    for name, t in tree.items():
+        t = t.detach().cpu()
+        arr = (t.view(torch.int16).numpy().view(np.uint16) if t.dtype == torch.bfloat16
+               else t.numpy())
+        if name.startswith("layers."):
+            out["layers"][name[len("layers."):]] = arr
+        else:
+            out[name] = arr
+    return out
+
+
+def train_state_to_arrays(state) -> Tuple[Dict[str, Any], Dict[str, Any], Optional[Dict[str, Any]]]:
+    """The inverse of :func:`train_state_from_arrays`: (params, opt,
+    residual) as numpy trees in the reference's layout, on the host.  bf16
+    leaves come back as their raw uint16 bits (this package needs no
+    ``ml_dtypes``; ``bits.view(ml_dtypes.bfloat16)`` gives the reference's
+    arrays)."""
+    opt = {"step": state.opt.step.detach().cpu().numpy(),
+           "mu": _tree_to_arrays(state.opt.mu), "nu": _tree_to_arrays(state.opt.nu)}
+    residual = None if state.residual is None else _tree_to_arrays(state.residual)
+    return _tree_to_arrays(state.params), opt, residual

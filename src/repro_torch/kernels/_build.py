@@ -1,6 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel is one ``.cu`` file with a plain C interface, compiled by
+Each library is one ``.cu`` file with a plain C interface (``<package>/csrc/
+<name>.cu``; a backward lives beside its forward's package), compiled by
 ``nvcc`` for ``sm_90a`` into a shared library under ``<repo>/build/kernels``
 and loaded with ``ctypes``.  The library name carries a hash of the sources,
 so an edited kernel rebuilds and a stale one is never loaded.  Nothing is
@@ -25,9 +26,14 @@ import torch
 
 # each library and the shared headers of csrc/ that its .cu includes
 HEADERS = {"filtered_agg": ("block_reduce.cuh",), "block_agg": ("block_reduce.cuh",),
-           "flash_attn": ("float_io.cuh", "hopper.cuh"), "gla_chunk": ("float_io.cuh",),
-           "segment_sum": ("block_reduce.cuh",), "taqa_solve": ()}
+           "flash_attn": ("float_io.cuh", "hopper.cuh"),
+           "gla_chunk": ("float_io.cuh", "gla_tiles.cuh"),
+           "segment_sum": ("block_reduce.cuh",), "taqa_solve": (),
+           "flash_attn_bwd": ("float_io.cuh",),
+           "gla_chunk_bwd": ("float_io.cuh", "gla_tiles.cuh")}
 KERNELS = tuple(HEADERS)
+# the package directory of a library whose name is not its package's
+PACKAGE = {"flash_attn_bwd": "flash_attn", "gla_chunk_bwd": "gla_chunk"}
 
 _KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "kernels"
@@ -65,12 +71,20 @@ _SIGNATURES = {
         "block_agg_launch": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P],
     },
     "flash_attn": {
-        "flash_attn_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+        "flash_attn_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _F, _I, _I, _P],
+    },
+    "flash_attn_bwd": {
+        "flash_attn_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                  _I, _I, _I, _I, _I, _F, _I, _I, _P],
     },
     "gla_chunk": {
         "gla_chunk_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _P],
+    },
+    "gla_chunk_bwd": {
+        "gla_chunk_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "segment_sum": {
         "segment_sum_keys_launch": [_P, _L, _L, _P, _P],
@@ -108,7 +122,7 @@ def count(fn, attr: str) -> None:
 
 def _sources(name: str) -> Sequence[Path]:
     """The kernel's ``.cu`` first, then the shared headers it includes."""
-    return (_KERNELS_DIR / name / "csrc" / f"{name}.cu",
+    return (_KERNELS_DIR / PACKAGE.get(name, name) / "csrc" / f"{name}.cu",
             *(_KERNELS_DIR / "csrc" / h for h in HEADERS[name]))
 
 

@@ -47,6 +47,14 @@
 // Ragged Sq and Skv: TMA fills rows past the end with zeros, the col < skv
 // mask drops their scores, and rows >= Sq are not stored.
 //
+// When the caller passes an lse buffer (B, Hq, Sq) f32 (the autograd
+// Function does, when a gradient will be asked for), each row's
+// log-sum-exp of its scaled scores is written beside o, in natural units:
+// m + log(l) (the bf16 kernel's base-2 m and l: (m + log2 l) ln 2), so that
+// o = sum exp(s scale - lse) v.  It is read back from the finished m and l
+// after the kv loop and touches nothing o is computed from: with a null
+// pointer a launch does exactly what it did before the backward existed.
+//
 // f32 inputs: flash_attn_kernel<float, D>, the scalar kernel, kept because
 // wgmma on f32 is TF32 (about three digits), looser than the f32 checks
 // (the kernel at 2e-3, a full-width f32 forward's logits at 1e-3).  One CTA
@@ -92,9 +100,9 @@ struct FlashSmem {
 template <typename T, int D>
 __global__ void __launch_bounds__(kFlashThreads)
     flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ o, int hq,
-                      int hkv, int sq, int skv, float scale, int causal,
-                      int window) {
+                      const T* __restrict__ v, T* __restrict__ o,
+                      float* __restrict__ lse, int hq, int hkv, int sq, int skv,
+                      float scale, int causal, int window) {
   using S = FlashSmem<D>;
   constexpr int kCols = D / 8;  // output columns per thread
   extern __shared__ float smem[];
@@ -213,11 +221,19 @@ __global__ void __launch_bounds__(kFlashThreads)
     for (int jj = 0; jj < kCols; ++jj)
       ob[static_cast<int64_t>(row) * D + tc + 8 * jj] = from_f32<T>(acc[ii][jj] / den);
   }
+  if (lse != nullptr && tc == 0) {
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii) {
+      const int row = i0 + 4 * tr + ii;
+      if (row < sq)
+        lse[static_cast<int64_t>(b * hq + h) * sq + row] = m[ii] + logf(l[ii] > 0.0f ? l[ii] : 1.0f);
+    }
+  }
 }
 
 template <typename T, int D>
 cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
-                         int batch, int hq, int hkv, int sq, int skv,
+                         float* lse, int batch, int hq, int hkv, int sq, int skv,
                          float scale, int causal, int window,
                          cudaStream_t stream) {
   const size_t smem = FlashSmem<D>::kBytes;
@@ -228,7 +244,7 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((sq + kBQ - 1) / kBQ, hq, batch);
   flash_attn_kernel<T, D><<<grid, kFlashThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), hq, hkv, sq, skv, scale,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, hq, hkv, sq, skv, scale,
       causal, window);
   return cudaGetLastError();
 }
@@ -286,8 +302,9 @@ __global__ void __launch_bounds__(kWgThreads, D == 64 ? 2 : 1)
     flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
                             const __grid_constant__ CUtensorMap tv,
-                            bf16* __restrict__ o, int hq, int hkv, int sq,
-                            int skv, float scale_log2, int causal, int window) {
+                            bf16* __restrict__ o, float* __restrict__ lse, int hq,
+                            int hkv, int sq, int skv, float scale_log2, int causal,
+                            int window) {
   using S = WgSmem<D>;
   constexpr int P = S::kPieces;
   extern __shared__ uint8_t smem_raw[];
@@ -471,6 +488,15 @@ __global__ void __launch_bounds__(kWgThreads, D == 64 ? 2 : 1)
                                            8 * c + col0) = v2;
       }
   }
+  if (lse != nullptr && lane % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i;
+      if (row < sq)
+        lse[static_cast<int64_t>(bq) * sq + row] =
+            (m[i] + log2f(l[i] > 0.0f ? l[i] : 1.0f)) * 0.6931471805599453f;
+    }
+  }
 }
 
 // cuTensorMapEncodeTiled of libcuda, looked up through the CUDA runtime's
@@ -519,7 +545,7 @@ static bool make_map(CUtensorMap* map, const void* base, int heads, int rows, in
 
 template <int D>
 cudaError_t launch_flash_wgmma(const void* q, const void* k, const void* v, void* o,
-                               int batch, int hq, int hkv, int sq, int skv, float scale,
+                               float* lse, int batch, int hq, int hkv, int sq, int skv, float scale,
                                int causal, int window, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, batch * hq, sq, D, kWgBQ) ||
@@ -533,30 +559,33 @@ cudaError_t launch_flash_wgmma(const void* q, const void* k, const void* v, void
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + kWgBQ - 1) / kWgBQ, hq, batch);
   flash_attn_wgmma_kernel<D><<<grid, kWgThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<bf16*>(o), hq, hkv, sq, skv, scale * kLog2e, causal, window);
+      tq, tk, tv, static_cast<bf16*>(o), lse, hq, hkv, sq, skv, scale * kLog2e, causal,
+      window);
   return cudaGetLastError();
 }
 
 }  // namespace repro_torch
 
 // q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D), o like q: contiguous, one
-// dtype (code 0 f32, 3 bf16), D 64 or 128, Hq a multiple of Hkv.
+// dtype (code 0 f32, 3 bf16), D 64 or 128, Hq a multiple of Hkv; lse (B,
+// Hq, Sq) f32 or null.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
-                                 void* o, int dtype, int batch, int hq,
+                                 void* o, void* lse_out, int dtype, int batch, int hq,
                                  int hkv, int sq, int skv, int head_dim,
                                  float scale, int causal, int window,
                                  void* stream) {
   using namespace repro_torch;
   if (batch <= 0 || hq <= 0 || sq <= 0) return static_cast<int>(cudaGetLastError());
   const auto st = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   if (dtype == kDtypeBF16 && head_dim == 64)
-    return launch_flash_wgmma<64>(q, k, v, o, batch, hq, hkv, sq, skv, scale, causal, window, st);
+    return launch_flash_wgmma<64>(q, k, v, o, lse, batch, hq, hkv, sq, skv, scale, causal, window, st);
   if (dtype == kDtypeBF16 && head_dim == 128)
-    return launch_flash_wgmma<128>(q, k, v, o, batch, hq, hkv, sq, skv, scale, causal, window, st);
+    return launch_flash_wgmma<128>(q, k, v, o, lse, batch, hq, hkv, sq, skv, scale, causal, window, st);
   if (dtype == kDtypeF32 && head_dim == 64)
-    return launch_flash<float, 64>(q, k, v, o, batch, hq, hkv, sq, skv, scale, causal, window, st);
+    return launch_flash<float, 64>(q, k, v, o, lse, batch, hq, hkv, sq, skv, scale, causal, window, st);
   if (dtype == kDtypeF32 && head_dim == 128)
-    return launch_flash<float, 128>(q, k, v, o, batch, hq, hkv, sq, skv, scale, causal, window, st);
+    return launch_flash<float, 128>(q, k, v, o, lse, batch, hq, hkv, sq, skv, scale, causal, window, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,8 +1,12 @@
-"""Wrapper of the flash_attn CUDA kernel (``csrc/flash_attn.cu``).
+"""Wrapper of the flash_attn CUDA kernels: the forward (``csrc/flash_attn.cu``)
+and the backward (``csrc/flash_attn_bwd.cu``), joined by an autograd
+Function.
 
-A CUDA tensor launches the hand-written kernel, or raises; a CPU tensor runs
-the plain PyTorch version (``ref.py``).  The tensors' device alone decides:
-there is no mode switch and no fallback.
+A CUDA tensor launches the hand-written kernels, or raises; a CPU tensor runs
+the plain PyTorch versions (``ref.py``).  The tensors' device alone decides:
+there is no mode switch and no fallback.  The forward writes each row's
+log-sum-exp only when a gradient will be asked for, so an inference call
+launches exactly what it did before the backward existed.
 """
 
 from __future__ import annotations
@@ -12,7 +16,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+from repro_torch.kernels.flash_attn.ref import (flash_attention_bwd_ref,
+                                                flash_attention_lse_ref)
 
 HEAD_DIMS = (64, 128)  # the widths the kernel is instantiated for
 MAX_GRID_YZ = 65_535   # q heads ride in gridDim.y, the batch in gridDim.z
@@ -48,6 +53,88 @@ def _check(q, k, v, window: int, q_offset: int) -> None:
             "attends through decode_attention)")
 
 
+def _launch_checks(q: torch.Tensor) -> None:
+    b, hq, _, d = q.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d}: the kernel takes {HEAD_DIMS}")
+    if hq > MAX_GRID_YZ or b > MAX_GRID_YZ:
+        raise ValueError(f"{b} x {hq} (batch x heads) exceeds the grid")
+
+
+def _forward(q, k, v, causal: bool, window: int, scale: float, with_lse: bool):
+    """(o, lse or None; lse (B, Hq, Sq) f32): the forward kernel on the
+    card, the plain version (which always gives lse) on the CPU."""
+    if q.device.type == "cpu":
+        return flash_attention_lse_ref(q, k, v, causal=causal, window=window, scale=scale)
+    _launch_checks(q)
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k, v must be 16-byte aligned")
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    lib = _build.load("flash_attn")
+    o = torch.empty_like(q)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attn_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr() if with_lse else None,
+            _build.float_code(q, "q"), b, hq, hkv, sq, skv, d, scale,
+            int(causal), int(window),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, "flash_attn", rc)
+    _build.count(flash_attention, "launches")
+    return o, lse
+
+
+def _backward(q, k, v, o, lse, do, causal: bool, window: int, scale: float):
+    """(dq, dk, dv): on the card the backward kernels, dQ (with delta =
+    rowsum(do o) in its prologue), then dK and dV, two launches on the
+    current stream; on the CPU the plain version."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window,
+                                       scale=scale)
+    if do.dtype != q.dtype:
+        raise ValueError(f"the output's gradient is {do.dtype}, q {q.dtype}")
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    lib = _build.load("flash_attn_bwd")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attn_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            delta.data_ptr(), _build.float_code(q, "q"), b, hq, hkv, sq, skv, d,
+            scale, int(causal), int(window),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, "flash_attn_bwd", rc)
+    _build.count(flash_attention, "bwd_launches")
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention whose forward saves q, k, v, o and each row's log-sum-exp
+    and whose backward recomputes P tile by tile from them: the kernels on
+    the card, the plain versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, scale: float, with_lse: bool):
+        o, lse = _forward(q, k, v, causal, window, scale, with_lse)
+        if with_lse:
+            ctx.save_for_backward(q, k, v, o, lse)
+        ctx.attrs = (causal, window, scale)
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window, scale = ctx.attrs
+        grads = _backward(q, k, v, o, lse, do.contiguous(), causal, window, scale)
+        return (*grads, None, None, None, None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, q_offset: int = 0,
                     scale: Optional[float] = None) -> torch.Tensor:
@@ -57,37 +144,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``col > row`` when causal; ``col <= row - window`` when ``window > 0``
     (the models' sliding window).  Scores, softmax and accumulation in f32;
     returns q's dtype and shape.  On the card d must be 64 or 128.
+    Differentiable: the gradients of q, k and v come from the backward
+    kernels (their plain versions on the CPU), in the inputs' dtypes.
     """
     _check(q, k, v, window, q_offset)
     _build.count(flash_attention, "calls")
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   scale=scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
-    b, hq, sq, d = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d}: the kernel takes {HEAD_DIMS}")
-    if hq > MAX_GRID_YZ or b > MAX_GRID_YZ:
-        raise ValueError(f"{b} x {hq} (batch x heads) exceeds the grid")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("q, k, v must be 16-byte aligned")
-    scale = float(scale if scale is not None else 1.0 / (d ** 0.5))
-    lib = _build.load("flash_attn")
-    o = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        rc = lib.flash_attn_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            _build.float_code(q, "q"), b, hq, hkv, sq, skv, d, scale,
-            int(causal), int(window),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, "flash_attn", rc)
-    _build.count(flash_attention, "launches")
-    return o
+    scale = float(scale if scale is not None else 1.0 / (q.shape[3] ** 0.5))
+    with_lse = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    return FlashAttentionFn.apply(q, k, v, causal, int(window), scale, with_lse)
 
 
-# ``calls`` counts every call on either device; ``launches`` counts CUDA
-# kernel launches only (see kernels/block_agg/ops.py).
+# ``calls`` counts every call on either device; ``launches`` counts forward
+# CUDA kernel launches and ``bwd_launches`` backward ones (two kernels, one
+# count), the card only (see kernels/block_agg/ops.py).
 flash_attention.calls = 0
 flash_attention.launches = 0
+flash_attention.bwd_launches = 0

@@ -1,10 +1,14 @@
-"""Wrapper of the gla_chunk CUDA kernels (``csrc/gla_chunk.cu``).
+"""Wrapper of the gla_chunk CUDA kernels: the forward (``csrc/gla_chunk.cu``)
+and the backward (``csrc/gla_chunk_bwd.cu``), joined by an autograd
+Function.
 
 A CUDA tensor launches the hand-written kernels, or raises; a CPU tensor runs
-the plain PyTorch version (``ref.py``).  The tensors' device alone decides:
-there is no mode switch and no fallback.  One call on the card is three
-kernels on the current stream: per-(chunk, head) state contributions, the
-scan over chunks, and per-(chunk, head) outputs; it counts as one launch.
+the plain PyTorch versions (``ref.py``).  The tensors' device alone decides:
+there is no mode switch and no fallback.  One forward call on the card is
+three kernels on the current stream: per-(chunk, head) state contributions,
+the scan over chunks, and per-(chunk, head) outputs; it counts as one
+launch.  The scan leaves the state before each chunk in its scratch, which
+the Function keeps for the backward (four kernels, one count).
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.gla_chunk.ref import gla_chunked_ref
+from repro_torch.kernels.gla_chunk.ref import gla_chunked_bwd_ref, gla_chunked_fwd_ref
 
 KEY_DIMS = (16, 64)   # dk the kernel is instantiated for
 VALUE_DIMS = (64,)    # dv
@@ -39,20 +43,12 @@ def _check(q, k, v, g) -> None:
                              ".contiguous() on a transposed view")
 
 
-def gla_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Gated linear attention over q, k, g (B, H, T, dk) and v (B, H, T, dv),
-    contiguous, f32 or bf16; g is the per-step log-decay, clamped to [-8, 0].
-    Returns (o (B, H, T, dv) in q's dtype, final state (B, H, dk, dv) f32).
-    Any T: the kernel reads steps past T as zero q, k, v and zero decay.  On
-    the card (dk, dv) must be (16, 64) or (64, 64).
-    """
-    _check(q, k, v, g)
-    _build.count(gla_chunked, "calls")
+def _forward(q, k, v, g):
+    """(o, final state, the state before each chunk (B, H, chunks, dk, dv)
+    f32): the forward kernels on the card (the states are the scan pass's
+    scratch), the plain version on the CPU."""
     if q.device.type == "cpu":
-        return gla_chunked_ref(q, k, v, g)
-    if q.device.type != "cuda":
-        raise ValueError(f"gla_chunked runs on cuda or cpu, not {q.device}")
+        return gla_chunked_fwd_ref(q, k, v, g)
     b, h, t, dk = q.shape
     dv = v.shape[-1]
     if dk not in KEY_DIMS or dv not in VALUE_DIMS:
@@ -78,11 +74,89 @@ def gla_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "gla_chunk", rc)
     _build.count(gla_chunked, "launches")
-    return o, state
+    return o, state, ds.view(b, h, chunks, dk, dv)
 
 
-# ``calls`` counts every call on either device; ``launches`` counts calls
-# that launched on the card, one per call for its three kernels (see
+def _backward(q, k, v, g, states, state, do, dstate):
+    """(dq, dk, dv, dg): on the card the backward kernels, the chunks'
+    state-gradient contributions, the reverse scan from ``dstate`` (None:
+    zero), the per-chunk gradients with within-chunk dg sums, and dg; on the
+    CPU the plain version."""
+    if q.device.type == "cpu":
+        return gla_chunked_bwd_ref(q, k, v, g, states, do, dstate)
+    if do.dtype != q.dtype:
+        raise ValueError(f"the output's gradient is {do.dtype}, q {q.dtype}")
+    b, h, t, dk = q.shape
+    dv = v.shape[-1]
+    chunks = states.shape[2]
+    lib = _build.load("gla_chunk_bwd")
+    dq, dk_, dv_, dg = (torch.empty_like(x) for x in (q, k, v, g))
+    # scratch: each chunk's contribution, then the gradient of the state
+    # after it; its decay; within-chunk reverse sums of q dq - k dk and
+    # each chunk's total
+    dh = torch.empty((b * h, chunks, dk, dv), dtype=torch.float32, device=q.device)
+    decay = torch.empty((b * h, chunks, dk), dtype=torch.float32, device=q.device)
+    rsum = torch.empty((b * h, chunks * CHUNK, dk), dtype=torch.float32, device=q.device)
+    total = torch.empty((b * h, chunks, dk), dtype=torch.float32, device=q.device)
+    if dstate is not None:
+        dstate = dstate.float().contiguous()
+    with torch.cuda.device(q.device):
+        rc = lib.gla_chunk_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            states.data_ptr(), state.data_ptr(), do.data_ptr(),
+            dstate.data_ptr() if dstate is not None else None,
+            dq.data_ptr(), dk_.data_ptr(), dv_.data_ptr(), dg.data_ptr(),
+            dh.data_ptr(), decay.data_ptr(), rsum.data_ptr(), total.data_ptr(),
+            _build.float_code(q, "q"), b * h, t, dk, dv,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, "gla_chunk_bwd", rc)
+    _build.count(gla_chunked, "bwd_launches")
+    return dq, dk_, dv_, dg
+
+
+class GlaChunkedFn(torch.autograd.Function):
+    """Chunked GLA whose forward keeps the state before each chunk (the
+    forward scan's scratch on the card) and whose backward reads it: the
+    kernels on the card, the plain versions on the CPU.  The final state's
+    gradient may be None (training ignores the state)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, g):
+        ctx.set_materialize_grads(False)
+        o, state, states = _forward(q, k, v, g)
+        ctx.save_for_backward(q, k, v, g, states, state)
+        return o, state
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do, dstate):
+        q, k, v, g, states, state = ctx.saved_tensors
+        do = torch.zeros_like(v) if do is None else do.contiguous()
+        return _backward(q, k, v, g, states, state, do, dstate)
+
+
+def gla_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gated linear attention over q, k, g (B, H, T, dk) and v (B, H, T, dv),
+    contiguous, f32 or bf16; g is the per-step log-decay, clamped to [-8, 0].
+    Returns (o (B, H, T, dv) in q's dtype, final state (B, H, dk, dv) f32).
+    Any T: the kernel reads steps past T as zero q, k, v and zero decay.  On
+    the card (dk, dv) must be (16, 64) or (64, 64).  Differentiable: the
+    gradients come from the backward kernels (their plain versions on the
+    CPU), in the inputs' dtypes; g's follows the reference's ``jnp.clip``,
+    half a gradient on either bound.
+    """
+    _check(q, k, v, g)
+    _build.count(gla_chunked, "calls")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"gla_chunked runs on cuda or cpu, not {q.device}")
+    return GlaChunkedFn.apply(q, k, v, g)
+
+
+# ``calls`` counts every call on either device; ``launches`` counts forward
+# calls that launched on the card, one per call for its three kernels, and
+# ``bwd_launches`` backward ones, one per call for its four (see
 # kernels/block_agg/ops.py).
 gla_chunked.calls = 0
 gla_chunked.launches = 0
+gla_chunked.bwd_launches = 0

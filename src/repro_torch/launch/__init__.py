@@ -1,5 +1,6 @@
 """Command-line entry points of the port (``python -m repro_torch.launch.<name>``).
 
-Only ``serve`` so far: the reference's ``launch/`` is TPU-mesh and XLA-HLO
-tooling, and its H100 counterparts are still to come.
+``serve`` (batched requests through the slot engine) and ``train`` (the
+training driver).  The rest of the reference's ``launch/`` is TPU-mesh and
+XLA-HLO tooling, whose H100 counterparts are still to come.
 """

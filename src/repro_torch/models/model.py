@@ -1,30 +1,39 @@
 """Config-driven decoder of the port: the reference's ``models/model.py``
-for the families ``dense``, ``moe``, ``ssm`` and ``hybrid`` — the forward,
-and the serving half: ``cache_spec`` / ``init_cache``, ``prefill`` and
-``decode_step``.
+for the families ``dense``, ``moe``, ``ssm`` and ``hybrid`` — the forward
+(differentiable: ``train/step.py`` trains through it), and the serving
+half: ``cache_spec`` / ``init_cache``, ``prefill`` and ``decode_step``.
 
 Layer parameters are stacked on a leading L axis, as the reference stacks
 them for its layer scan (``scan_layers=True``), so its parameter tree maps
 one to one onto this module's state (``convert.model_params_from_arrays``);
-the passes walk the layers in a Python loop.  Attention goes through the
-flash wrapper, the SSM branch through the gla_chunk wrapper: the
-hand-written kernels on the card, their plain versions on the CPU.  A decode
-step attends one token against the cache (``layers.decode_attention``),
-advances the SSM state (``linear_attn.gla_decode_step``) and routes MoE
-tokens densely (``moe.moe_ffn_dense``): torch ops, as the reference's are
-XLA with no Pallas original.  The decode cache is written in place, so its
-tensors keep their storage from step to step.  The reference's ``remat``,
-``scan`` and ``shard_hints`` are JAX/TPU machinery with no counterpart on
-one card without a backward pass.
+the passes walk the layers in a Python loop over one ``unbind(0)`` view of
+each stack (one view per layer, whose backward writes its slice of the
+stack's gradient; indexing ``t[i]`` would write a zero tensor of the whole
+stack for every layer).  Attention goes through the flash wrapper, the SSM
+branch through the gla_chunk wrapper: the hand-written kernels on the card,
+forward and backward, their plain versions on the CPU.  With ``cfg.remat``
+each decoder block of a differentiated forward runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` with
+``nothing_saveable``): only the block's input is kept, and the backward runs
+the block's forward again.  A decode step attends one token against the
+cache (``layers.decode_attention``), advances the SSM state
+(``linear_attn.gla_decode_step``) and routes MoE tokens densely
+(``moe.moe_ffn_dense``): torch ops, as the reference's are XLA with no
+Pallas original.  ``prefill`` and ``decode_step`` run under ``no_grad``; the
+decode cache is written in place, so its tensors keep their storage from
+step to step.  The reference's ``scan`` and ``shard_hints`` are JAX/TPU
+machinery with no counterpart on one card; its ``remat_groups`` (sqrt
+remat over layer groups) is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
@@ -92,9 +101,11 @@ def cache_spec(cfg: ModelConfig, batch: int, cache_len: int) -> Dict[str, Tuple[
 
 
 class Model(nn.Module):
-    """Inference-only decoder on ``device`` (the card by default; raises
-    without one unless ``device="cpu"``), parameters in ``cfg.dtype``.
-    Allocated empty: call :meth:`init` or load a state dict."""
+    """Decoder on ``device`` (the card by default; raises without one unless
+    ``device="cpu"``), parameters in ``cfg.dtype``.  Allocated empty: call
+    :meth:`init` or load a state dict.  The parameters are created without
+    ``requires_grad``; training switches them on with PyTorch's own
+    ``model.requires_grad_(True)`` (``train.step.init_train_state``)."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
@@ -148,8 +159,11 @@ class Model(nn.Module):
         return self
 
     # ------------------------------------------------------------- the block
-    def _layer(self, i: int) -> Dict[str, torch.Tensor]:
-        return {n: t[i] for n, t in self.layers.items()}
+    def _per_layer(self) -> List[Dict[str, torch.Tensor]]:
+        """Each layer's parameters: views of the stacks, one ``unbind`` per
+        stack and pass."""
+        views = {n: t.unbind(0) for n, t in self.layers.items()}
+        return [{n: v[i] for n, v in views.items()} for i in range(self.cfg.num_layers)]
 
     def _attn_branch(self, p, h, *, window: int):
         """(output, (k after RoPE, v), each (B, Hkv, S, hd))."""
@@ -223,16 +237,25 @@ class Model(nn.Module):
         f, aux = self._ffn_branch(p, x)
         return x + f, kv, state, aux
 
+    def _train_block(self, p, x) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        x, _, _, aux = self._decoder_block(p, x)
+        return x, aux
+
     # ------------------------------------------------------------ full pass
     def forward(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
         """Logits of ``batch["tokens"]`` (B, S): returns (logits (B, S, Vp)
         in the model dtype, the MoE aux loss summed over layers, f32; 0
-        without experts)."""
+        without experts).  Differentiable; rematerialised per block when
+        ``cfg.remat`` is set and grad is enabled."""
         cfg = self.cfg
         x = self.embed[batch["tokens"].long()]
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i in range(cfg.num_layers):
-            x, _, _, aux = self._decoder_block(self._layer(i), x)
+        remat = cfg.remat and torch.is_grad_enabled()
+        for p in self._per_layer():
+            if remat:
+                x, aux = checkpoint(self._train_block, p, x, use_reentrant=False)
+            else:
+                x, aux = self._train_block(p, x)
             if aux is not None:
                 aux_total = aux_total + aux
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
@@ -262,8 +285,8 @@ class Model(nn.Module):
         cache = self.init_cache(b, cache_len or max(s, 1))
         cache["pos"].fill_(s)
         x = self.embed[tokens.long()]
-        for i in range(cfg.num_layers):
-            x, kv, state, _ = self._decoder_block(self._layer(i), x)
+        for i, p in enumerate(self._per_layer()):
+            x, kv, state, _ = self._decoder_block(p, x)
             if kv is not None:
                 store = cache["k"].shape[3]
                 for name, t in zip(("k", "v"), kv):
@@ -301,8 +324,7 @@ class Model(nn.Module):
             else:
                 slot, seen = pos64.clamp(max=store - 1), pos64
             posv = pos.view(b, 1, 1)                           # broadcast over heads
-        for i in range(cfg.num_layers):
-            p = self._layer(i)
+        for i, p in enumerate(self._per_layer()):
             hn = rms_norm(x, p["ln1"], cfg.norm_eps)
             attn_out = ssm_out = None
             if cfg.has_attention:

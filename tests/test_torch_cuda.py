@@ -1016,3 +1016,167 @@ def test_serve_engine_keeps_its_cache_storage_on_the_card(cuda):
             for k, v in eng.cache.items()} == layout
     assert all(v.device.type == "cuda" for v in eng.cache.values())
     assert outs[0] == outs[1]
+
+
+# -- the backward kernels: flash_attn_bwd and gla_chunk_bwd -----------------------
+
+def _bf16_within_its_own_rounding(got, plain_bf16, plain_f32, scale, what):
+    """bf16: the kernel's distance from the plain f32 backward on the same
+    inputs at most 3x the plain bf16 backward's own (both compute in f32 and
+    round once to bf16), or 1e-4 of the call's largest gradient where that
+    distance is 0 (one query's dq, 0 up to rounding)."""
+    own = float((plain_bf16.float() - plain_f32.float()).abs().max())
+    err = float((got.float() - plain_f32.float()).abs().max())
+    assert err <= max(3 * own, 1e-4 * scale), (what, err, own)
+
+
+# (B, Hq, Hkv, S, d, dtype, causal, window): one query; GQA 1, 2, 5; S 65
+# and 127 off the 64-row tiles; a window; non-causal; f32 and bf16
+FLASH_BWD_CASES = [
+    (1, 2, 2, 1, 64, torch.float32, True, 0),
+    (1, 4, 2, 65, 64, torch.bfloat16, True, 0),
+    (2, 5, 1, 127, 128, torch.float32, True, 16),
+    (1, 5, 5, 200, 64, torch.bfloat16, False, 0),
+    (1, 4, 4, 130, 128, torch.bfloat16, True, 32),
+    (1, 6, 3, 300, 128, torch.float32, False, 50),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+def test_flash_attention_backward_matches_plain_version_on_the_card(cuda, case):
+    """The two backward kernels against the plain backward on the same q, k,
+    v, o, lse and do: f32 within 1e-4 of the call's largest plain gradient
+    (one query's dq is 0 up to rounding, with no scale of its own); bf16 as
+    _bf16_within_its_own_rounding.  The forward's lse against the plain
+    one's (1e-5); asking for it leaves o bitwise; two backward launches
+    bitwise equal, one counted per backward."""
+    from repro_torch.kernels.flash_attn import (flash_attention, flash_attention_bwd_ref,
+                                                flash_attention_lse_ref)
+    b, hq, hkv, s, d, dtype, causal, window = case
+    rng = np.random.default_rng(s + d + hq)
+    q, k, v = (_normal(rng, (b, h, s, d), cuda, dtype).requires_grad_()
+               for h in (hq, hkv, hkv))
+    do = _normal(rng, (b, hq, s, d), cuda, dtype)
+    before = flash_attention.launches, flash_attention.bwd_launches
+    o = flash_attention(q, k, v, causal=causal, window=window)
+    with torch.no_grad():
+        assert torch.equal(o, flash_attention(q, k, v, causal=causal, window=window))
+    grads = torch.autograd.grad(o, (q, k, v), do, retain_graph=True)
+    again = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches - before[0], flash_attention.bwd_launches - before[1]) == (2, 2)
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))
+    q, k, v = q.detach(), k.detach(), v.detach()
+    from repro_torch.kernels.flash_attn import ops
+    _, lse = ops._forward(q, k, v, causal, window, 1.0 / d ** 0.5, True)
+    _, want_lse = flash_attention_lse_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    o = o.detach()
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window)
+    if dtype == torch.float32:
+        scale = max(float(w.abs().max()) for w in want)
+        for g, w in zip(grads, want):
+            assert float((g - w).abs().max()) <= 1e-4 * scale
+    else:
+        want32 = flash_attention_bwd_ref(q.float(), k.float(), v.float(), o.float(), lse,
+                                         do.float(), causal=causal, window=window)
+        scale = max(float(w.abs().max()) for w in want32)
+        for name, g, w, w32 in zip("qkv", grads, want, want32):
+            assert g.dtype == dtype
+            _bf16_within_its_own_rounding(g, w, w32, scale, f"d{name}")
+
+
+# (B, H, T, dk, dtype, with a final-state gradient): hymba's (16, 64) and
+# rwkv6's (64, 64), T off the chunk, f32 and bf16
+GLA_BWD_CASES = [
+    (1, 3, 130, 16, torch.float32, True),
+    (2, 2, 200, 64, torch.bfloat16, False),
+    (1, 4, 64, 16, torch.bfloat16, True),
+    (1, 2, 100, 64, torch.float32, False),
+]
+
+
+@pytest.mark.parametrize("case", GLA_BWD_CASES)
+def test_gla_chunked_backward_matches_plain_version_on_the_card(cuda, case):
+    """The four backward kernels against the plain backward on the same
+    inputs, decays below -8 and exactly on both bounds (the jnp.clip half
+    gradient there): f32 within 1e-4 of the call's largest plain gradient,
+    bf16 as _bf16_within_its_own_rounding; two launches bitwise equal, one
+    counted per backward."""
+    from repro_torch.kernels.gla_chunk import gla_chunked, gla_chunked_bwd_ref, gla_chunked_fwd_ref
+    b, h, t, dk, dtype, with_ds = case
+    rng = np.random.default_rng(t + dk)
+    q = _normal(rng, (b, h, t, dk), cuda, dtype, 0.5).requires_grad_()
+    k = _normal(rng, (b, h, t, dk), cuda, dtype, 0.5).requires_grad_()
+    v = _normal(rng, (b, h, t, 64), cuda, dtype).requires_grad_()
+    do = _normal(rng, (b, h, t, 64), cuda, dtype)
+    g = torch.from_numpy(-rng.uniform(0.0, 0.3, (b, h, t, dk)).astype(np.float32))
+    g[..., :3, :] = -9.0
+    g[..., 3, :] = -8.0
+    g[..., 4, :] = 0.0
+    g = g.to(cuda).to(dtype).requires_grad_()
+    ds = (torch.from_numpy(rng.standard_normal((b, h, dk, 64)).astype(np.float32)).to(cuda)
+          if with_ds else None)
+    before = gla_chunked.bwd_launches
+    o, s = gla_chunked(q, k, v, g)
+    outs, gouts = ([o, s], [do, ds]) if with_ds else ([o], [do])
+    grads = torch.autograd.grad(outs, (q, k, v, g), gouts, retain_graph=True)
+    again = torch.autograd.grad(outs, (q, k, v, g), gouts)
+    torch.cuda.synchronize()
+    assert gla_chunked.bwd_launches - before == 2
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))
+    leaves = [x.detach() for x in (q, k, v, g)]
+    _, _, states = gla_chunked_fwd_ref(*leaves)
+    want = gla_chunked_bwd_ref(*leaves, states, do, ds)
+    if dtype == torch.float32:
+        scale = max(float(w.abs().max()) for w in want)
+        for gr, w in zip(grads, want):
+            assert float((gr - w).abs().max()) <= 1e-4 * scale
+    else:
+        wide = [x.float() for x in leaves]
+        want32 = gla_chunked_bwd_ref(*wide, gla_chunked_fwd_ref(*wide)[2], do.float(), ds)
+        scale = max(float(w.abs().max()) for w in want32)
+        for name, gr, w, w32 in zip("qkvg", grads, want, want32):
+            _bf16_within_its_own_rounding(gr, w, w32, scale, f"d{name}")
+
+
+def test_full_width_two_layer_step_on_the_card_matches_the_cpu(cuda):
+    """internlm2-1.8b at full width (d 2048, 16 / 8 heads of 128, vocab
+    92,544, bf16) with depth cut to 2 layers: two make_train_step steps on
+    the card (flash forward and backward kernels) and on the CPU (plain
+    versions) from the same weights and batch.  Losses and gradient norms
+    within 2^-7 (one bf16 step: both compute attention in f32 but round the
+    bf16 matmuls in other orders)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.models import Model
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import TrainState, make_train_step
+    from repro_torch.train.optimizer import init_opt_state
+    cfg = dataclasses.replace(get_config("internlm2-1.8b"), num_layers=2)
+    cpu = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    gpu = Model(cfg, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 129)).astype(np.int32)
+    metrics = []
+    for model in (cpu, gpu):
+        dev = model.embed.device
+        model.requires_grad_(True)
+        params = dict(model.named_parameters())
+        state = TrainState(params, init_opt_state(params), None)
+        fn = make_train_step(model, AdamWConfig(lr=1e-4, warmup_steps=0))
+        batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(dev),
+                 "labels": torch.from_numpy(toks[:, 1:]).to(dev)}
+        before = flash_attention.bwd_launches
+        seen = []
+        for _ in range(2):
+            state, m = fn(state, batch)
+            seen.append((float(m["loss"]), float(m["grad_norm"])))
+        launched = flash_attention.bwd_launches - before
+        metrics.append(seen)
+    assert launched == 2 * cfg.num_layers
+    for (lc, gc), (lg, gg) in zip(*metrics):
+        assert np.isfinite([lc, gc, lg, gg]).all()
+        np.testing.assert_allclose(lg, lc, rtol=2 ** -7)
+        np.testing.assert_allclose(gg, gc, rtol=2 ** -7)

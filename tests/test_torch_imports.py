@@ -83,13 +83,19 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
             "repro_torch.serve.dashboard", "repro_torch.serve.engine",
             "repro_torch.models.moe", "repro_torch.launch",
             "repro_torch.launch.serve"} <= mods
+    # training: train/, its launcher and the backward kernels' modules
+    assert {"repro_torch.train", "repro_torch.train.optimizer", "repro_torch.train.step",
+            "repro_torch.train.compression", "repro_torch.train.data",
+            "repro_torch.train.checkpoint", "repro_torch.train.elastic",
+            "repro_torch.launch.train", "repro_torch.convert"} <= mods
 
 
 def test_no_source_imports_jax_or_the_reference():
     scripts = [ROOT / "chip_smoke.py", ROOT / "examples" / "torch_approx_eval.py",
                ROOT / "examples" / "torch_aqp_analytics.py",
                ROOT / "examples" / "torch_quickstart.py",
-               ROOT / "examples" / "torch_serve_llm.py"]
+               ROOT / "examples" / "torch_serve_llm.py",
+               ROOT / "examples" / "torch_train.py"]
     files = sorted(PKG.rglob("*.py")) + scripts
     assert all(f.exists() for f in scripts)
     offenders = [str(f) for f in files if _FORBIDDEN.search(f.read_text())]
@@ -172,3 +178,13 @@ def test_serving_entry_points_raise_without_cuda(monkeypatch):
             Model(get_config(arch).reduced())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         launch_serve.main(["--reduced"])
+
+
+def test_training_entry_points_raise_without_cuda(monkeypatch):
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.data import make_domain_metadata
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launch_train.main(["--reduced", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_domain_metadata({"web": 2}, block_rows=8)
