@@ -255,11 +255,16 @@ Phases, each printing its own lines:
              The first call per shape of each model kernel is recorded and
              replayed like phase 3b.
 
-13. train   — training (run last): (a) the flash and GLA backward kernels
+13. train   — training (run last): (a) per kernel of the two backward
+             libraries, from ``cuobjdump -sass`` and ptxas: HGMMA and UTMALDG
+             counts (both > 0 in the bf16 flash kernels), RED / ATOM (none
+             anywhere), registers and spills (none in a bf16 kernel); the
+             flash and GLA backward kernels
              against their plain backward versions on the same inputs
              (flash at internlm2's (1, 16, 4096, 128) causal and hymba's
-             (1, 25, 2048, 64) window 1024, and Sq 1 / 65 / 127 / 200 with
-             GQA 1, 2, 5; GLA at (1, 25, 2048, 16 / 64) and (1, 64, 2048,
+             (1, 25, 2048, 64) window 1024, and Sq 1 / 65 / 127 / 129 / 200
+             with GQA 1, 2, 5, windows across a 128-row tile, d 64 and 128;
+             GLA at (1, 25, 2048, 16 / 64) and (1, 64, 2048,
              64 / 64), T 130 and 200, decays below -8 and on both bounds,
              with and without a final-state gradient), bf16 and f32: f32
              within 1e-4 of the call's largest plain gradient, bf16 within 3x
@@ -422,29 +427,12 @@ def gpu_clocks():
 
 def ptxas_lines(log):
     """One line per kernel of nvcc's ``-Xptxas=-v`` output: registers per
-    thread, spill stores / loads and static shared memory (the kernels' tiles
-    are dynamic shared memory, sized in their sources)."""
-    rows, name, spill = [], None, "?"
-    for ln in log.splitlines():
-        if "Compiling entry function" in ln:
-            name = ln.split("'")[1]
-        elif "spill stores" in ln:
-            spill = "/".join([w for w in ln.replace(",", " ").split() if w.isdigit()][:3])
-        elif "Used" in ln and "registers" in ln and name:
-            words = ln.replace(",", " ").split()
-            regs = words[words.index("registers") - 1]
-            smem = words[words.index("smem") - 2] if "smem" in words else "0"
-            rows.append((name, f"{regs} registers, stack/spill stores/loads {spill} B, "
-                               f"static smem {smem} B"))
-            name = None
-    try:  # readable kernel names where binutils' c++filt is there
-        names = subprocess.run(["c++filt"], input="\n".join(n for n, _ in rows),
-                               capture_output=True, text=True, timeout=30).stdout.split("\n")
-    except (OSError, subprocess.SubprocessError):
-        names = []
-    if len(names) < len(rows):
-        names = [n for n, _ in rows]
-    return [f"{n.split('(')[0]}: {txt}" for n, (_, txt) in zip(names, rows)]
+    thread, stack and spill stores / loads and static shared memory (the
+    kernels' tiles are dynamic shared memory, sized in their sources)."""
+    from repro_torch.kernels import sass
+    return [f"{name}: {u['registers']} registers, stack/spill stores/loads {u['stack']}/"
+            f"{u['spill_stores']}/{u['spill_loads']} B, static smem {u['smem']} B"
+            for name, u in sass.ptxas_usage(log).items()]
 
 
 # ---------------------------------------------------------------------------
@@ -2839,19 +2827,60 @@ TRAIN_PROFILED_STEP = 3          # the step whose device idle share is printed
 # weight by ~lr, 14 % of the 0.022 scale of a d-2048 matrix at 3e-3
 TRAIN_LR = 3e-4
 # (a) the backward kernels at the paths' shapes (B 1), bf16 and f32, and
-# small odd shapes: (B, Hq, Hkv, S, d, causal, window)
+# small odd shapes: S 65, 127, 129, 200 (off the 64- and 128-row tiles), GQA
+# 1, 2, 5, windows whose edge crosses a 128-row tile, d 64 and 128:
+# (B, Hq, Hkv, S, d, causal, window)
 FLASH_BWD_POINTS = [(1, 16, 8, 4096, 128, True, 0), (1, 25, 5, 2048, 64, True, 1024),
                     (1, 2, 2, 1, 64, True, 0), (1, 4, 2, 65, 64, True, 0),
-                    (2, 5, 1, 127, 128, True, 16), (1, 5, 5, 200, 64, False, 0)]
+                    (2, 5, 1, 127, 128, True, 16), (1, 5, 5, 200, 64, False, 0),
+                    (1, 4, 2, 129, 128, True, 0), (1, 6, 3, 200, 128, True, 100),
+                    (1, 5, 1, 129, 64, False, 70), (1, 2, 1, 200, 64, True, 150)]
 # (B, H, T, dk, with a final-state gradient): hymba's (16, 64) and rwkv6's
-# (64, 64) at T 2048, T off the chunk, decays below -8 and on both bounds
+# (64, 64) at T 2048, T 130 and 200 off the chunk, decays below -8 and on
+# both bounds
 GLA_BWD_POINTS = [(1, 25, 2048, 16, False), (1, 64, 2048, 64, False),
-                  (1, 3, 130, 16, True), (2, 2, 200, 64, False)]
+                  (1, 3, 130, 16, True), (2, 2, 200, 64, False),
+                  (1, 2, 200, 16, True), (1, 3, 130, 64, True)]
 # f32: each gradient within this share of the call's largest plain gradient
 # (dq of one query is 0 up to rounding and has no scale of its own); bf16:
 # within 3x the plain bf16 backward's own distance from the plain f32 one,
 # or within the f32 share where that distance is 0 (the same one-query dq)
 BWD_F32_REL, BWD_BF16_FACTOR = 1e-4, 3.0
+
+
+def backward_sass_checks():
+    """Phase 13: what the backward libraries hold, per kernel, from
+    ``cuobjdump -sass`` (``repro_torch.kernels.sass``) and nvcc's
+    ``-Xptxas=-v``: the bf16 flash kernels must issue HGMMA from
+    UTMALDG-fed tiles, no kernel of either library may hold a RED or ATOM,
+    and no bf16 kernel may spill.  Returns one row per kernel."""
+    from repro_torch.kernels import _build, sass
+    rows = []
+    for lib in ("flash_attn_bwd", "gla_chunk_bwd"):
+        usage = sass.ptxas_usage(_build.build_log(lib))
+        funcs = sass.functions(_build.library_path(lib))
+        check(bool(funcs) and set(usage) == set(funcs),
+              f"{lib}: kernels in the SASS {sorted(funcs)} and in ptxas's log {sorted(usage)}")
+        for name, text in sorted(funcs.items()):
+            counts = sass.opcode_counts(text)
+            u = usage[name]
+            bf16 = "wgmma" in name or "__nv_bfloat16" in name or name.startswith("gla_bwd_scan")
+            row = {"library": lib, "kernel": name, "bf16_route": bf16,
+                   "HGMMA": counts.get("HGMMA", 0), "UTMALDG": counts.get("UTMALDG", 0),
+                   "RED_ATOM": sass.atomics(counts), **u}
+            rows.append(row)
+            print(f"[train] (sass) {lib} {name}: HGMMA {row['HGMMA']}, UTMALDG "
+                  f"{row['UTMALDG']}, RED/ATOM {row['RED_ATOM']}; {u['registers']} registers, "
+                  f"spill stores / loads {u['spill_stores']} / {u['spill_loads']} B")
+            check(row["RED_ATOM"] == 0, f"{name}: {row['RED_ATOM']} RED / ATOM instructions")
+            if "wgmma" in name:
+                check(row["HGMMA"] > 0 and row["UTMALDG"] > 0,
+                      f"{name}: HGMMA {row['HGMMA']}, UTMALDG {row['UTMALDG']}")
+            if bf16:
+                check(u["spill_stores"] == 0 and u["spill_loads"] == 0,
+                      f"{name}: spills {u['spill_stores']} / {u['spill_loads']} B")
+    check(any("wgmma" in r["kernel"] for r in rows), "flash_attn_bwd has no wgmma kernel")
+    return rows
 
 
 def flash_bwd_work(np, q, k, causal, window):
@@ -3003,7 +3032,7 @@ def time_backward_kernel(torch, np, name, args, smi, launch_floor):
                                                 window=window, scale=scale)
         flops, nbytes = flash_bwd_work(np, q, k, causal, window)
         library_ms = time_cold(torch, sdpa_backward(torch, q, k, v, do, causal, window), iters=10)
-        grids = [(-(-sq // 64) * b, hq), (-(-k.shape[2] // 64) * b, k.shape[1])]
+        grids = flash_ops.backward_grids(q, k)
         where = f"{tuple(q.shape)} x {tuple(k.shape)} causal={causal} window={window}"
     else:
         q, k, v, g, states, state, do, dstate = args
@@ -3013,8 +3042,7 @@ def time_backward_kernel(torch, np, name, args, smi, launch_floor):
         flops, nbytes = gla_bwd_work(q, v)
         library_ms = None
         chunks = -(-t // 64)
-        grids = [(chunks, b * h), (-(-b * h * dk * 64 // 256), 1), (chunks, b * h),
-                 (chunks, b * h)]
+        grids = [(chunks, b * h), (-(-b * h * dk * 64 // 256), 1), (chunks, b * h)]
         where = f"{tuple(q.shape)} x {tuple(v.shape)}"
     got, want = kernel(), plain()
     err = max(float((a.float() - w.float()).abs().max()) for a, w in zip(got, want))
@@ -3142,6 +3170,7 @@ def run_train(torch, np, smi, launch_floor):
     summary = {}
 
     # -- (a) the backward kernels against their plain versions --------------
+    summary["sass"] = backward_sass_checks()
     summary["checks"] = backward_kernel_checks(torch, np, dev)
 
     # -- (b) internlm2-1.8b at full width through the launcher ---------------
@@ -4041,7 +4070,9 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "floor_ms": t["floor_ms"], "shape": t["shape"],
             "main_path": training["kernels"][k], "checks": [
-                r for r in training["checks"] if r["name"] == k]})
+                r for r in training["checks"] if r["name"] == k],
+            "sass": [r for r in training["sass"]
+                     if r["library"] == os.path.basename(source)[:-3]]})
     summary["train"] = {k: v for k, v in training.items() if k not in ("kernels", "checks")}
     summary["drain"] = drain
     summary["fused"] = {k: v for k, v in fused.items() if k != "kernels"}

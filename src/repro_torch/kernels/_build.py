@@ -26,10 +26,10 @@ import torch
 
 # each library and the shared headers of csrc/ that its .cu includes
 HEADERS = {"filtered_agg": ("block_reduce.cuh",), "block_agg": ("block_reduce.cuh",),
-           "flash_attn": ("float_io.cuh", "hopper.cuh"),
+           "flash_attn": ("float_io.cuh", "hopper.cuh", "tma_map.cuh"),
            "gla_chunk": ("float_io.cuh", "gla_tiles.cuh"),
            "segment_sum": ("block_reduce.cuh",), "taqa_solve": (),
-           "flash_attn_bwd": ("float_io.cuh",),
+           "flash_attn_bwd": ("float_io.cuh", "hopper.cuh", "tma_map.cuh"),
            "gla_chunk_bwd": ("float_io.cuh", "gla_tiles.cuh")}
 KERNELS = tuple(HEADERS)
 # the package directory of a library whose name is not its package's
@@ -84,7 +84,7 @@ _SIGNATURES = {
     },
     "gla_chunk_bwd": {
         "gla_chunk_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                 _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+                                 _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "segment_sum": {
         "segment_sum_keys_launch": [_P, _L, _L, _P, _P],
@@ -170,10 +170,20 @@ def build(names: Sequence[str] = KERNELS) -> Dict[str, Path]:
         if proc.returncode != 0:
             failed.append(f"{n} (nvcc exit {proc.returncode}):\n{out}")
             continue
+        paths[n].with_suffix(".log").write_text(out)
         os.replace(tmp, paths[n])  # atomic: a reader never sees half a file
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return paths
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for kernel ``name``'s library, built now or by an
+    earlier process (kept beside the library)."""
+    if name in build_logs:
+        return build_logs[name]
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def load(name: str) -> ctypes.CDLL:

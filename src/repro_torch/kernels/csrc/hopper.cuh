@@ -79,6 +79,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// box at element ``c0`` of a 1-d tensor map into shared memory (16-byte
+// aligned), counted on ``bar`` like tma_load_3d
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
+      : "memory");
+}
+
 // ---- wgmma ---------------------------------------------------------------
 
 // descriptor of a 128-byte swizzled tile at ``p`` (see the note at the top)

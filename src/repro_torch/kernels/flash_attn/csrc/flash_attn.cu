@@ -68,6 +68,7 @@
 
 #include "../../csrc/float_io.cuh"
 #include "../../csrc/hopper.cuh"
+#include "../../csrc/tma_map.cuh"
 
 namespace repro_torch {
 
@@ -497,50 +498,6 @@ __global__ void __launch_bounds__(kWgThreads, D == 64 ? 2 : 1)
             (m[i] + log2f(l[i] > 0.0f ? l[i] : 1.0f)) * 0.6931471805599453f;
     }
   }
-}
-
-// cuTensorMapEncodeTiled of libcuda, looked up through the CUDA runtime's
-// entry-point query, so the library links no libcuda
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-static EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// a (heads, rows, d) bf16 tensor as a 3-d map read in boxes of 64 columns x
-// box_rows rows of one head, 128-byte swizzled, zeros past the ends
-static bool make_map(CUtensorMap* map, const void* base, int heads, int rows, int d,
-                     int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(heads)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * sizeof(bf16),
-                                 static_cast<cuuint64_t>(rows) * d * sizeof(bf16)};
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-                strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D>

@@ -21,6 +21,10 @@ from repro_torch.kernels.flash_attn.ref import (flash_attention_bwd_ref,
 
 HEAD_DIMS = (64, 128)  # the widths the kernel is instantiated for
 MAX_GRID_YZ = 65_535   # q heads ride in gridDim.y, the batch in gridDim.z
+BWD_TILE = 64          # rows of the backward's streamed tiles (csrc/flash_attn_bwd.cu)
+# kv rows of a bf16 dK/dV CTA by head_dim, as launch_bwd_wgmma sets them
+# (csrc/flash_attn_bwd.cu): the faster of 64 and 128 at the training inputs
+BWD_KV_ROWS = {64: 64, 128: 128}
 
 
 def _check(q, k, v, window: int, q_offset: int) -> None:
@@ -87,6 +91,51 @@ def _forward(q, k, v, causal: bool, window: int, scale: float, with_lse: bool):
     return o, lse
 
 
+def backward_grids(q, k):
+    """The (x, y) CTA grids of the backward's two launches on the card, dQ
+    then dK/dV, with the batch folded into x (the launch floor's shape):
+    bf16 dQ CTAs of 128 q rows and dK/dV CTAs of ``BWD_KV_ROWS[d]`` kv
+    rows; f32 CTAs of 64 rows."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    q_rows, kv_rows = ((2 * BWD_TILE, BWD_KV_ROWS[d]) if q.dtype == torch.bfloat16
+                       else (BWD_TILE, BWD_TILE))
+    return [(-(-sq // q_rows) * b, hq), (-(-skv // kv_rows) * b, hkv)]
+
+
+def stats_floats(q) -> int:
+    """Floats of the backward's stats scratch for q (B, Hq, Sq, d): each
+    row's lse log2 e and delta, rows padded to a multiple of the 64-row
+    tile (``csrc/flash_attn_bwd.cu``; the f32 kernels keep delta there)."""
+    b, hq, sq, _ = q.shape
+    return 2 * b * hq * (-(-sq // BWD_TILE) * BWD_TILE)
+
+
+def backward_checks(q, k, v, o, lse, do) -> None:
+    """What the backward kernels take, checked on the host (any device):
+    the forward's checks, o and do like q and contiguous, lse (B, Hq, Sq)
+    f32 contiguous, every base 16-byte aligned (the TMA loads and the
+    vector stores), the stats scratch's rows within int32."""
+    _launch_checks(q)
+    if do.dtype != q.dtype:
+        raise ValueError(f"the output's gradient is {do.dtype}, q {q.dtype}")
+    for what, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"{what} is {tuple(t.shape)} {t.dtype}, q {tuple(q.shape)} "
+                             f"{q.dtype}")
+    if lse.shape != q.shape[:3] or lse.dtype != torch.float32:
+        raise ValueError(f"lse is {tuple(lse.shape)} {lse.dtype}, expected "
+                         f"{tuple(q.shape[:3])} float32")
+    for what, t in (("q", q), ("k", k), ("v", v), ("o", o), ("lse", lse), ("do", do)):
+        if not t.is_contiguous():
+            raise ValueError(f"{what} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what} must be 16-byte aligned")
+    if stats_floats(q) >= 2 ** 31:
+        raise ValueError(f"{tuple(q.shape)}: 2 B Hq Sq (padded to {BWD_TILE}) rows exceed "
+                         "int32")
+
+
 def _backward(q, k, v, o, lse, do, causal: bool, window: int, scale: float):
     """(dq, dk, dv): on the card the backward kernels, dQ (with delta =
     rowsum(do o) in its prologue), then dK and dV, two launches on the
@@ -94,18 +143,17 @@ def _backward(q, k, v, o, lse, do, causal: bool, window: int, scale: float):
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window,
                                        scale=scale)
-    if do.dtype != q.dtype:
-        raise ValueError(f"the output's gradient is {do.dtype}, q {q.dtype}")
+    backward_checks(q, k, v, o, lse, do)
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     lib = _build.load("flash_attn_bwd")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    stats = torch.empty(stats_floats(q), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         rc = lib.flash_attn_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            delta.data_ptr(), _build.float_code(q, "q"), b, hq, hkv, sq, skv, d,
+            stats.data_ptr(), _build.float_code(q, "q"), b, hq, hkv, sq, skv, d,
             scale, int(causal), int(window),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "flash_attn_bwd", rc)

@@ -8,7 +8,7 @@ there is no mode switch and no fallback.  One forward call on the card is
 three kernels on the current stream: per-(chunk, head) state contributions,
 the scan over chunks, and per-(chunk, head) outputs; it counts as one
 launch.  The scan leaves the state before each chunk in its scratch, which
-the Function keeps for the backward (four kernels, one count).
+the Function keeps for the backward (three kernels, one count).
 """
 
 from __future__ import annotations
@@ -77,36 +77,61 @@ def _forward(q, k, v, g):
     return o, state, ds.view(b, h, chunks, dk, dv)
 
 
+def backward_checks(q, k, v, g, states, state, do, dstate) -> None:
+    """What the backward kernels take, checked on the host (any device):
+    the forward's shapes, do like v, the chunk-start states (B, H, chunks,
+    dk, dv), the final state and dstate (B, H, dk, dv) f32, all contiguous
+    and 16-byte aligned (the kernels' float4 and 16-byte loads)."""
+    b, h, t, dk = q.shape
+    dv = v.shape[-1]
+    if dk not in KEY_DIMS or dv not in VALUE_DIMS:
+        raise ValueError(f"(dk, dv) = ({dk}, {dv}): the kernel takes dk in "
+                         f"{KEY_DIMS}, dv in {VALUE_DIMS}")
+    if b * h > MAX_GRID_Y:
+        raise ValueError(f"{b} x {h} (batch x heads) exceeds the grid")
+    if do.dtype != q.dtype or do.shape != v.shape:
+        raise ValueError(f"the output's gradient is {tuple(do.shape)} {do.dtype}, v "
+                         f"{tuple(v.shape)} {q.dtype}")
+    chunks = -(-t // CHUNK)
+    wants = [("states", states, (b, h, chunks, dk, dv)), ("state", state, (b, h, dk, dv))]
+    if dstate is not None:
+        wants.append(("dstate", dstate, (b, h, dk, dv)))
+    for what, x, shape in wants:
+        if tuple(x.shape) != shape or x.dtype != torch.float32:
+            raise ValueError(f"{what} is {tuple(x.shape)} {x.dtype}, expected {shape} float32")
+    for what, x in (("q", q), ("k", k), ("v", v), ("g", g), ("do", do), *[w[:2] for w in wants]):
+        if not x.is_contiguous():
+            raise ValueError(f"{what} must be contiguous")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{what} must be 16-byte aligned")
+
+
 def _backward(q, k, v, g, states, state, do, dstate):
     """(dq, dk, dv, dg): on the card the backward kernels, the chunks'
     state-gradient contributions, the reverse scan from ``dstate`` (None:
-    zero), the per-chunk gradients with within-chunk dg sums, and dg; on the
-    CPU the plain version."""
+    zero), then every gradient of each chunk; on the CPU the plain
+    version."""
     if q.device.type == "cpu":
         return gla_chunked_bwd_ref(q, k, v, g, states, do, dstate)
-    if do.dtype != q.dtype:
-        raise ValueError(f"the output's gradient is {do.dtype}, q {q.dtype}")
+    if dstate is not None:
+        dstate = dstate.float().contiguous()
+    backward_checks(q, k, v, g, states, state, do, dstate)
     b, h, t, dk = q.shape
     dv = v.shape[-1]
     chunks = states.shape[2]
     lib = _build.load("gla_chunk_bwd")
     dq, dk_, dv_, dg = (torch.empty_like(x) for x in (q, k, v, g))
     # scratch: each chunk's contribution, then the gradient of the state
-    # after it; its decay; within-chunk reverse sums of q dq - k dk and
-    # each chunk's total
+    # after it; its decay
     dh = torch.empty((b * h, chunks, dk, dv), dtype=torch.float32, device=q.device)
     decay = torch.empty((b * h, chunks, dk), dtype=torch.float32, device=q.device)
-    rsum = torch.empty((b * h, chunks * CHUNK, dk), dtype=torch.float32, device=q.device)
-    total = torch.empty((b * h, chunks, dk), dtype=torch.float32, device=q.device)
-    if dstate is not None:
-        dstate = dstate.float().contiguous()
     with torch.cuda.device(q.device):
         rc = lib.gla_chunk_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             states.data_ptr(), state.data_ptr(), do.data_ptr(),
             dstate.data_ptr() if dstate is not None else None,
             dq.data_ptr(), dk_.data_ptr(), dv_.data_ptr(), dg.data_ptr(),
-            dh.data_ptr(), decay.data_ptr(), rsum.data_ptr(), total.data_ptr(),
+            dh.data_ptr(), decay.data_ptr(),
             _build.float_code(q, "q"), b * h, t, dk, dv,
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "gla_chunk_bwd", rc)
@@ -155,7 +180,7 @@ def gla_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 # ``calls`` counts every call on either device; ``launches`` counts forward
 # calls that launched on the card, one per call for its three kernels, and
-# ``bwd_launches`` backward ones, one per call for its four (see
+# ``bwd_launches`` backward ones, one per call for its three (see
 # kernels/block_agg/ops.py).
 gla_chunked.calls = 0
 gla_chunked.launches = 0

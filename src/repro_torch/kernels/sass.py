@@ -1,5 +1,8 @@
-"""Where a built kernel's global loads sit against their first use, read
-from the SASS that ``cuobjdump -sass`` prints for a built library.
+"""What a built kernel's SASS holds, read from ``cuobjdump -sass`` of a
+built library: where its global loads sit against their first use, and how
+many instructions of each opcode it has (the tensor-core and TMA
+instructions, the atomics); and each kernel's registers and spills from
+nvcc's ``-Xptxas=-v`` output.
 
     PYTHONPATH=src python -m repro_torch.kernels.sass build/kernels/libfiltered_agg-*.so
 
@@ -20,6 +23,7 @@ from __future__ import annotations
 import re
 import subprocess
 import sys
+from collections import Counter
 from pathlib import Path
 from typing import Dict, List, Tuple
 
@@ -85,20 +89,40 @@ def load_rounds(sass: str) -> List[Tuple[int, str]]:
     return rounds
 
 
+_BUILTIN = {"f": "float", "d": "double", "i": "int", "j": "unsigned", "b": "bool"}
+
+
 def readable(mangled: str) -> str:
-    """``name<1, false>`` from an Itanium-mangled kernel name of the
-    ``repro_torch`` namespace with int and bool template arguments (the raw
-    name where it does not parse)."""
+    """``name<1, false>`` or ``name<__nv_bfloat16, 16, 64>`` from an
+    Itanium-mangled kernel name of the ``repro_torch`` namespace whose
+    template arguments are int and bool values, builtin types or plain
+    class names (the bare name where they do not parse, the raw name where
+    the name does not)."""
     m = re.match(r"_ZN\d+repro_torch(\d+)", mangled)
     if not m:
         return mangled
     n = int(m.group(1))
     name = mangled[m.end():m.end() + n]
-    t = re.match(r"I((?:L[ib]\d+E)+)E", mangled[m.end() + n:])
-    if not t:
+    rest = mangled[m.end() + n:]
+    if not rest.startswith("I"):
         return name
-    args = [v if kind == "i" else ("true" if v == "1" else "false")
-            for kind, v in re.findall(r"L([ib])(\d+)E", t.group(1))]
+    args, i = [], 1
+    while i < len(rest) and rest[i] != "E":
+        lit = re.match(r"L([ib])(\d+)E", rest[i:])
+        cls = re.match(r"(\d+)", rest[i:])
+        if lit:
+            kind, v = lit.groups()
+            args.append(v if kind == "i" else ("true" if v == "1" else "false"))
+            i += lit.end()
+        elif cls:
+            length = int(cls.group(1))
+            args.append(rest[i + cls.end():i + cls.end() + length])
+            i += cls.end() + length
+        elif rest[i] in _BUILTIN:
+            args.append(_BUILTIN[rest[i]])
+            i += 1
+        else:
+            return name
     return f"{name}<{', '.join(args)}>"
 
 
@@ -115,6 +139,45 @@ def functions(library: Path) -> Dict[str, str]:
     text = subprocess.run([str(cuobjdump), "-sass", str(library)], check=True,
                           capture_output=True, text=True, timeout=120).stdout
     return split_functions(text)
+
+
+def opcode_counts(sass: str) -> Counter:
+    """How many instructions of each opcode (modifiers dropped: ``HGMMA``,
+    ``UTMALDG``, ``RED``, ``ATOM``, ...) one function's SASS holds."""
+    return Counter(_split(instr)[0].split(".")[0] for _, instr in _INSTR.findall(sass))
+
+
+def atomics(counts: Counter) -> int:
+    """Reductions and atomics to memory among ``opcode_counts`` (``RED``,
+    ``REDG``, ``ATOM``, ``ATOMG``, ``ATOMS``; not the warp's ``REDUX``)."""
+    return sum(n for op, n in counts.items()
+               if (op.startswith("RED") and op != "REDUX") or op.startswith("ATOM"))
+
+
+def ptxas_usage(log: str) -> Dict[str, Dict[str, int]]:
+    """Each entry function of nvcc's ``-Xptxas=-v`` output, by readable
+    name: its registers a thread, and its stack frame, spill stores / loads
+    and static shared memory in bytes."""
+    out: Dict[str, Dict[str, int]] = {}
+    name, frame = None, {}
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name, frame = m.group(1), {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            frame = dict(zip(("stack", "spill_stores", "spill_loads"), map(int, m.groups())))
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out[readable(name)] = {"registers": int(m.group(1)), "stack": 0, "spill_stores": 0,
+                                   "spill_loads": 0, **frame,
+                                   "smem": int(smem.group(1)) if smem else 0}
+            name = None
+    return out
 
 
 def kernel_rounds(library: Path) -> Dict[str, List[int]]:

@@ -1,0 +1,121 @@
+"""The host-side checks of the two backward kernels' wrappers, on the CPU.
+
+``flash_attn.ops.backward_checks`` and ``gla_chunk.ops.backward_checks`` run
+before every backward launch on the card (the TMA loads want 16-byte
+aligned, contiguous tensors of the head dims the kernels are built for);
+they look only at shapes, dtypes, strides and addresses, so CPU tensors
+exercise every refusal here.  ``backward_grids`` and ``stats_floats`` size
+the launches and the flash backward's scratch.
+"""
+
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attn import ops as flash_ops
+from repro_torch.kernels.gla_chunk import ops as gla_ops
+
+
+def _flash(b=1, hq=4, hkv=2, s=65, d=64, dtype=torch.bfloat16):
+    q = torch.zeros((b, hq, s, d), dtype=dtype)
+    k = torch.zeros((b, hkv, s, d), dtype=dtype)
+    v = torch.zeros_like(k)
+    o, do = torch.zeros_like(q), torch.zeros_like(q)
+    lse = torch.zeros((b, hq, s), dtype=torch.float32)
+    return dict(q=q, k=k, v=v, o=o, lse=lse, do=do)
+
+
+def _misaligned(t):
+    """t's values in a tensor whose base sits 4 bytes past a 16-byte
+    boundary (contiguous, same shape and dtype)."""
+    step = 4 // t.element_size()
+    flat = torch.zeros(t.numel() + step, dtype=t.dtype)[step:]
+    return flat.view(t.shape)
+
+
+def test_flash_backward_checks_accept_what_the_kernels_take():
+    for d in (64, 128):
+        for dtype in (torch.bfloat16, torch.float32):
+            flash_ops.backward_checks(**_flash(d=d, dtype=dtype))
+
+
+@pytest.mark.parametrize("fault", ["head_dim", "do_dtype", "o_shape", "lse_shape",
+                                   "lse_dtype", "not_contiguous", "misaligned_q",
+                                   "misaligned_lse", "misaligned_do"])
+def test_flash_backward_checks_refuse(fault):
+    t = _flash()
+    if fault == "head_dim":
+        t = _flash(d=32)
+    elif fault == "do_dtype":
+        t["do"] = t["do"].float()
+    elif fault == "o_shape":
+        t["o"] = t["o"][:, :, :-1]
+    elif fault == "lse_shape":
+        t["lse"] = t["lse"][..., :-1].contiguous()
+    elif fault == "lse_dtype":
+        t["lse"] = t["lse"].double()
+    elif fault == "not_contiguous":
+        t["do"] = t["do"].transpose(2, 3).contiguous().transpose(2, 3)
+    else:
+        name = fault.split("_")[1]
+        t[name] = _misaligned(t[name])
+    with pytest.raises(ValueError):
+        flash_ops.backward_checks(**t)
+
+
+def test_flash_backward_grids_and_stats():
+    """bf16: dQ CTAs of 128 q rows, dK/dV CTAs of BWD_KV_ROWS kv rows; f32:
+    64-row CTAs; the stats scratch holds lse log2 e and delta of every row,
+    rows padded to 64."""
+    t = _flash(b=2, hq=25, hkv=5, s=2048, d=64)
+    assert flash_ops.backward_grids(t["q"], t["k"]) == [
+        (16 * 2, 25), (2048 // flash_ops.BWD_KV_ROWS[64] * 2, 5)]
+    t = _flash(b=1, hq=6, hkv=3, s=200, d=128, dtype=torch.float32)
+    assert flash_ops.backward_grids(t["q"], t["k"]) == [(4, 6), (4, 3)]
+    assert flash_ops.stats_floats(t["q"]) == 2 * 6 * 256
+    t = _flash(b=2, hq=16, hkv=8, s=4096, d=128)
+    assert flash_ops.backward_grids(t["q"], t["k"]) == [
+        (32 * 2, 16), (4096 // flash_ops.BWD_KV_ROWS[128] * 2, 8)]
+    assert flash_ops.stats_floats(t["q"]) == 2 * 2 * 16 * 4096
+
+
+def _gla(b=1, h=3, t=130, dk=16, dv=64, dtype=torch.bfloat16, dstate=True):
+    chunks = -(-t // gla_ops.CHUNK)
+    x = dict(q=torch.zeros((b, h, t, dk), dtype=dtype), k=torch.zeros((b, h, t, dk), dtype=dtype),
+             v=torch.zeros((b, h, t, dv), dtype=dtype), g=torch.zeros((b, h, t, dk), dtype=dtype),
+             states=torch.zeros((b, h, chunks, dk, dv)), state=torch.zeros((b, h, dk, dv)),
+             do=torch.zeros((b, h, t, dv), dtype=dtype))
+    x["dstate"] = torch.zeros((b, h, dk, dv)) if dstate else None
+    return x
+
+
+def test_gla_backward_checks_accept_what_the_kernels_take():
+    for dk in (16, 64):
+        for dtype in (torch.bfloat16, torch.float32):
+            for dstate in (True, False):
+                gla_ops.backward_checks(**_gla(dk=dk, dtype=dtype, dstate=dstate))
+
+
+@pytest.mark.parametrize("fault", ["key_dim", "value_dim", "do_dtype", "states_shape",
+                                   "state_dtype", "dstate_shape", "not_contiguous",
+                                   "misaligned_q", "misaligned_states"])
+def test_gla_backward_checks_refuse(fault):
+    x = _gla()
+    if fault == "key_dim":
+        x = _gla(dk=32)
+    elif fault == "value_dim":
+        x = _gla(dv=32)
+    elif fault == "do_dtype":
+        x["do"] = x["do"].float()
+    elif fault == "states_shape":
+        x["states"] = x["states"][:, :, :-1].contiguous()
+    elif fault == "state_dtype":
+        x["state"] = x["state"].double()
+    elif fault == "dstate_shape":
+        x["dstate"] = x["dstate"][..., :-1].contiguous()
+    elif fault == "not_contiguous":
+        x["v"] = x["v"].transpose(2, 3).contiguous().transpose(2, 3)
+    else:
+        name = fault.split("_")[1]
+        x[name] = _misaligned(x[name])
+    with pytest.raises(ValueError):
+        gla_ops.backward_checks(**x)

@@ -1030,15 +1030,18 @@ def _bf16_within_its_own_rounding(got, plain_bf16, plain_f32, scale, what):
     assert err <= max(3 * own, 1e-4 * scale), (what, err, own)
 
 
-# (B, Hq, Hkv, S, d, dtype, causal, window): one query; GQA 1, 2, 5; S 65
-# and 127 off the 64-row tiles; a window; non-causal; f32 and bf16
+# (B, Hq, Hkv, S, d, causal, window), each in f32 and bf16: one query; GQA
+# 1, 2, 5; S 65, 127, 129, 200 off the 64- and 128-row tiles; windows whose
+# edge crosses a 128-row tile; non-causal with and without a window; d 64
+# and 128
 FLASH_BWD_CASES = [
-    (1, 2, 2, 1, 64, torch.float32, True, 0),
-    (1, 4, 2, 65, 64, torch.bfloat16, True, 0),
-    (2, 5, 1, 127, 128, torch.float32, True, 16),
-    (1, 5, 5, 200, 64, torch.bfloat16, False, 0),
-    (1, 4, 4, 130, 128, torch.bfloat16, True, 32),
-    (1, 6, 3, 300, 128, torch.float32, False, 50),
+    (*shape, dtype, *mask)
+    for shape, mask in [((1, 2, 2, 1, 64), (True, 0)), ((1, 4, 2, 65, 64), (True, 0)),
+                        ((2, 5, 1, 127, 128), (True, 16)), ((1, 5, 5, 200, 64), (False, 0)),
+                        ((1, 4, 4, 130, 128), (True, 32)), ((1, 6, 3, 300, 128), (False, 50)),
+                        ((1, 4, 2, 129, 128), (True, 0)), ((1, 6, 3, 200, 128), (True, 100)),
+                        ((1, 5, 1, 129, 64), (False, 70)), ((1, 2, 1, 200, 64), (True, 150))]
+    for dtype in (torch.float32, torch.bfloat16)
 ]
 
 
@@ -1087,18 +1090,22 @@ def test_flash_attention_backward_matches_plain_version_on_the_card(cuda, case):
 
 
 # (B, H, T, dk, dtype, with a final-state gradient): hymba's (16, 64) and
-# rwkv6's (64, 64), T off the chunk, f32 and bf16
+# rwkv6's (64, 64), T 130 and 200 off the chunk, f32 and bf16
 GLA_BWD_CASES = [
     (1, 3, 130, 16, torch.float32, True),
     (2, 2, 200, 64, torch.bfloat16, False),
     (1, 4, 64, 16, torch.bfloat16, True),
     (1, 2, 100, 64, torch.float32, False),
+    (1, 3, 130, 16, torch.bfloat16, True),
+    (1, 2, 200, 16, torch.bfloat16, True),
+    (1, 3, 130, 64, torch.bfloat16, True),
+    (2, 2, 200, 64, torch.float32, True),
 ]
 
 
 @pytest.mark.parametrize("case", GLA_BWD_CASES)
 def test_gla_chunked_backward_matches_plain_version_on_the_card(cuda, case):
-    """The four backward kernels against the plain backward on the same
+    """The three backward kernels against the plain backward on the same
     inputs, decays below -8 and exactly on both bounds (the jnp.clip half
     gradient there): f32 within 1e-4 of the call's largest plain gradient,
     bf16 as _bf16_within_its_own_rounding; two launches bitwise equal, one
