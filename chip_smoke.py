@@ -239,8 +239,10 @@ Phases, each printing its own lines:
              bitwise equal, then timed beside its plain version, the library
              call (flash: scaled_dot_product_attention with the same mask)
              and its bound (flops at the type's dense peak or bytes at 3.35
-             TB/s, whichever is larger, from the work these inputs need).
-7. eval    — the eval path (run last): hymba-1.5b at full width in bf16,
+             TB/s, whichever is larger, from the work these inputs need) and
+             the launch floor of its grids (``model_grids``), as every
+             model-kernel input of phases 7, 12, 14 and 15 is.
+7. eval    — the eval path (after phase 12): hymba-1.5b at full width in bf16,
              random weights from a seeded torch.Generator, 128 token shards of
              2 x 2048 (examples/torch_approx_eval.py's metric: summed NLL),
              GuaranteedEvaluator(seed=3).evaluate(error=0.05,
@@ -255,7 +257,7 @@ Phases, each printing its own lines:
              The first call per shape of each model kernel is recorded and
              replayed like phase 3b.
 
-13. train   — training (run last): (a) per kernel of the two backward
+13. train   — training (after phase 7): (a) per kernel of the two backward
              libraries, from ``cuobjdump -sass`` and ptxas: HGMMA and UTMALDG
              counts (both > 0 in the bf16 flash kernels), RED / ATOM (none
              anywhere), registers and spills (none in a bf16 kernel); the
@@ -294,7 +296,37 @@ Phases, each printing its own lines:
              within 2^-7; 3 compressed steps falling.  Each backward
              kernel's recorded training input (first call per shape) is then
              timed beside its plain version, SDPA's backward (flash), its
-             bound and the launch floor of its grids.
+             bound and the launch floor of its grids; and GLA's backward at
+             the rwkv6 point (1, 64, 2048, 64 / 64) bf16.
+14. families — (run after phase 13) whisper-large-v3 (encoder-decoder:
+             2 encoder layers over 1,500 frames, 448 text tokens),
+             llava-next-34b (VLM: 576 patches before 512 text tokens) and
+             gemma-7b (head_dim 256, 2,048 tokens), each at full width in
+             bf16 with 2 decoder layers, seeded random weights, batches
+             from ``launch.specs.batch_specs``: prefill + 32 decode steps
+             against the teacher-forced forward at batch 1 (the phase-12
+             check; gemma's f32 pass attends through the plain version,
+             since f32 has no d 256 kernel); 3 make_train_step steps at
+             batch 2 on one batch, losses finite, the flash launches 2 x and
+             its backward 1 x the attention calls of a forward a step
+             (encoder, decoder and cross attention), step wall, tokens/s
+             and peak memory; then every flash input of the first step
+             (first per q and k shape: whisper's encoder, causal decoder
+             and Sq != Skv cross attention) against its plain version and
+             timed beside SDPA, its bound and its launch floor, forward and
+             backward (the backward held as phase 13 (a) holds it).
+15. reduced — (after phase 14) every text config's ``.reduced()`` (head_dim
+             16, GLA (8, 16), f32) on the card through ``launch.serve
+             --reduced`` (8 requests served) and ``launch.train --reduced
+             --steps 3`` (losses finite; flash and GLA forward twice and
+             backward once a layer a step); then each reduced-width kernel
+             input (first per q and k shape), forward and backward, held to
+             its plain version and timed beside its bound and launch floor.
+16. remat  — (last) internlm2-1.8b at full depth (24 layers), 2 x 4,096
+             tokens, ``remat_groups`` 4 against per-block remat from the
+             same weights and batches: the parameters after one step bitwise
+             equal and both steps' losses equal; each run's second-step wall
+             and peak device memory.
 
 Then one JSON line of per-kernel numbers, the ``nvidia-smi`` line again, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -554,6 +586,12 @@ def ids_shape(name):
 def q_shape(args):
     """Recording key of a model kernel: the shape of its q."""
     return tuple(args[0].shape)
+
+
+def qk_shapes(args):
+    """Recording key of a model kernel whose q may meet keys of another
+    length (cross-attention): the shapes of its q and its k."""
+    return tuple(args[0].shape), tuple(args[1].shape)
 
 
 class CallRecorder:
@@ -2235,20 +2273,26 @@ def logit_gap(torch, got, want, vocab):
             "positions": int(got.shape[0])}
 
 
-def teacher_forcing(torch, model, tokens, n_prompt, cache_len, kernels, recorder=None):
+def teacher_forcing(torch, model, tokens, n_prompt, cache_len, kernels, recorder=None,
+                    extra=None):
     """The forward's logits over ``tokens`` (1, N) at positions n_prompt - 1
     .. N - 1, and prefill(tokens[:, :n_prompt]) then N - n_prompt decode
     steps at the same positions; the kernels' launches counted (and, with a
-    ``recorder``, their inputs recorded) over the prefill alone.  Returns
-    (decode logits, forward logits, launches)."""
+    ``recorder``, their inputs recorded) over the prefill alone.  ``extra``:
+    the family's other inputs (``frames``, ``patch_embeds``), given to the
+    forward and the prefill; a VLM's text positions follow its patches.
+    Returns (decode logits, forward logits, launches)."""
+    extra = extra or {}
+    skip = model.cfg.num_patches if model.cfg.family == "vlm" else 0
     with torch.inference_mode():
-        full, _ = model({"tokens": tokens})
-        want = full[0, n_prompt - 1:].float()
+        full, _ = model({"tokens": tokens, **extra})
+        want = full[0, skip + n_prompt - 1:].float()
         del full
         zero_counters(kernels)
         if recorder is not None:
             recorder.active = {fn.__name__ for fn in kernels}
-        lg, cache = model.prefill({"tokens": tokens[:, :n_prompt]}, cache_len=cache_len)
+        lg, cache = model.prefill({"tokens": tokens[:, :n_prompt], **extra},
+                                  cache_len=cache_len)
         torch.cuda.synchronize()
         if recorder is not None:
             recorder.active = set()
@@ -2261,21 +2305,31 @@ def teacher_forcing(torch, model, tokens, n_prompt, cache_len, kernels, recorder
 
 
 def check_teacher_forcing(torch, np, model, tokens, n_prompt, cache_len, kernels, recorder,
-                          what, smi):
+                          what, smi, extra=None, plain_f32=False):
     """Decode against the forward in the model's bf16 and, on the same
     weights, in f32.  f32: mean |diff| / mean |logit| <= 1e-3 and every
     argmax but one equal (only summation orders differ).  bf16: each side
     rounds differently, so the bound is the bf16 forward's own distance
     from the f32 forward at the same positions: max |diff| at most 3x it,
     and the argmax agreement at least n (2a - 1) - 3, a the fraction of
-    positions where the bf16 and f32 forwards agree."""
-    from repro_torch.models import Model
+    positions where the bf16 and f32 forwards agree.  ``plain_f32``: the f32
+    pass attends through the plain version (a head dim with no f32
+    kernel); the bf16 pass always through the kernels."""
+    from repro_torch.kernels.flash_attn import flash_attention_ref
+    from repro_torch.models import Model, layers
     vocab = model.cfg.vocab_size
     got, want, launches = teacher_forcing(torch, model, tokens, n_prompt, cache_len, kernels,
-                                          recorder)
+                                          recorder, extra)
     m32 = Model(dataclasses.replace(model.cfg, dtype="float32"))
     m32.load_state_dict(model.state_dict())
-    got32, want32, _ = teacher_forcing(torch, m32, tokens, n_prompt, cache_len, kernels)
+    saved = layers.flash_attention
+    if plain_f32:
+        layers.flash_attention = lambda *a, q_offset=0, **kw: flash_attention_ref(*a, **kw)
+    try:
+        got32, want32, _ = teacher_forcing(torch, m32, tokens, n_prompt, cache_len, kernels,
+                                           extra=extra)
+    finally:
+        layers.flash_attention = saved
     del m32
     torch.cuda.empty_cache()
     bf16 = logit_gap(torch, got, want, vocab)
@@ -2560,11 +2614,26 @@ MODEL_TOL = {
 }
 
 
-def time_model_kernel(torch, np, name, fn, ref, args, kw, smi):
+def model_grids(name, q, other):
+    """The (x, y) CTA grids of one model-kernel call on the card, the batch
+    folded into x (the launch floor's shape; ``other``: k for flash, v for
+    GLA).  Flash forward: one grid of q tiles (128 rows in bf16, 64 in f32)
+    by q heads.  GLA, forward and backward alike: its three passes, (chunks,
+    B H), the scan's 256-thread blocks over (B H, dk, dv), (chunks, B H)."""
+    b, h, s, d = q.shape
+    if name.startswith("flash"):
+        rows = 128 if str(q.dtype) == "torch.bfloat16" else 64
+        return [(-(-s // rows) * b, h)]
+    chunks = -(-s // 64)
+    return [(chunks, b * h), (-(-b * h * d * other.shape[-1] // 256), 1), (chunks, b * h)]
+
+
+def time_model_kernel(torch, np, name, fn, ref, args, kw, smi, launch_floor=None):
     """Hold one model-kernel call against its plain version (``MODEL_TOL``),
     check a second launch bitwise equal, then time the kernel, its plain
-    version and (flash) the library call with L2 flushed.  Returns the row
-    of the ``kernels`` line for these inputs."""
+    version and (flash) the library call with L2 flushed; with a
+    ``launch_floor``, an empty kernel on the call's grids (``model_grids``)
+    too.  Returns the row of the ``kernels`` line for these inputs."""
     q = args[0]
     ref_kw = {k: v for k, v in kw.items() if k != "q_offset"}
     got, again = fn(*args, **kw), fn(*args, **kw)
@@ -2590,17 +2659,22 @@ def time_model_kernel(torch, np, name, fn, ref, args, kw, smi):
     ms = time_cold(torch, lambda: fn(*args, **kw))
     plain_ms = time_cold(torch, lambda: ref(*args, **ref_kw), iters=10)
     bound_ms, by = least_ms(flops, nbytes, q.dtype)
+    other = args[1] if name == "flash_attention" else args[2]  # k, or v
+    grids = model_grids(name, q, other)
+    floor_ms = (None if launch_floor is None else
+                sum(time_cold(torch, lambda g=g: launch_floor(*g), iters=10) for g in grids))
     # the device kernels of one call (GLA's three passes), L2 warm
     _, _, parts = device_profile(torch, lambda: fn(*args, **kw), top=4)
     where = ", ".join(f"{k}={v}" for k, v in ref_kw.items())
     lib_txt = (f", SDPA {library_ms * 1e3:.2f} us (|SDPA - plain| {lib_err:.3g})"
                if library_ms is not None else "")
-    other = args[1] if name == "flash_attention" else args[2]  # k, or v
+    floor_txt = ("" if floor_ms is None else
+                 f"; launch floor of its {len(grids)} grid(s) {floor_ms * 1e3:.2f} us")
     print(f"[kernels] {name} {tuple(q.shape)} x {tuple(other.shape)} {str(q.dtype)[6:]} "
           f"{where}: {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us{lib_txt}; bound "
           f"{bound_ms * 1e3:.3f} us by {by}: {flops / 1e9:.3f} GFLOP / "
           f"{PEAK_FLOPS[str(q.dtype)] / 1e12:.0f} TFLOP/s vs {nbytes:,} B / 3.35 TB/s; "
-          f"{bound_ms / ms:.1%} of bound); max |kernel - plain| {err:.3g}  [{smi}]")
+          f"{bound_ms / ms:.1%} of bound{floor_txt}); max |kernel - plain| {err:.3g}  [{smi}]")
     for kname, kms, count in parts:
         print(f"[kernels]   one call's device kernel {kms * 1e3:9.2f} us x{count} "
               f"{kname.split('(')[0][:90]}")
@@ -2608,7 +2682,7 @@ def time_model_kernel(torch, np, name, fn, ref, args, kw, smi):
             "dtype": str(q.dtype), **{k: v for k, v in ref_kw.items()},
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": by, "flops": flops,
-            "bytes": nbytes, "max_abs_err": err,
+            "bytes": nbytes, "floor_ms": floor_ms, "grids": grids, "max_abs_err": err,
             "device_kernels": [[kname.split("(")[0], kms, count] for kname, kms, count in parts]}
 
 
@@ -3041,8 +3115,7 @@ def time_backward_kernel(torch, np, name, args, smi, launch_floor):
         plain = lambda: gla_chunked_bwd_ref(q, k, v, g, states, do, dstate)
         flops, nbytes = gla_bwd_work(q, v)
         library_ms = None
-        chunks = -(-t // 64)
-        grids = [(chunks, b * h), (-(-b * h * dk * 64 // 256), 1), (chunks, b * h)]
+        grids = model_grids(name, q, v)
         where = f"{tuple(q.shape)} x {tuple(v.shape)}"
     got, want = kernel(), plain()
     err = max(float((a.float() - w.float()).abs().max()) for a, w in zip(got, want))
@@ -3063,8 +3136,8 @@ def time_backward_kernel(torch, np, name, args, smi, launch_floor):
 
 class BackwardRecorder:
     """Stands in for the two wrappers' backward launchers (``ops._backward``,
-    looked up at call time) and keeps the first call per q shape while
-    active: the training path's own backward inputs, replayed by
+    looked up at call time) and keeps the first call per (q shape, k shape)
+    while active: the training path's own backward inputs, replayed by
     ``time_backward_kernel``."""
 
     def __init__(self, targets):
@@ -3078,7 +3151,7 @@ class BackwardRecorder:
         def recorded(*args):
             if self.active:
                 self.calls[name].setdefault(
-                    tuple(args[0].shape),
+                    qk_shapes(args),
                     tuple(a.detach() if hasattr(a, "detach") else a for a in args))
             return fn(*args)
         return recorded
@@ -3410,10 +3483,350 @@ def run_train(torch, np, smi, launch_floor):
         summary["kernels"][name] = [time_backward_kernel(torch, np, name, args, smi, launch_floor)
                                     for args in calls.values()]
     recorder.calls.clear()
+    # and GLA's backward at the rwkv6 point (64 heads, dk = dv = 64, bf16),
+    # which no phase trains at full width
+    rng = np.random.default_rng(17)
+    q, k = (torch.from_numpy((rng.standard_normal((1, 64, TRAIN_HYMBA_SEQ, 64)) * 0.5)
+                             .astype(np.float32)).to(dev).to(torch.bfloat16) for _ in range(2))
+    v, do = (torch.from_numpy(rng.standard_normal((1, 64, TRAIN_HYMBA_SEQ, 64))
+                              .astype(np.float32)).to(dev).to(torch.bfloat16) for _ in range(2))
+    g = (-torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((1, 64, TRAIN_HYMBA_SEQ, 64)).astype(np.float32)).to(dev) - 1.0)
+         ).to(torch.bfloat16)
+    _, st, states = gla_ops._forward(q, k, v, g)
+    summary["kernels"]["gla_chunked_bwd"].append(time_backward_kernel(
+        torch, np, "gla_chunked_bwd", (q, k, v, g, states, st, do, None), smi, launch_floor))
+    del q, k, v, g, do, st, states
     torch.cuda.empty_cache()
     summary["phase_s"] = time.perf_counter() - t_phase
     print(f"[train] phase 13 in {summary['phase_s']:.1f} s  [{smi}]")
     return summary
+
+
+# ---------------------------------------------------------------------------
+# phases 14-16 helpers: every family at full width, the reduced configs on
+# the card, two-level remat at full depth
+# ---------------------------------------------------------------------------
+
+# (14) each family the earlier phases do not run, at full width in bf16 with
+# depth cut to 2 decoder layers (and 2 encoder layers): text tokens of the
+# train and teacher-forcing batches (a VLM's follow its 576 patches, an
+# encoder-decoder's attend to its 1,500 frames)
+FAMILY_TEXT = {"whisper-large-v3": 448, "llava-next-34b": 512, "gemma-7b": 2048}
+FAMILY_LAYERS, FAMILY_STEPS, FAMILY_BATCH, FAMILY_DECODE, FAMILY_SEED = 2, 3, 2, 32, 4
+# (15) the text configs whose launchers the reference runs, reduced (head_dim
+# 16, GLA (8, 16), f32): launch.serve and launch.train at their defaults
+REDUCED_ARCHS = ("gemma-7b", "granite-20b", "granite-moe-1b-a400m", "hymba-1.5b",
+                 "internlm2-1.8b", "mistral-large-123b", "olmoe-1b-7b", "rwkv6-7b")
+REDUCED_STEPS = 3
+# (16) two-level remat at full depth: phase 13's internlm2 cell, remat_groups
+# 4 (6 layers a group) against per-block remat
+REMAT_GROUPS = 4
+
+
+def family_batch(torch, np, cfg, kind, batch, seq, seed, dev):
+    """A batch of ``launch.specs.batch_specs(cfg, ShapeSpec(kind, batch,
+    seq))`` on ``dev``: tokens and labels uniform over the vocabulary,
+    frames and patch embeddings standard normal, in the specs' dtypes."""
+    from repro_torch.launch.specs import ShapeSpec, batch_specs
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, (shape, dtype) in batch_specs(cfg, ShapeSpec(kind, kind, seq, batch)).items():
+        a = (rng.integers(0, cfg.vocab_size, shape).astype(np.int32) if dtype == torch.int32
+             else rng.standard_normal(shape).astype(np.float32))
+        out[name] = torch.from_numpy(a).to(dev)
+    return out
+
+
+def flash_calls(cfg):
+    """flash_attention calls of one forward: each decoder layer's
+    self-attention, and an encoder-decoder's encoder layers and cross
+    attention."""
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + 2 * cfg.num_layers
+    return cfg.num_layers if cfg.has_attention else 0
+
+
+def check_recorded(torch, np, fwd_calls, bwd_calls, smi, launch_floor, what):
+    """Every recorded forward input of flash / GLA held to its plain
+    version and timed (``time_model_kernel``, with its launch floor), and
+    every recorded backward input held to the plain backward
+    (``check_backward``) and timed (``time_backward_kernel``).  Returns
+    {kernel name: rows}."""
+    from repro_torch.kernels.flash_attn import flash_attention, flash_attention_bwd_ref
+    from repro_torch.kernels.flash_attn import flash_attention_ref
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.kernels.gla_chunk import (gla_chunked, gla_chunked_bwd_ref,
+                                               gla_chunked_fwd_ref, gla_chunked_ref)
+    from repro_torch.kernels.gla_chunk import ops as gla_ops
+    fwd = {"flash_attention": (flash_attention, flash_attention_ref),
+           "gla_chunked": (gla_chunked, gla_chunked_ref)}
+    rows = {}
+    for name, calls in fwd_calls.items():
+        fn, ref = fwd[name]
+        for args, kw in calls.values():
+            args = tuple(a.detach() if torch.is_tensor(a) else a for a in args)
+            rows.setdefault(name, []).append(
+                time_model_kernel(torch, np, name, fn, ref, args, kw, smi, launch_floor))
+    for name, calls in bwd_calls.items():
+        for args in calls.values():
+            if name == "flash_attention_bwd":
+                q, k, v, o, lse, do, causal, window, scale = args
+                got, again = flash_ops._backward(*args), flash_ops._backward(*args)
+                plain = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                                window=window, scale=scale)
+                plain32 = (plain if q.dtype == torch.float32 else flash_attention_bwd_ref(
+                    q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+                    causal=causal, window=window, scale=scale))
+            else:
+                q, k, v, g, states, state, do, dstate = args
+                got, again = gla_ops._backward(*args), gla_ops._backward(*args)
+                plain = gla_chunked_bwd_ref(q, k, v, g, states, do, dstate)
+                wide = [x.float() for x in (q, k, v, g)]
+                plain32 = (plain if q.dtype == torch.float32 else gla_chunked_bwd_ref(
+                    *wide, gla_chunked_fwd_ref(*wide)[2], do.float(), dstate))
+            label = f"{what} {name} {tuple(q.shape)} x {tuple(args[1].shape)} {str(q.dtype)[6:]}"
+            err, measure = check_backward(torch, label, got, again, plain, plain32, q.dtype)
+            print(f"[{what}] {label}: max |kernel - plain| {err:.3g} "
+                  f"({'share of scale' if q.dtype == torch.float32 else 'ratio to the bf16 plain'}"
+                  f" {measure:.3g}); bitwise stable")
+            del got, again, plain, plain32
+            row = time_backward_kernel(torch, np, name, args, smi, launch_floor)
+            rows.setdefault(name, []).append({**row, "check": measure})
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_families(torch, np, smi, launch_floor):
+    """Phase 14: whisper-large-v3 (encoder-decoder), llava-next-34b (VLM) and
+    gemma-7b (head_dim 256) at full width in bf16, 2 decoder layers (2
+    encoder layers), seeded random weights: prefill + decode against the
+    teacher-forced forward, 3 make_train_step steps, and the flash kernels,
+    forward and backward, at the models' own attention inputs."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.models import Model, layers
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.step import TrainState, make_train_step
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    summary = {}
+    fwd = CallRecorder([(layers, "flash_attention", qk_shapes)])
+    bwd = BackwardRecorder({"flash_attention_bwd": flash_ops})
+    for arch, text in FAMILY_TEXT.items():
+        t_arch = time.perf_counter()
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=FAMILY_LAYERS,
+                                  encoder_layers=FAMILY_LAYERS if full.encoder_layers else 0)
+        model = Model(cfg).init(torch.Generator(device="cuda").manual_seed(FAMILY_SEED))
+        n_params = sum(p.numel() for p in model.parameters())
+        seq = text + (cfg.num_patches if cfg.family == "vlm" else 0)
+        n_flash = flash_calls(cfg)
+        print(f"[families] {arch} at full width, {cfg.num_layers} decoder layers"
+              f"{f' and {cfg.encoder_layers} encoder layers over {cfg.enc_seq} frames' if cfg.encoder_layers else ''}"
+              f"{f' after {cfg.num_patches} patches' if cfg.num_patches else ''} (d {cfg.d_model}, "
+              f"{cfg.num_heads} / {cfg.num_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, "
+              f"vocab {cfg.vocab_size}), bf16: {n_params:,} parameters")
+
+        # prefill + decode against the teacher-forced forward (batch 1)
+        tf_batch = family_batch(torch, np, cfg, "prefill", 1, seq, 1, dev)
+        tokens = tf_batch.pop("tokens")
+        tf = check_teacher_forcing(
+            torch, np, model, tokens, text - FAMILY_DECODE, seq, (flash_attention,), None,
+            f"families {arch}", smi, extra=tf_batch,
+            plain_f32=cfg.head_dim not in flash_ops.HEAD_DIMS[torch.float32])
+        check(tf["prefill_launches"]["flash_attention"] == n_flash,
+              f"{arch}: the prefill launched flash {tf['prefill_launches']} times, not {n_flash}")
+        del tf_batch, tokens
+        torch.cuda.empty_cache()
+
+        # 3 training steps on one batch, the first one's kernel inputs recorded
+        model.requires_grad_(True)
+        params = dict(model.named_parameters())
+        state = TrainState(params, init_opt_state(params), None)
+        fn = make_train_step(model, AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                                total_steps=FAMILY_STEPS, weight_decay=0.0))
+        batch = family_batch(torch, np, cfg, "train", FAMILY_BATCH, seq, 2, dev)
+        zero_counters((flash_attention,))
+        flash_attention.bwd_launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls, losses = [], []
+        for i in range(FAMILY_STEPS):
+            fwd.active, bwd.active = ({"flash_attention"}, True) if i == 0 else (set(), False)
+            t0 = time.perf_counter()
+            state, m = fn(state, batch)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        fwd.active, bwd.active = set(), False
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launches = {"flash_attention": flash_attention.launches,
+                    "flash_attention_bwd": flash_attention.bwd_launches}
+        check(np.all(np.isfinite(losses)), f"{arch}: losses {losses}")
+        # remat runs each block's forward twice a step
+        check(launches == {"flash_attention": 2 * FAMILY_STEPS * n_flash,
+                           "flash_attention_bwd": FAMILY_STEPS * n_flash},
+              f"{arch}: launches {launches} for {FAMILY_STEPS} steps of {n_flash} attention "
+              "calls a forward")
+        step_ms = statistics.median(walls[1:]) * 1e3
+        tokens_s = FAMILY_BATCH * seq / (step_ms / 1e3)
+        print(f"[families] {arch}: {FAMILY_STEPS} make_train_step steps of {FAMILY_BATCH} x "
+              f"{seq} positions: losses {[round(l, 4) for l in losses]}; step median "
+              f"{step_ms:.2f} ms of {[round(w * 1e3, 2) for w in walls]} (first excluded); "
+              f"{tokens_s:,.0f} tokens/s; peak device memory {peak_gb:.2f} GB; launches "
+              f"{launches} ({n_flash} attention calls a forward)  [{smi}]")
+        del model, state, fn, params, batch
+        torch.cuda.empty_cache()
+        kernels = check_recorded(torch, np, {"flash_attention": dict(fwd.calls["flash_attention"])},
+                                 {"flash_attention_bwd": dict(bwd.calls["flash_attention_bwd"])},
+                                 smi, launch_floor, "families")
+        check(bool(kernels.get("flash_attention")) and bool(kernels.get("flash_attention_bwd")),
+              f"{arch}: no flash input was recorded")
+        fwd.calls["flash_attention"].clear()
+        bwd.calls["flash_attention_bwd"].clear()
+        torch.cuda.empty_cache()
+        summary[arch] = {"parameters": n_params, "layers": cfg.num_layers,
+                         "encoder_layers": cfg.encoder_layers, "positions": seq,
+                         "teacher_forcing": tf, "losses": losses, "step_ms": step_ms,
+                         "step_walls_ms": [w * 1e3 for w in walls], "tokens_per_s": tokens_s,
+                         "peak_memory_gb": peak_gb, "launches": launches,
+                         "kernels": kernels, "seconds": time.perf_counter() - t_arch}
+    summary["phase_s"] = time.perf_counter() - t_phase
+    print(f"[families] phase 14 in {summary['phase_s']:.1f} s  [{smi}]")
+    return summary
+
+
+def run_reduced(torch, np, smi, launch_floor):
+    """Phase 15: every text config's ``.reduced()`` on the card through its
+    launchers, ``launch.serve --reduced`` and ``launch.train --reduced``:
+    the reduced widths' kernels (flash f32 d 16, GLA f32 (8, 16)) forward
+    and backward; then each kernel at the first recorded input of each
+    shape, held to its plain version and timed."""
+    import contextlib
+    import io
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.kernels.gla_chunk import gla_chunked
+    from repro_torch.kernels.gla_chunk import ops as gla_ops
+    from repro_torch.launch import serve, train
+    from repro_torch.models import layers, linear_attn
+    from repro_torch.models.model import _ssm_dv
+
+    t_phase = time.perf_counter()
+    summary = {}
+    wrappers = (flash_attention, gla_chunked)
+    fwd = CallRecorder([(layers, "flash_attention", qk_shapes),
+                        (linear_attn, "_gla_kernel", qk_shapes)])
+    bwd = BackwardRecorder({"flash_attention_bwd": flash_ops, "gla_chunked_bwd": gla_ops})
+    for arch in REDUCED_ARCHS:
+        cfg = get_config(arch).reduced()
+        zero_counters(wrappers)
+        flash_attention.bwd_launches = gla_chunked.bwd_launches = 0
+        out = io.StringIO()
+        fwd.active, bwd.active = {"flash_attention", "gla_chunked"}, True
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            served = serve.main(["--arch", arch, "--reduced"])
+            t1 = time.perf_counter()
+            losses = train.main(["--arch", arch, "--reduced", "--steps", str(REDUCED_STEPS)])
+        t2 = time.perf_counter()
+        fwd.active, bwd.active = set(), False
+        launches = {**read_counters(wrappers), "flash_attention_bwd": flash_attention.bwd_launches,
+                    "gla_chunked_bwd": gla_chunked.bwd_launches}
+        n_flash, n_gla = flash_calls(cfg), cfg.num_layers if cfg.has_ssm else 0
+        want = {"flash_attention": 2 * REDUCED_STEPS * n_flash,
+                "gla_chunked": 2 * REDUCED_STEPS * n_gla,
+                "flash_attention_bwd": REDUCED_STEPS * n_flash,
+                "gla_chunked_bwd": REDUCED_STEPS * n_gla}
+        check(len(served) == 8 and all(len(t) > 0 for t in served.values()),
+              f"{arch}: served {len(served)} of 8 requests")
+        check(np.all(np.isfinite(losses)) and len(losses) == REDUCED_STEPS,
+              f"{arch}: losses {losses}")
+        check(launches == want, f"{arch}: launches {launches}, expected {want} (remat: the "
+                                f"forward twice a step)")
+        lines = out.getvalue().splitlines()
+        widths = ", ".join(([f"heads of {cfg.head_dim}"] if cfg.has_attention else [])
+                           + ([f"GLA ({cfg.ssm_state}, {_ssm_dv(cfg)})"] if cfg.has_ssm else []))
+        print(f"[reduced] {arch} (d {cfg.d_model}, {widths}, f32) on cuda: "
+              f"{lines[0] if lines else ''}; serve {t1 - t0:.2f} s; "
+              f"train {REDUCED_STEPS} steps {t2 - t1:.2f} s, losses "
+              f"{[round(l, 4) for l in losses]}; launches {launches}  [{smi}]")
+        summary[arch] = {"serve_s": t1 - t0, "train_s": t2 - t1, "losses": losses,
+                         "launches": launches, "served": len(served)}
+    summary["kernels"] = check_recorded(
+        torch, np, {k: dict(v) for k, v in fwd.calls.items()},
+        {k: dict(v) for k, v in bwd.calls.items()}, smi, launch_floor, "reduced")
+    for name in ("flash_attention", "gla_chunked", "flash_attention_bwd", "gla_chunked_bwd"):
+        check(bool(summary["kernels"].get(name)), f"{name}: no reduced input was recorded")
+    summary["phase_s"] = time.perf_counter() - t_phase
+    print(f"[reduced] phase 15 in {summary['phase_s']:.1f} s  [{smi}]")
+    return summary
+
+
+def run_remat_groups(torch, np, smi):
+    """Phase 16: internlm2-1.8b at full depth (24 layers), 2 x 4,096 tokens,
+    ``remat_groups`` 4 against per-block remat from the same weights and
+    batches: the parameters after one step bitwise equal, both losses equal;
+    each run's second-step wall and peak device memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.train.data import TokenPipeline
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = get_config(TRAIN_ARCH)
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=9)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in pipe.next_batch().items()}
+               for _ in range(2)]
+    runs, first = {}, None
+    for groups in (0, REMAT_GROUPS):
+        model = Model(dataclasses.replace(cfg, remat_groups=groups))
+        state = init_train_state(model, torch.Generator(device="cuda").manual_seed(7))
+        fn = make_train_step(model, AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=2,
+                                                weight_decay=0.0))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, walls = [], []
+        for i, b in enumerate(batches):
+            t0 = time.perf_counter()
+            state, m = fn(state, b)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if i == 0:
+                # a copy on the host: the next step writes the parameters in place
+                after = {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}
+                if first is None:
+                    first = after
+                else:
+                    same = all(torch.equal(after[n], first[n]) for n in first)
+                    check(same, f"remat_groups {groups}: the parameters after one step differ "
+                                "bitwise from per-block remat's")
+                del after
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        runs[groups] = {"losses": losses, "step_ms": walls[1] * 1e3, "first_step_ms": walls[0] * 1e3,
+                        "peak_memory_gb": peak_gb}
+        print(f"[remat] {TRAIN_ARCH} full depth ({cfg.num_layers} layers), {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ} tokens, {'per-block remat' if not groups else f'remat_groups {groups} ({cfg.num_layers // groups} layers a group) over per-block remat'}: "
+              f"losses {losses}; second step {walls[1] * 1e3:.2f} ms (first {walls[0] * 1e3:.2f}); "
+              f"peak device memory {peak_gb:.2f} GB  [{smi}]")
+        del model, state, fn
+        torch.cuda.empty_cache()
+    check(runs[0]["losses"] == runs[REMAT_GROUPS]["losses"],
+          f"remat_groups: losses {runs[REMAT_GROUPS]['losses']} against {runs[0]['losses']}")
+    print(f"[remat] the parameters after one step are bitwise equal and both steps' losses "
+          f"equal; remat_groups {REMAT_GROUPS} against per-block: step "
+          f"{runs[REMAT_GROUPS]['step_ms'] / runs[0]['step_ms']:.3f}x, peak memory "
+          f"{runs[REMAT_GROUPS]['peak_memory_gb'] - runs[0]['peak_memory_gb']:+.2f} GB  [{smi}]")
+    del first
+    return {"runs": {str(k): v for k, v in runs.items()},
+            "phase_s": time.perf_counter() - t_phase}
 
 
 def main() -> int:
@@ -3612,7 +4025,8 @@ def main() -> int:
           + f"  [{smi}]")
 
     # -- 3b. the model kernels at fixed scaling points ---------------------------
-    model_scale = {k: [time_model_kernel(torch, np, k, *model_kernels[k], args, kw, smi)
+    model_scale = {k: [time_model_kernel(torch, np, k, *model_kernels[k], args, kw, smi,
+                                         launch_floor)
                        for args, kw in points]
                    for k, points in model_kernel_scaling_points(torch, np, dev).items()}
     torch.cuda.empty_cache()
@@ -3910,7 +4324,8 @@ def main() -> int:
     for kname, (fn, ref) in model_kernels.items():
         calls = recorder.calls[kname]
         check(bool(calls), f"{kname}: no call of the serving prefills was recorded")
-        serving["kernels"][kname] = [time_model_kernel(torch, np, kname, fn, ref, args, kw, smi)
+        serving["kernels"][kname] = [time_model_kernel(torch, np, kname, fn, ref, args, kw, smi,
+                                                       launch_floor)
                                      for args, kw in calls.values()]
         calls.clear()
         recorder.shapes[kname].clear()
@@ -3923,7 +4338,7 @@ def main() -> int:
     for kname, (fn, ref) in model_kernels.items():
         calls = recorder.calls[kname]
         check(bool(calls), f"{kname}: no call of the eval forward was recorded")
-        rows = [time_model_kernel(torch, np, kname, fn, ref, args, kw, smi)
+        rows = [time_model_kernel(torch, np, kname, fn, ref, args, kw, smi, launch_floor)
                 for args, kw in calls.values()]
         model_timed[kname] = {"headline": rows[0], "main_path": rows,
                               "scaling_points": model_scale[kname]}
@@ -3932,6 +4347,15 @@ def main() -> int:
 
     # -- 13. training: the backward kernels, internlm2 and hymba at full width ---
     training = run_train(torch, np, smi, launch_floor)
+
+    # -- 14. the encoder-decoder, the VLM and gemma's head_dim 256 at full width -
+    families = run_families(torch, np, smi, launch_floor)
+
+    # -- 15. every text config reduced, through launch.serve and launch.train ---
+    reduced = run_reduced(torch, np, smi, launch_floor)
+
+    # -- 16. two-level remat at full depth ---------------------------------------
+    remat = run_remat_groups(torch, np, smi)
 
     # -- results ---------------------------------------------------------------
     sources = {
@@ -4006,7 +4430,10 @@ def main() -> int:
                 "serve_prefill": {arch: serving[arch]["teacher_forcing"]["prefill_launches"][k]
                                   for arch in (SERVE_ARCH, SERVE_MOE_ARCH)},
                 "train": {"internlm2-1.8b": training["internlm2"]["launches"].get(k, 0),
-                          "hymba-1.5b": training["hymba"]["launches"][k]}},
+                          "hymba-1.5b": training["hymba"]["launches"][k]},
+                "families_train": {arch: families[arch]["launches"].get(k, 0)
+                                   for arch in FAMILY_TEXT},
+                "reduced": {arch: reduced[arch]["launches"][k] for arch in REDUCED_ARCHS}},
             "launches_per_forward": evaluation["launches_per_forward"][k],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -4014,6 +4441,8 @@ def main() -> int:
             "shape": t["shape"], "main_path": model_timed[k]["main_path"],
             "scaling_points": model_timed[k]["scaling_points"],
             "serve_prefill": serving["kernels"][k],
+            "families": {arch: families[arch]["kernels"].get(k, []) for arch in FAMILY_TEXT},
+            "reduced": reduced["kernels"][k],
         })
     # the fused path's two kernels: no Pallas original (the reference's fused
     # program computes the solve and the draw in XLA); each headline is the
@@ -4065,15 +4494,25 @@ def main() -> int:
             "replaces_note": note,
             "launches": training[path]["launches"][k],
             "launches_by_path": {"train_internlm2": training["internlm2"]["launches"].get(k, 0),
-                                 "train_hymba": training["hymba"]["launches"][k]},
+                                 "train_hymba": training["hymba"]["launches"][k],
+                                 "families_train": {arch: families[arch]["launches"].get(k, 0)
+                                                    for arch in FAMILY_TEXT},
+                                 "reduced": {arch: reduced[arch]["launches"][k]
+                                             for arch in REDUCED_ARCHS}},
             "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "floor_ms": t["floor_ms"], "shape": t["shape"],
-            "main_path": training["kernels"][k], "checks": [
+            "main_path": training["kernels"][k],
+            "families": {arch: families[arch]["kernels"].get(k, []) for arch in FAMILY_TEXT},
+            "reduced": reduced["kernels"][k], "checks": [
                 r for r in training["checks"] if r["name"] == k],
             "sass": [r for r in training["sass"]
                      if r["library"] == os.path.basename(source)[:-3]]})
     summary["train"] = {k: v for k, v in training.items() if k not in ("kernels", "checks")}
+    summary["families"] = {arch: {k: v for k, v in r.items() if k != "kernels"}
+                           if isinstance(r, dict) else r for arch, r in families.items()}
+    summary["reduced"] = {k: v for k, v in reduced.items() if k != "kernels"}
+    summary["remat_groups"] = remat
     summary["drain"] = drain
     summary["fused"] = {k: v for k, v in fused.items() if k != "kernels"}
     summary["gather"] = gather

@@ -73,32 +73,38 @@ def model_params_from_arrays(cfg, params: Mapping[str, Any],
     ``params`` holds numpy arrays (bfloat16 ones as ml_dtypes arrays):
     ``embed``, ``final_norm``, ``head`` and ``layers`` (name → array with the
     layers stacked on a leading L axis, the reference's ``scan_layers=True``
-    layout).  Returns tensors on ``device`` keyed as
-    ``repro_torch.models.Model``'s ``state_dict``, bits unchanged; load them
-    with ``model.load_state_dict``.
+    layout), and an encoder-decoder's ``enc_layers`` (the same, with the
+    encoder's depth) and ``enc_norm``.  Returns tensors on ``device`` keyed
+    as ``repro_torch.models.Model``'s ``state_dict``, bits unchanged; load
+    them with ``model.load_state_dict``.
     """
     dev = resolve_device(device)
+    encdec = cfg.family == "encdec"
     out = {name: _weight(params[name], name, dev)
-           for name in ("embed", "final_norm", "head")}
-    shapes = layer_shapes(cfg)
-    missing = sorted(set(shapes) - set(params["layers"]))
-    if missing:
-        raise ValueError(f"{cfg.name}: layer parameters missing: {missing}")
-    for name, a in params["layers"].items():
-        t = _weight(a, f"layers.{name}", dev)
-        want = (cfg.num_layers, *shapes.get(name, t.shape[1:]))
-        if tuple(t.shape) != want:
-            raise ValueError(f"layers.{name}: expected shape {want} (layers "
-                             f"stacked on axis 0), got {tuple(t.shape)}")
-        out[f"layers.{name}"] = t
+           for name in ("embed", "final_norm", "head") + (("enc_norm",) if encdec else ())}
+    stacks = [("layers", cfg.num_layers, layer_shapes(cfg))]
+    if encdec:
+        stacks.append(("enc_layers", cfg.encoder_layers, layer_shapes(cfg, cross=False)))
+    for stack, depth, shapes in stacks:
+        missing = sorted(set(shapes) - set(params[stack]))
+        if missing:
+            raise ValueError(f"{cfg.name}: {stack} parameters missing: {missing}")
+        for name, a in params[stack].items():
+            t = _weight(a, f"{stack}.{name}", dev)
+            want = (depth, *shapes.get(name, t.shape[1:]))
+            if tuple(t.shape) != want:
+                raise ValueError(f"{stack}.{name}: expected shape {want} (layers "
+                                 f"stacked on axis 0), got {tuple(t.shape)}")
+            out[f"{stack}.{name}"] = t
     return out
 
 
 def cache_from_arrays(cfg, cache: Mapping[str, Any],
                       device="cuda") -> Dict[str, torch.Tensor]:
     """The reference's decode cache of ``cfg`` (numpy arrays keyed as its
-    ``Model.cache_spec``: ``pos``, and ``k`` / ``v`` / ``ssm`` as the family
-    has them) as the port's, bits unchanged, on ``device``."""
+    ``Model.cache_spec``: ``pos``, and ``k`` / ``v`` / ``ssm`` / ``cross_k``
+    / ``cross_v`` as the family has them) as the port's, bits unchanged, on
+    ``device``."""
     dev = resolve_device(device)
     pos = np.asarray(cache["pos"])
     ring = np.asarray(cache["k"]).shape[3] if cfg.has_attention else 1
@@ -144,13 +150,17 @@ def train_state_from_arrays(cfg, params: Mapping[str, Any], opt: Mapping[str, An
 
 
 def _tree_to_arrays(tree: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """A state-dict-keyed tree as the reference's nested one: ``layers.wq``
+    (and ``enc_layers.wq``) under their stack's dict, other names at the
+    top."""
     out: Dict[str, Any] = {"layers": {}}
     for name, t in tree.items():
         t = t.detach().cpu()
         arr = (t.view(torch.int16).numpy().view(np.uint16) if t.dtype == torch.bfloat16
                else t.numpy())
-        if name.startswith("layers."):
-            out["layers"][name[len("layers."):]] = arr
+        stack, _, leaf = name.partition(".")
+        if leaf:
+            out.setdefault(stack, {})[leaf] = arr
         else:
             out[name] = arr
     return out

@@ -45,7 +45,11 @@
 // reduced eval shape (tests/test_torch_models.py); the two parts carry 16
 // bits of p and fail none, for 1.5x the tensor-core work.  l sums the f32 p.
 // Ragged Sq and Skv: TMA fills rows past the end with zeros, the col < skv
-// mask drops their scores, and rows >= Sq are not stored.
+// mask drops their scores, and rows >= Sq are not stored.  Head dims 64,
+// 128 and 256 (gemma-7b), each as D / 64 pieces of 64 columns: at D 256 a
+// CTA holds Q as four 16 KB pieces and two stages of K and V at 64 KB each
+// (193 KB of shared memory, one CTA an SM), and a thread's O accumulator is
+// 128 f32 registers beside S's 32.
 //
 // When the caller passes an lse buffer (B, Hq, Sq) f32 (the autograd
 // Function does, when a gradient will be asked for), each row's
@@ -55,7 +59,8 @@
 // after the kv loop and touches nothing o is computed from: with a null
 // pointer a launch does exactly what it did before the backward existed.
 //
-// f32 inputs: flash_attn_kernel<float, D>, the scalar kernel, kept because
+// f32 inputs (head dims 16, 64 and 128; 16 is the reduced configs'):
+// flash_attn_kernel<float, D>, the scalar kernel, kept because
 // wgmma on f32 is TF32 (about three digits), looser than the f32 checks
 // (the kernel at 2e-3, a full-width f32 forward's logits at 1e-3).  One CTA
 // of 128 threads per (batch, q head, 64-row q tile); q, K and V tiles
@@ -524,8 +529,8 @@ cudaError_t launch_flash_wgmma(const void* q, const void* k, const void* v, void
 }  // namespace repro_torch
 
 // q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D), o like q: contiguous, one
-// dtype (code 0 f32, 3 bf16), D 64 or 128, Hq a multiple of Hkv; lse (B,
-// Hq, Sq) f32 or null.
+// dtype (code 0 f32, 3 bf16), D 64, 128 or 256 in bf16 and 16, 64 or 128 in
+// f32, Hq a multiple of Hkv; lse (B, Hq, Sq) f32 or null.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                                  void* o, void* lse_out, int dtype, int batch, int hq,
                                  int hkv, int sq, int skv, int head_dim,
@@ -539,6 +544,10 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
     return launch_flash_wgmma<64>(q, k, v, o, lse, batch, hq, hkv, sq, skv, scale, causal, window, st);
   if (dtype == kDtypeBF16 && head_dim == 128)
     return launch_flash_wgmma<128>(q, k, v, o, lse, batch, hq, hkv, sq, skv, scale, causal, window, st);
+  if (dtype == kDtypeBF16 && head_dim == 256)
+    return launch_flash_wgmma<256>(q, k, v, o, lse, batch, hq, hkv, sq, skv, scale, causal, window, st);
+  if (dtype == kDtypeF32 && head_dim == 16)
+    return launch_flash<float, 16>(q, k, v, o, lse, batch, hq, hkv, sq, skv, scale, causal, window, st);
   if (dtype == kDtypeF32 && head_dim == 64)
     return launch_flash<float, 64>(q, k, v, o, lse, batch, hq, hkv, sq, skv, scale, causal, window, st);
   if (dtype == kDtypeF32 && head_dim == 128)

@@ -28,8 +28,9 @@
 // (40 us at 3.35 TB/s).  The atomic-free design does seven, since both
 // kernels form S and dO V^T: 481 GFLOP, 0.49 ms at that peak.
 //
-// bf16 inputs: flash_bwd_dkdv_wgmma_kernel and flash_bwd_dq_wgmma_kernel, on
-// the tensor cores, built from the forward's parts (hopper.cuh, tma_map.cuh):
+// bf16 inputs at D 64 and 128: flash_bwd_dkdv_wgmma_kernel and
+// flash_bwd_dq_wgmma_kernel, on the tensor cores, built from the forward's
+// parts (hopper.cuh, tma_map.cuh):
 // 128-byte swizzled TMA tiles, a ring of kStagesB (3) stages each guarded by an
 // mbarrier that counts the copy's bytes (thread 0 issues tile n + kStagesB - 1
 // before the warpgroups start on tile n), wgmma m64n64k16 with D 128 taken as
@@ -60,10 +61,18 @@
 //
 // f32 inputs: flash_bwd_dq_kernel and flash_bwd_dkdv_kernel, scalar: wgmma on
 // f32 is TF32 (about three digits), looser than the f32 check (1e-4 of the
-// largest gradient).  256 threads, (64, D) tiles in shared memory (rows
-// padded by one word, so reads down a column hit 32 banks), each thread a
-// 4 x 4 tile of the (64, 64) products and 4 x D/16 of the (64, D) ones, all
-// f32 FMAs.
+// largest gradient).  256 threads, (BT, D) tiles in shared memory widened to
+// f32 (rows padded by one word, so reads down a column hit 32 banks), each
+// thread an R x R tile of the (BT, BT) products and R x D/16 of the (BT, D)
+// ones, R = BT / 16, all f32 FMAs; BT 64 at D 16, 64 and 128.
+// bf16 at D 256 (gemma-7b) takes the same scalar kernels on bf16 loads, with
+// BT 32: neither wgmma design fits there (the dQ CTA's Q and dO alone are
+// 128 KB before its three 64 KB ring stages; the dK/dV CTA's two 64 x 256
+// f32 accumulators want 256 registers a thread), and four (64, 257) f32
+// tiles would take 263 KB.  The same rules hold: no atomics, dQ (with D)
+// then dK/dV, P from the forward's log-sum-exp; every sum is f32 and the
+// gradients are rounded once to bf16.  A wgmma design at D 256 is later
+// work.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -74,8 +83,7 @@
 
 namespace repro_torch {
 
-constexpr int kBT = 64;           // rows of a q tile and of a kv tile
-constexpr int kBwdThreads = 256;  // thread (tr, tc): rows 4tr.., columns tc + 16j
+constexpr int kBwdThreads = 256;  // the scalar kernels' CTA: thread (tr, tc) a 16 x 16 grid
 constexpr float kLog2eBwd = 1.4426950408889634f;
 
 __device__ __forceinline__ bool seen(int row, int col, int skv, int causal, int window) {
@@ -85,62 +93,65 @@ __device__ __forceinline__ bool seen(int row, int col, int skv, int causal, int 
   return keep;
 }
 
-// ---- f32: the scalar kernels ---------------------------------------------------
+// ---- the scalar kernels: f32 at every head dim, bf16 at D 256 ----------------------
 
-template <int D>
+// Shared memory of a scalar CTA: (BT, D) tiles of Q, dO, K and V widened to
+// f32 (the dQ kernel's O while it forms D), then P and dS, then the q tile's
+// lse and D
+template <int D, int BT>
 struct BwdSmem {
-  static constexpr int kS = D + 1;    // row stride of the (64, D) tiles
-  static constexpr int kP = kBT + 1;  // row stride of P and dS
-  // Q, dO, K, V (the dQ kernel's O while it forms D), then P, dS, then the
-  // q tile's lse and D
-  static constexpr size_t kBytes = sizeof(float) * (4 * kBT * kS + 2 * kBT * kP + 2 * kBT);
+  static constexpr int kS = D + 1;    // row stride of the (BT, D) tiles
+  static constexpr int kP = BT + 1;   // row stride of P and dS
+  static constexpr size_t kBytes = sizeof(float) * (4 * BT * kS + 2 * BT * kP + 2 * BT);
 };
 
-// P and dS of q rows [i0, i0 + 64) against kv rows [j0, j0 + 64) into ps and
+// P and dS of q rows [i0, i0 + BT) against kv rows [j0, j0 + BT) into ps and
 // dss: S = Q K^T and dP = dO V^T by one pass over d, then P = exp(scale S -
 // lse) where the key is seen (0 elsewhere, and on rows >= sq) and
-// dS = P (dP - D)
-template <int D>
+// dS = P (dP - D).  Thread (tr, tc) owns rows R tr .. R tr + R - 1 and
+// columns tc + 16 c, R = BT / 16.
+template <int D, int BT>
 __device__ __forceinline__ void p_and_ds(const float* qs, const float* dos, const float* ks,
                                          const float* vs, const float* lse_s,
                                          const float* delta_s, float* ps, float* dss, int i0,
                                          int j0, int sq, int skv, float scale, int causal,
                                          int window) {
-  using S = BwdSmem<D>;
+  using S = BwdSmem<D, BT>;
+  constexpr int R = BT / 16;
   const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
-  float s[4][4], dp[4][4];
+  float s[R][R], dp[R][R];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int a = 0; a < R; ++a)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) s[a][c] = dp[a][c] = 0.0f;
+    for (int c = 0; c < R; ++c) s[a][c] = dp[a][c] = 0.0f;
 #pragma unroll 4
   for (int d = 0; d < D; ++d) {
-    float qa[4], oa[4], kc[4], vc[4];
+    float qa[R], oa[R], kc[R], vc[R];
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      qa[a] = qs[(4 * tr + a) * S::kS + d];
-      oa[a] = dos[(4 * tr + a) * S::kS + d];
+    for (int a = 0; a < R; ++a) {
+      qa[a] = qs[(R * tr + a) * S::kS + d];
+      oa[a] = dos[(R * tr + a) * S::kS + d];
     }
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
+    for (int c = 0; c < R; ++c) {
       kc[c] = ks[(tc + 16 * c) * S::kS + d];
       vc[c] = vs[(tc + 16 * c) * S::kS + d];
     }
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int a = 0; a < R; ++a)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < R; ++c) {
         s[a][c] = fmaf(qa[a], kc[c], s[a][c]);
         dp[a][c] = fmaf(oa[a], vc[c], dp[a][c]);
       }
   }
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int r = 4 * tr + a;
+  for (int a = 0; a < R; ++a) {
+    const int r = R * tr + a;
     const int row = i0 + r;
     const float l2 = lse_s[r] * kLog2eBwd;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
+    for (int c = 0; c < R; ++c) {
       const int col = j0 + tc + 16 * c;
       const float p = (row < sq && seen(row, col, skv, causal, window))
                           ? ex2(s[a][c] * scale * kLog2eBwd - l2)
@@ -151,46 +162,48 @@ __device__ __forceinline__ void p_and_ds(const float* qs, const float* dos, cons
   }
 }
 
-template <int D>
+template <typename T, int D, int BT>
 __global__ void __launch_bounds__(kBwdThreads)
-    flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ o,
-                        const float* __restrict__ lse, const float* __restrict__ dout,
-                        float* __restrict__ dq, float* __restrict__ delta, int hq, int hkv,
+    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ o,
+                        const float* __restrict__ lse, const T* __restrict__ dout,
+                        T* __restrict__ dq, float* __restrict__ delta, int hq, int hkv,
                         int sq, int skv, float scale, int causal, int window) {
-  using S = BwdSmem<D>;
+  using S = BwdSmem<D, BT>;
+  constexpr int R = BT / 16;
   constexpr int kCols = D / 16;
+  constexpr int kPerRow = kBwdThreads / BT;  // threads that form one row's D
   extern __shared__ float smem[];
   float* qs = smem;
-  float* dos = qs + kBT * S::kS;
-  float* ks = dos + kBT * S::kS;
-  float* vs = ks + kBT * S::kS;
-  float* ps = vs + kBT * S::kS;
-  float* dss = ps + kBT * S::kP;
-  float* lse_s = dss + kBT * S::kP;
-  float* delta_s = lse_s + kBT;
+  float* dos = qs + BT * S::kS;
+  float* ks = dos + BT * S::kS;
+  float* vs = ks + BT * S::kS;
+  float* ps = vs + BT * S::kS;
+  float* dss = ps + BT * S::kP;
+  float* lse_s = dss + BT * S::kP;
+  float* delta_s = lse_s + BT;
 
-  const int i0 = blockIdx.x * kBT;
+  const int i0 = blockIdx.x * BT;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (hq / hkv);
   const int64_t bq = static_cast<int64_t>(b) * hq + h;
-  const float* kb = k + (static_cast<int64_t>(b) * hkv + hk) * skv * D;
-  const float* vb = v + (static_cast<int64_t>(b) * hkv + hk) * skv * D;
+  const T* kb = k + (static_cast<int64_t>(b) * hkv + hk) * skv * D;
+  const T* vb = v + (static_cast<int64_t>(b) * hkv + hk) * skv * D;
   const int tid = threadIdx.x;
 
-  load_tile<float, D>(qs, S::kS, q + bq * sq * D, i0, kBT, sq);
-  load_tile<float, D>(dos, S::kS, dout + bq * sq * D, i0, kBT, sq);
-  load_tile<float, D>(ks, S::kS, o + bq * sq * D, i0, kBT, sq);  // O, for D only
-  if (tid < kBT) lse_s[tid] = i0 + tid < sq ? lse[bq * sq + i0 + tid] : 0.0f;
+  load_tile<T, D>(qs, S::kS, q + bq * sq * D, i0, BT, sq);
+  load_tile<T, D>(dos, S::kS, dout + bq * sq * D, i0, BT, sq);
+  load_tile<T, D>(ks, S::kS, o + bq * sq * D, i0, BT, sq);  // O, for D only
+  if (tid < BT) lse_s[tid] = i0 + tid < sq ? lse[bq * sq + i0 + tid] : 0.0f;
   __syncthreads();
-  // D = rowsum(dO O): four threads a row, each a quarter of the columns
+  // D = rowsum(dO O): kPerRow threads a row, each every kPerRow-th column
   {
-    const int r = tid / 4, part = tid % 4;
+    const int r = tid / kPerRow, part = tid % kPerRow;
     float acc = 0.0f;
-    for (int d = part; d < D; d += 4) acc = fmaf(dos[r * S::kS + d], ks[r * S::kS + d], acc);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    for (int d = part; d < D; d += kPerRow) acc = fmaf(dos[r * S::kS + d], ks[r * S::kS + d], acc);
+#pragma unroll
+    for (int off = 1; off < kPerRow; off <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
     if (part == 0) {
       delta_s[r] = acc;
       if (i0 + r < sq) delta[bq * sq + i0 + r] = acc;
@@ -198,70 +211,72 @@ __global__ void __launch_bounds__(kBwdThreads)
   }
 
   const int tr = tid / 16, tc = tid % 16;
-  float acc[4][kCols];
+  float acc[R][kCols];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int a = 0; a < R; ++a)
 #pragma unroll
     for (int c = 0; c < kCols; ++c) acc[a][c] = 0.0f;
 
-  // the kv tiles [lo, hi] rows [i0, i0 + 64) can see (flash_attn.cu kv_tiles)
+  // the kv tiles [lo, hi] rows [i0, i0 + BT) can see (flash_attn.cu kv_tiles)
   int last_col = skv - 1;
-  if (causal) last_col = min(last_col, i0 + kBT - 1);
-  const int hi = last_col >= 0 ? last_col / kBT : -1;
-  const int lo = window > 0 ? max(0, i0 - window + 1) / kBT : 0;
+  if (causal) last_col = min(last_col, i0 + BT - 1);
+  const int hi = last_col >= 0 ? last_col / BT : -1;
+  const int lo = window > 0 ? max(0, i0 - window + 1) / BT : 0;
   for (int jt = lo; jt <= hi; ++jt) {
-    const int j0 = jt * kBT;
+    const int j0 = jt * BT;
     __syncthreads();  // the last tile's K, V, P and dS are read
-    load_tile<float, D>(ks, S::kS, kb, j0, kBT, skv);
-    load_tile<float, D>(vs, S::kS, vb, j0, kBT, skv);
+    load_tile<T, D>(ks, S::kS, kb, j0, BT, skv);
+    load_tile<T, D>(vs, S::kS, vb, j0, BT, skv);
     __syncthreads();
-    p_and_ds<D>(qs, dos, ks, vs, lse_s, delta_s, ps, dss, i0, j0, sq, skv, scale, causal,
-                window);
+    p_and_ds<D, BT>(qs, dos, ks, vs, lse_s, delta_s, ps, dss, i0, j0, sq, skv, scale, causal,
+                    window);
     __syncthreads();
     // dQ[r][c] += sum_j dS[r][j] K[j][c]
 #pragma unroll 4
-    for (int j = 0; j < kBT; ++j) {
-      float sa[4], kc[kCols];
+    for (int j = 0; j < BT; ++j) {
+      float sa[R], kc[kCols];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) sa[a] = dss[(4 * tr + a) * S::kP + j];
+      for (int a = 0; a < R; ++a) sa[a] = dss[(R * tr + a) * S::kP + j];
 #pragma unroll
       for (int c = 0; c < kCols; ++c) kc[c] = ks[j * S::kS + tc + 16 * c];
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+      for (int a = 0; a < R; ++a)
 #pragma unroll
         for (int c = 0; c < kCols; ++c) acc[a][c] = fmaf(sa[a], kc[c], acc[a][c]);
     }
   }
-  float* out = dq + bq * sq * D;
+  T* out = dq + bq * sq * D;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int row = i0 + 4 * tr + a;
+  for (int a = 0; a < R; ++a) {
+    const int row = i0 + R * tr + a;
     if (row >= sq) continue;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) out[static_cast<int64_t>(row) * D + tc + 16 * c] = acc[a][c] * scale;
+    for (int c = 0; c < kCols; ++c)
+      out[static_cast<int64_t>(row) * D + tc + 16 * c] = from_f32<T>(acc[a][c] * scale);
   }
 }
 
-template <int D>
+template <typename T, int D, int BT>
 __global__ void __launch_bounds__(kBwdThreads)
-    flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v, const float* __restrict__ lse,
-                          const float* __restrict__ delta, const float* __restrict__ dout,
-                          float* __restrict__ dk, float* __restrict__ dv, int hq, int hkv,
+    flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const float* __restrict__ lse,
+                          const float* __restrict__ delta, const T* __restrict__ dout,
+                          T* __restrict__ dk, T* __restrict__ dv, int hq, int hkv,
                           int sq, int skv, float scale, int causal, int window) {
-  using S = BwdSmem<D>;
+  using S = BwdSmem<D, BT>;
+  constexpr int R = BT / 16;
   constexpr int kCols = D / 16;
   extern __shared__ float smem[];
   float* qs = smem;
-  float* dos = qs + kBT * S::kS;
-  float* ks = dos + kBT * S::kS;
-  float* vs = ks + kBT * S::kS;
-  float* ps = vs + kBT * S::kS;
-  float* dss = ps + kBT * S::kP;
-  float* lse_s = dss + kBT * S::kP;
-  float* delta_s = lse_s + kBT;
+  float* dos = qs + BT * S::kS;
+  float* ks = dos + BT * S::kS;
+  float* vs = ks + BT * S::kS;
+  float* ps = vs + BT * S::kS;
+  float* dss = ps + BT * S::kP;
+  float* lse_s = dss + BT * S::kP;
+  float* delta_s = lse_s + BT;
 
-  const int j0 = blockIdx.x * kBT;
+  const int j0 = blockIdx.x * BT;
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int rep = hq / hkv;
@@ -269,45 +284,45 @@ __global__ void __launch_bounds__(kBwdThreads)
   const int tid = threadIdx.x;
   const int tr = tid / 16, tc = tid % 16;
 
-  load_tile<float, D>(ks, S::kS, k + bkv * skv * D, j0, kBT, skv);
-  load_tile<float, D>(vs, S::kS, v + bkv * skv * D, j0, kBT, skv);
+  load_tile<T, D>(ks, S::kS, k + bkv * skv * D, j0, BT, skv);
+  load_tile<T, D>(vs, S::kS, v + bkv * skv * D, j0, BT, skv);
 
-  // the q rows that see any key of [j0, j0 + 64): from j0 when causal, to
+  // the q rows that see any key of [j0, j0 + BT): from j0 when causal, to
   // the last key + window - 1 with a window
   const int r_lo = causal ? j0 : 0;
-  const int r_hi = window > 0 ? min(sq - 1, j0 + kBT - 1 + window - 1) : sq - 1;
-  const int it_lo = r_lo / kBT, it_hi = r_hi >= r_lo ? r_hi / kBT : -1;
+  const int r_hi = window > 0 ? min(sq - 1, j0 + BT - 1 + window - 1) : sq - 1;
+  const int it_lo = r_lo / BT, it_hi = r_hi >= r_lo ? r_hi / BT : -1;
 
-  float dk_acc[4][kCols], dv_acc[4][kCols];
+  float dk_acc[R][kCols], dv_acc[R][kCols];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int a = 0; a < R; ++a)
 #pragma unroll
     for (int c = 0; c < kCols; ++c) dk_acc[a][c] = dv_acc[a][c] = 0.0f;
 
   for (int hh = 0; hh < rep; ++hh) {
     const int64_t bq = static_cast<int64_t>(b) * hq + hk * rep + hh;
     for (int it = it_lo; it <= it_hi; ++it) {
-      const int i0 = it * kBT;
+      const int i0 = it * BT;
       __syncthreads();  // the last tile's Q, dO, P and dS are read
-      load_tile<float, D>(qs, S::kS, q + bq * sq * D, i0, kBT, sq);
-      load_tile<float, D>(dos, S::kS, dout + bq * sq * D, i0, kBT, sq);
-      if (tid < kBT) {
+      load_tile<T, D>(qs, S::kS, q + bq * sq * D, i0, BT, sq);
+      load_tile<T, D>(dos, S::kS, dout + bq * sq * D, i0, BT, sq);
+      if (tid < BT) {
         const bool in = i0 + tid < sq;
         lse_s[tid] = in ? lse[bq * sq + i0 + tid] : 0.0f;
         delta_s[tid] = in ? delta[bq * sq + i0 + tid] : 0.0f;
       }
       __syncthreads();
-      p_and_ds<D>(qs, dos, ks, vs, lse_s, delta_s, ps, dss, i0, j0, sq, skv, scale, causal,
-                  window);
+      p_and_ds<D, BT>(qs, dos, ks, vs, lse_s, delta_s, ps, dss, i0, j0, sq, skv, scale, causal,
+                      window);
       __syncthreads();
       // dV[j][c] += sum_r P[r][j] dO[r][c];  dK[j][c] += sum_r dS[r][j] Q[r][c]
 #pragma unroll 2
-      for (int r = 0; r < kBT; ++r) {
-        float pa[4], sa[4], oc[kCols], qc[kCols];
+      for (int r = 0; r < BT; ++r) {
+        float pa[R], sa[R], oc[kCols], qc[kCols];
 #pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          pa[a] = ps[r * S::kP + 4 * tr + a];
-          sa[a] = dss[r * S::kP + 4 * tr + a];
+        for (int a = 0; a < R; ++a) {
+          pa[a] = ps[r * S::kP + R * tr + a];
+          sa[a] = dss[r * S::kP + R * tr + a];
         }
 #pragma unroll
         for (int c = 0; c < kCols; ++c) {
@@ -315,7 +330,7 @@ __global__ void __launch_bounds__(kBwdThreads)
           qc[c] = qs[r * S::kS + tc + 16 * c];
         }
 #pragma unroll
-        for (int a = 0; a < 4; ++a)
+        for (int a = 0; a < R; ++a)
 #pragma unroll
           for (int c = 0; c < kCols; ++c) {
             dv_acc[a][c] = fmaf(pa[a], oc[c], dv_acc[a][c]);
@@ -324,48 +339,51 @@ __global__ void __launch_bounds__(kBwdThreads)
       }
     }
   }
-  float* dkb = dk + bkv * skv * D;
-  float* dvb = dv + bkv * skv * D;
+  T* dkb = dk + bkv * skv * D;
+  T* dvb = dv + bkv * skv * D;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int row = j0 + 4 * tr + a;
+  for (int a = 0; a < R; ++a) {
+    const int row = j0 + R * tr + a;
     if (row >= skv) continue;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int64_t at = static_cast<int64_t>(row) * D + tc + 16 * c;
-      dkb[at] = dk_acc[a][c] * scale;
-      dvb[at] = dv_acc[a][c];
+      dkb[at] = from_f32<T>(dk_acc[a][c] * scale);
+      dvb[at] = from_f32<T>(dv_acc[a][c]);
     }
   }
 }
 
-template <int D>
-cudaError_t launch_bwd_f32(const void* q, const void* k, const void* v, const void* o,
-                           const float* lse, const void* dout, void* dq, void* dk, void* dv,
-                           float* delta, int batch, int hq, int hkv, int sq, int skv,
-                           float scale, int causal, int window, cudaStream_t stream) {
-  const size_t smem = BwdSmem<D>::kBytes;
+// tiles of BT rows: 64, and 32 at D 256, where four (64, 257) f32 tiles
+// alone would take 263 KB
+template <typename T, int D, int BT>
+cudaError_t launch_bwd_scalar(const void* q, const void* k, const void* v, const void* o,
+                              const float* lse, const void* dout, void* dq, void* dk, void* dv,
+                              float* delta, int batch, int hq, int hkv, int sq, int skv,
+                              float scale, int causal, int window, cudaStream_t stream) {
+  const size_t smem = BwdSmem<D, BT>::kBytes;
   cudaError_t err;
-  if ((err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
+  if ((err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D, BT>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   static_cast<int>(smem))) != cudaSuccess)
     return err;
-  if ((err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D>,
+  if ((err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, D, BT>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   static_cast<int>(smem))) != cudaSuccess)
     return err;
-  const float* qp = static_cast<const float*>(q);
-  const float* kp = static_cast<const float*>(k);
-  const float* vp = static_cast<const float*>(v);
-  const float* dop = static_cast<const float*>(dout);
-  flash_bwd_dq_kernel<D><<<dim3((sq + kBT - 1) / kBT, hq, batch), kBwdThreads, smem, stream>>>(
-      qp, kp, vp, static_cast<const float*>(o), lse, dop, static_cast<float*>(dq), delta, hq,
-      hkv, sq, skv, scale, causal, window);
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  const T* dop = static_cast<const T*>(dout);
+  flash_bwd_dq_kernel<T, D, BT><<<dim3((sq + BT - 1) / BT, hq, batch), kBwdThreads, smem,
+                                  stream>>>(qp, kp, vp, static_cast<const T*>(o), lse, dop,
+                                            static_cast<T*>(dq), delta, hq, hkv, sq, skv,
+                                            scale, causal, window);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  flash_bwd_dkdv_kernel<D><<<dim3((skv + kBT - 1) / kBT, hkv, batch), kBwdThreads, smem,
-                             stream>>>(qp, kp, vp, lse, delta, dop, static_cast<float*>(dk),
-                                       static_cast<float*>(dv), hq, hkv, sq, skv, scale,
-                                       causal, window);
+  flash_bwd_dkdv_kernel<T, D, BT><<<dim3((skv + BT - 1) / BT, hkv, batch), kBwdThreads, smem,
+                                    stream>>>(qp, kp, vp, lse, delta, dop, static_cast<T*>(dk),
+                                              static_cast<T*>(dv), hq, hkv, sq, skv, scale,
+                                              causal, window);
   return cudaGetLastError();
 }
 
@@ -890,11 +908,11 @@ cudaError_t launch_bwd_wgmma(const void* q, const void* k, const void* v, const 
 }  // namespace repro_torch
 
 // q, o, dout, dq (B, Hq, Sq, D); k, v, dk, dv (B, Hkv, Skv, D): contiguous,
-// 16-byte aligned, one dtype (code 0 f32, 3 bf16), D 64 or 128, Hq a multiple
-// of Hkv, 2 B Hq Sq below 2^31; lse (the forward's) (B, Hq, Sq) f32; stats
-// f32 scratch of 2 B Hq ceil(Sq / 64) 64 floats, 16-byte aligned: the f32
-// kernels keep D there as (B, Hq, Sq), the bf16 ones lse log2 e, then D, as
-// (2, B Hq, Sq rounded up to 64).
+// 16-byte aligned, one dtype (code 0 f32, 3 bf16), D 64, 128 or 256 in bf16
+// and 16, 64 or 128 in f32, Hq a multiple of Hkv, 2 B Hq Sq below 2^31; lse
+// (the forward's) (B, Hq, Sq) f32; stats f32 scratch of 2 B Hq ceil(Sq / 64)
+// 64 floats, 16-byte aligned: the scalar kernels keep D there as (B, Hq,
+// Sq), the wgmma ones lse log2 e, then D, as (2, B Hq, Sq rounded up to 64).
 extern "C" int flash_attn_bwd_launch(const void* q, const void* k, const void* v,
                                      const void* o, const void* lse, const void* dout,
                                      void* dq, void* dk, void* dv, void* stats, int dtype,
@@ -912,12 +930,18 @@ extern "C" int flash_attn_bwd_launch(const void* q, const void* k, const void* v
   if (dtype == kDtypeBF16 && head_dim == 128)
     return launch_bwd_wgmma<128>(q, k, v, o, l, dout, dq, dk, dv, dl, batch, hq, hkv, sq, skv,
                                  scale, causal, window, st);
+  if (dtype == kDtypeBF16 && head_dim == 256)
+    return launch_bwd_scalar<bf16, 256, 32>(q, k, v, o, l, dout, dq, dk, dv, dl, batch, hq,
+                                            hkv, sq, skv, scale, causal, window, st);
+  if (dtype == kDtypeF32 && head_dim == 16)
+    return launch_bwd_scalar<float, 16, 64>(q, k, v, o, l, dout, dq, dk, dv, dl, batch, hq,
+                                            hkv, sq, skv, scale, causal, window, st);
   if (dtype == kDtypeF32 && head_dim == 64)
-    return launch_bwd_f32<64>(q, k, v, o, l, dout, dq, dk, dv, dl, batch, hq, hkv, sq, skv,
-                              scale, causal, window, st);
+    return launch_bwd_scalar<float, 64, 64>(q, k, v, o, l, dout, dq, dk, dv, dl, batch, hq,
+                                            hkv, sq, skv, scale, causal, window, st);
   if (dtype == kDtypeF32 && head_dim == 128)
-    return launch_bwd_f32<128>(q, k, v, o, l, dout, dq, dk, dv, dl, batch, hq, hkv, sq, skv,
-                               scale, causal, window, st);
+    return launch_bwd_scalar<float, 128, 64>(q, k, v, o, l, dout, dq, dk, dv, dl, batch, hq,
+                                             hkv, sq, skv, scale, causal, window, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

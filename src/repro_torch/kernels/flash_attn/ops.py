@@ -19,11 +19,15 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attn.ref import (flash_attention_bwd_ref,
                                                 flash_attention_lse_ref)
 
-HEAD_DIMS = (64, 128)  # the widths the kernel is instantiated for
+# the head dims each dtype's kernels, forward and backward, are built for:
+# bf16 on the tensor cores (the backward at 256 on the scalar kernels), f32
+# on the scalar kernels (16: the reduced configs')
+HEAD_DIMS = {torch.bfloat16: (64, 128, 256), torch.float32: (16, 64, 128)}
 MAX_GRID_YZ = 65_535   # q heads ride in gridDim.y, the batch in gridDim.z
 BWD_TILE = 64          # rows of the backward's streamed tiles (csrc/flash_attn_bwd.cu)
 # kv rows of a bf16 dK/dV CTA by head_dim, as launch_bwd_wgmma sets them
-# (csrc/flash_attn_bwd.cu): the faster of 64 and 128 at the training inputs
+# (csrc/flash_attn_bwd.cu): the faster of 64 and 128 at the training inputs;
+# the head dims the wgmma backward takes
 BWD_KV_ROWS = {64: 64, 128: 128}
 
 
@@ -59,8 +63,9 @@ def _check(q, k, v, window: int, q_offset: int) -> None:
 
 def _launch_checks(q: torch.Tensor) -> None:
     b, hq, _, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d}: the kernel takes {HEAD_DIMS}")
+    if d not in HEAD_DIMS[q.dtype]:
+        raise ValueError(f"head_dim {d}: the {str(q.dtype)[6:]} kernels take "
+                         f"{HEAD_DIMS[q.dtype]}")
     if hq > MAX_GRID_YZ or b > MAX_GRID_YZ:
         raise ValueError(f"{b} x {hq} (batch x heads) exceeds the grid")
 
@@ -94,12 +99,15 @@ def _forward(q, k, v, causal: bool, window: int, scale: float, with_lse: bool):
 def backward_grids(q, k):
     """The (x, y) CTA grids of the backward's two launches on the card, dQ
     then dK/dV, with the batch folded into x (the launch floor's shape):
-    bf16 dQ CTAs of 128 q rows and dK/dV CTAs of ``BWD_KV_ROWS[d]`` kv
-    rows; f32 CTAs of 64 rows."""
+    bf16 (wgmma) dQ CTAs of 128 q rows and dK/dV CTAs of ``BWD_KV_ROWS[d]``
+    kv rows; the scalar kernels' (f32, and bf16 at d 256) CTAs of 64 rows,
+    32 at d 256."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    q_rows, kv_rows = ((2 * BWD_TILE, BWD_KV_ROWS[d]) if q.dtype == torch.bfloat16
-                       else (BWD_TILE, BWD_TILE))
+    if q.dtype == torch.bfloat16 and d in BWD_KV_ROWS:
+        q_rows, kv_rows = 2 * BWD_TILE, BWD_KV_ROWS[d]
+    else:
+        q_rows = kv_rows = BWD_TILE if d < 256 else BWD_TILE // 2
     return [(-(-sq // q_rows) * b, hq), (-(-skv // kv_rows) * b, hkv)]
 
 
@@ -191,7 +199,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``h // (Hq // Hkv)``, no repeated K/V).  Masks: keys past Skv never;
     ``col > row`` when causal; ``col <= row - window`` when ``window > 0``
     (the models' sliding window).  Scores, softmax and accumulation in f32;
-    returns q's dtype and shape.  On the card d must be 64 or 128.
+    returns q's dtype and shape.  On the card d must be in
+    ``HEAD_DIMS[dtype]``: 64, 128 or 256 in bf16, 16, 64 or 128 in f32;
+    another raises.
     Differentiable: the gradients of q, k and v come from the backward
     kernels (their plain versions on the CPU), in the inputs' dtypes.
     """

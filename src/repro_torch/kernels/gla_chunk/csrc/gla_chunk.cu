@@ -167,7 +167,7 @@ __global__ void __launch_bounds__(kGlaThreads)
                          const T* __restrict__ v, const T* __restrict__ g,
                          const float* __restrict__ s_before, T* __restrict__ o,
                          int t_len) {
-  static_assert(DV == 64, "the output phase maps 16 x 16 threads onto 64 x 64");
+  static_assert(DV % 16 == 0 && DV <= 64, "the output phase maps 4 x 4 tiles onto 64 x DV");
   extern __shared__ float smem[];
   constexpr int kD = DK * kTS;
   float* qT = smem;
@@ -275,8 +275,9 @@ __global__ void __launch_bounds__(kGlaThreads)
   __syncthreads();
 
   // o = (q e^L) S_before + A v: thread owns rows 4 tr .. 4 tr + 3 and
-  // columns 4 tc .. 4 tc + 3
-  const int tr = tid / 16, tc = tid % 16;
+  // columns 4 tc .. 4 tc + 3 (the first 4 DV threads; all of them at DV 64)
+  const int tr = tid / (DV / 4), tc = tid % (DV / 4);
+  if (tr >= kChunk / 4) return;
   float inter[4][4], intra[4][4];
 #pragma unroll
   for (int ii = 0; ii < 4; ++ii)
@@ -357,7 +358,8 @@ cudaError_t launch_gla(const void* q, const void* k, const void* v, const void* 
 // q, k, g (B*H, T, dk) and v (B*H, T, dv) contiguous in one dtype (code 0
 // f32, 3 bf16); o (B*H, T, dv) in that dtype, state (B*H, dk, dv) f32;
 // scratch ds (B*H, chunks, dk, dv) and decay (B*H, chunks, dk) f32, chunks =
-// ceil(T / 64).  (dk, dv) is (16, 64) or (64, 64); B*H <= 65,535.
+// ceil(T / 64).  (dk, dv) is (16, 64) or (64, 64), and (8, 16) in f32 (the
+// reduced configs'); B*H <= 65,535.
 extern "C" int gla_chunk_launch(const void* q, const void* k, const void* v,
                                 const void* g, void* o, void* state, void* ds,
                                 void* decay, int dtype, int bh, int t_len, int dk,
@@ -373,6 +375,8 @@ extern "C" int gla_chunk_launch(const void* q, const void* k, const void* v,
     return launch_gla<float, 16, 64>(q, k, v, g, o, state, ds, decay, bh, t_len, s);
   if (dv == 64 && dk == 64 && dtype == kDtypeF32)
     return launch_gla<float, 64, 64>(q, k, v, g, o, state, ds, decay, bh, t_len, s);
+  if (dv == 16 && dk == 8 && dtype == kDtypeF32)
+    return launch_gla<float, 8, 16>(q, k, v, g, o, state, ds, decay, bh, t_len, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

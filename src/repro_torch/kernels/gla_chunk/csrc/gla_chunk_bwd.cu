@@ -37,7 +37,9 @@
 //      B once (4 x 4 tiles of the lower triangle); then, slab by slab of 16
 //      key channels, L, the re-based factors and A's partial sums, dq and dk
 //      (each a 4 x 4 tile of (steps, channels)), dg and dv's inter term;
-//      then dv's intra term from A.
+//      then dv's intra term from A.  Below one slab of key channels (dk 8,
+//      dv 16: the reduced configs) gla_bwd_chunk_small_kernel takes its
+//      place, the same math in the direct form, one element a thread.
 // The intra-chunk sums take the forward's sub-block re-basing (SUB = 16):
 // exps per FMA only on the diagonal 16 x 16 sub-blocks, every off-diagonal
 // pair re-based at a sub-block's last step b, so that each exponent stays
@@ -800,6 +802,154 @@ __global__ void __launch_bounds__(kGlaThreads, DK == 16 ? 2 : 1)
   }
 }
 
+// The chunk pass at key dims below one slab (dk 8 with dv 16: the reduced
+// configs'), where the slab kernel's 16-channel slabs and (64, 64) tiles do
+// not apply: every gradient of the chunk in the direct form, every exponent
+// a difference of the clamped cumulative decay that is <= 0 (e^{L_i - L_j}
+// for j <= i, e^{L_t}, e^{L_C - L_t}), one output element a thread, sums in
+// a fixed order.  The math is the slab kernel's (the header's equations);
+// at these widths a chunk is ~50k FMAs and ~16k exps, so the simple form
+// costs nothing the launch does not.
+template <int DK, int DV>
+struct SmallSmem {
+  static constexpr int kKP = DK + 1;  // row stride of q and k (steps, dk)
+  static constexpr int kVP = DV + 1;  // row stride of v and dO (steps, dv)
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kChunk * kKP;
+  static constexpr int kL = kK + kChunk * kKP;      // L transposed (dk, kTS)
+  static constexpr int kV = kL + DK * kTS;
+  static constexpr int kO = kV + kChunk * kVP;      // dO
+  static constexpr int kS0 = kO + kChunk * kVP;     // S0 (dk, dv)
+  static constexpr int kDH = kS0 + DK * DV;         // dH (dk, dv)
+  static constexpr int kB = kDH + DK * DV;          // B (steps, steps)
+  static constexpr int kA = kB + kChunk * kRS;      // A (steps, steps)
+  static constexpr int kRQ = kA + kChunk * kRS;     // q dq transposed (dk, steps)
+  static constexpr int kRK = kRQ + DK * kRS;        // k dk transposed
+  static constexpr int kSuf = kRK + DK * kRS;       // <S1, dH> per channel
+  static constexpr size_t kBytes = sizeof(float) * (kSuf + DK);
+};
+
+template <typename T, int DK, int DV>
+__global__ void __launch_bounds__(kGlaThreads)
+    gla_bwd_chunk_small_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                               const T* __restrict__ v, const T* __restrict__ g,
+                               const T* __restrict__ dout, const float* __restrict__ states,
+                               const float* __restrict__ state, const float* __restrict__ dh,
+                               T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
+                               T* __restrict__ dg, int t_len) {
+  using S = SmallSmem<DK, DV>;
+  constexpr int KP = S::kKP, VP = S::kVP;
+  extern __shared__ float smem[];
+  float* qs = smem + S::kQ;
+  float* ks = smem + S::kK;
+  float* LT = smem + S::kL;
+  float* vs = smem + S::kV;
+  float* os = smem + S::kO;
+  float* S0 = smem + S::kS0;
+  float* dH = smem + S::kDH;
+  float* Bm = smem + S::kB;
+  float* Am = smem + S::kA;
+  float* rq = smem + S::kRQ;
+  float* rk = smem + S::kRK;
+  float* suf = smem + S::kSuf;
+  const int c = blockIdx.x;
+  const int nchunks = gridDim.x;
+  const int64_t bh = blockIdx.y;
+  const int64_t slot = bh * nchunks + c;
+  const int t0 = c * kChunk;
+  const int tid = threadIdx.x;
+
+  load_tile<T, DK>(qs, KP, q + bh * t_len * DK, t0, kChunk, t_len);
+  load_tile<T, DK>(ks, KP, k + bh * t_len * DK, t0, kChunk, t_len);
+  load_tile_t<T, DK>(LT, g + bh * t_len * DK, t0, t_len);
+  load_tile<T, DV>(vs, VP, v + bh * t_len * DV, t0, kChunk, t_len);
+  load_tile<T, DV>(os, VP, dout + bh * t_len * DV, t0, kChunk, t_len);
+  const float* s0 = states + slot * DK * DV;
+  const float* s1 = c + 1 < nchunks ? states + (slot + 1) * DK * DV : state + bh * DK * DV;
+  const float* dhc = dh + slot * DK * DV;
+  for (int i = tid; i < DK * DV; i += kGlaThreads) {
+    S0[i] = s0[i];
+    dH[i] = dhc[i];
+  }
+  if (tid < DK) {
+    float d = 0.0f;
+    for (int y = 0; y < DV; ++y) d = fmaf(s1[tid * DV + y], dhc[tid * DV + y], d);
+    suf[tid] = d;
+  }
+  __syncthreads();
+  cumsum_decay<DK>(LT);
+  __syncthreads();
+
+  // B_ij = dO_i . v_j and A_ij = sum_x q_ix k_jx e^{L_ix - L_jx} on and below
+  // the diagonal, 0 above it
+  for (int idx = tid; idx < kChunk * kChunk; idx += kGlaThreads) {
+    const int i = idx / kChunk, j = idx % kChunk;
+    float b = 0.0f, a = 0.0f;
+    if (j <= i) {
+      for (int y = 0; y < DV; ++y) b = fmaf(os[i * VP + y], vs[j * VP + y], b);
+      for (int x = 0; x < DK; ++x)
+        a = fmaf(qs[i * KP + x] * ks[j * KP + x], exp_le0(LT[x * kTS + i] - LT[x * kTS + j]), a);
+    }
+    Bm[i * kRS + j] = b;
+    Am[i * kRS + j] = a;
+  }
+  __syncthreads();
+
+  // dq_tx = e^{L_t} (S0 dO_t)_x + sum_{j<=t} B_tj e^{L_t - L_j} k_jx and
+  // dk_tx = sum_{i>=t} B_it e^{L_i - L_t} q_ix + e^{L_C - L_t} (dH v_t)_x
+  for (int idx = tid; idx < kChunk * DK; idx += kGlaThreads) {
+    const int t = idx / DK, x = idx % DK;
+    const float* Lx = LT + x * kTS;
+    const float Lt = Lx[t];
+    float inter_q = 0.0f, inter_k = 0.0f;
+    for (int y = 0; y < DV; ++y) {
+      inter_q = fmaf(S0[x * DV + y], os[t * VP + y], inter_q);
+      inter_k = fmaf(dH[x * DV + y], vs[t * VP + y], inter_k);
+    }
+    float intra_q = 0.0f, intra_k = 0.0f;
+    for (int j = 0; j <= t; ++j)
+      intra_q = fmaf(Bm[t * kRS + j] * ks[j * KP + x], exp_le0(Lt - Lx[j]), intra_q);
+    for (int i = t; i < kChunk; ++i)
+      intra_k = fmaf(Bm[i * kRS + t] * qs[i * KP + x], exp_le0(Lx[i] - Lt), intra_k);
+    const float gq = fmaf(inter_q, exp_le0(Lt), intra_q);
+    const float gk = fmaf(inter_k, exp_le0(Lx[kChunk - 1] - Lt), intra_k);
+    rq[x * kRS + t] = qs[t * KP + x] * gq;
+    rk[x * kRS + t] = ks[t * KP + x] * gk;
+    if (t0 + t < t_len) {
+      const int64_t at_ = (bh * t_len + t0 + t) * DK + x;
+      dq[at_] = from_f32<T>(gq);
+      dk[at_] = from_f32<T>(gk);
+    }
+  }
+  // dv_ty = sum_{i>=t} A_it dO_iy + sum_x k_tx e^{L_C - L_t} dH_xy
+  for (int idx = tid; idx < kChunk * DV; idx += kGlaThreads) {
+    const int t = idx / DV, y = idx % DV;
+    float acc = 0.0f;
+    for (int i = t; i < kChunk; ++i) acc = fmaf(Am[i * kRS + t], os[i * VP + y], acc);
+    for (int x = 0; x < DK; ++x)
+      acc = fmaf(ks[t * KP + x] * exp_le0(LT[x * kTS + kChunk - 1] - LT[x * kTS + t]),
+                 dH[x * DV + y], acc);
+    if (t0 + t < t_len) dv[(bh * t_len + t0 + t) * DV + y] = from_f32<T>(acc);
+  }
+  __syncthreads();
+
+  // dg of each channel: the reverse sums of q dq - k dk from the chunk's
+  // last step, plus <S1, dH>, times the clamp's gradient
+  if (tid < DK) {
+    float later = suf[tid];
+    for (int t = kChunk - 1; t >= 0; --t) {
+      later += rq[tid * kRS + t] - rk[tid * kRS + t];
+      if (t0 + t >= t_len) continue;
+      const int64_t at_ = (bh * t_len + t0 + t) * DK + tid;
+      const float gv = to_f32(g[at_]);
+      const float dclamp = (gv > kGClamp && gv < 0.0f) ? 1.0f
+                           : (gv == kGClamp || gv == 0.0f) ? 0.5f
+                                                            : 0.0f;
+      dg[at_] = from_f32<T>(later * dclamp);
+    }
+  }
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -831,15 +981,25 @@ cudaError_t launch_gla_bwd(const void* q, const void* k, const void* v, const vo
       <<<static_cast<unsigned>((elems + kGlaThreads - 1) / kGlaThreads), kGlaThreads, 0,
          stream>>>(dh, decay, dstate, bh, nchunks);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  constexpr size_t chunk_smem = ChunkSmem<DV>::kBytes;
-  if ((err = allow_smem(gla_bwd_chunk_kernel<T, DK, DV>, chunk_smem)) != cudaSuccess) return err;
-  if ((err = cudaFuncSetAttribute(gla_bwd_chunk_kernel<T, DK, DV>,
-                                  cudaFuncAttributePreferredSharedMemoryCarveout,
-                                  cudaSharedmemCarveoutMaxShared)) != cudaSuccess)
-    return err;
-  gla_bwd_chunk_kernel<T, DK, DV><<<grid, kGlaThreads, chunk_smem, stream>>>(
-      qp, kp, vp, gp, dop, states, state, dh, static_cast<T*>(dq), static_cast<T*>(dk),
-      static_cast<T*>(dv), static_cast<T*>(dg), t_len);
+  if constexpr (DK < kXS) {
+    constexpr size_t small_smem = SmallSmem<DK, DV>::kBytes;
+    if ((err = allow_smem(gla_bwd_chunk_small_kernel<T, DK, DV>, small_smem)) != cudaSuccess)
+      return err;
+    gla_bwd_chunk_small_kernel<T, DK, DV><<<grid, kGlaThreads, small_smem, stream>>>(
+        qp, kp, vp, gp, dop, states, state, dh, static_cast<T*>(dq), static_cast<T*>(dk),
+        static_cast<T*>(dv), static_cast<T*>(dg), t_len);
+  } else {
+    constexpr size_t chunk_smem = ChunkSmem<DV>::kBytes;
+    if ((err = allow_smem(gla_bwd_chunk_kernel<T, DK, DV>, chunk_smem)) != cudaSuccess)
+      return err;
+    if ((err = cudaFuncSetAttribute(gla_bwd_chunk_kernel<T, DK, DV>,
+                                    cudaFuncAttributePreferredSharedMemoryCarveout,
+                                    cudaSharedmemCarveoutMaxShared)) != cudaSuccess)
+      return err;
+    gla_bwd_chunk_kernel<T, DK, DV><<<grid, kGlaThreads, chunk_smem, stream>>>(
+        qp, kp, vp, gp, dop, states, state, dh, static_cast<T*>(dq), static_cast<T*>(dk),
+        static_cast<T*>(dv), static_cast<T*>(dg), t_len);
+  }
   return cudaGetLastError();
 }
 
@@ -850,7 +1010,8 @@ cudaError_t launch_gla_bwd(const void* q, const void* k, const void* v, const vo
 // dv) f32, the state before each chunk (the forward scan's scratch); state
 // (B*H, dk, dv) f32, the final state; dstate like it or null (zero); scratch
 // dh (B*H, chunks, dk, dv) and decay (B*H, chunks, dk) f32, chunks = ceil(T /
-// 64).  (dk, dv) is (16, 64) or (64, 64); B*H <= 65,535.
+// 64).  (dk, dv) is (16, 64) or (64, 64), and (8, 16) in f32 (the reduced
+// configs'); B*H <= 65,535.
 extern "C" int gla_chunk_bwd_launch(const void* q, const void* k, const void* v,
                                     const void* g, const void* states, const void* state,
                                     const void* dout, const void* dstate, void* dq, void* dk,
@@ -864,13 +1025,14 @@ extern "C" int gla_chunk_bwd_launch(const void* q, const void* k, const void* v,
   const auto* ds = static_cast<const float*>(dstate);
   auto* dhp = static_cast<float*>(dh);
   auto* decp = static_cast<float*>(decay);
-#define GLA_BWD(T, DK)                                                                      \
-  return launch_gla_bwd<T, DK, 64>(q, k, v, g, sts, st, dout, ds, dq, dk, dv, dg, dhp, decp, \
+#define GLA_BWD(T, DK, DV)                                                                  \
+  return launch_gla_bwd<T, DK, DV>(q, k, v, g, sts, st, dout, ds, dq, dk, dv, dg, dhp, decp, \
                                    bh, t_len, s)
-  if (dvdim == 64 && dkdim == 16 && dtype == kDtypeBF16) GLA_BWD(bf16, 16);
-  if (dvdim == 64 && dkdim == 64 && dtype == kDtypeBF16) GLA_BWD(bf16, 64);
-  if (dvdim == 64 && dkdim == 16 && dtype == kDtypeF32) GLA_BWD(float, 16);
-  if (dvdim == 64 && dkdim == 64 && dtype == kDtypeF32) GLA_BWD(float, 64);
+  if (dvdim == 64 && dkdim == 16 && dtype == kDtypeBF16) GLA_BWD(bf16, 16, 64);
+  if (dvdim == 64 && dkdim == 64 && dtype == kDtypeBF16) GLA_BWD(bf16, 64, 64);
+  if (dvdim == 64 && dkdim == 16 && dtype == kDtypeF32) GLA_BWD(float, 16, 64);
+  if (dvdim == 64 && dkdim == 64 && dtype == kDtypeF32) GLA_BWD(float, 64, 64);
+  if (dvdim == 16 && dkdim == 8 && dtype == kDtypeF32) GLA_BWD(float, 8, 16);
 #undef GLA_BWD
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -20,8 +20,10 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.gla_chunk.ref import gla_chunked_bwd_ref, gla_chunked_fwd_ref
 
-KEY_DIMS = (16, 64)   # dk the kernel is instantiated for
-VALUE_DIMS = (64,)    # dv
+# the (dk, dv) pairs each dtype's kernels, forward and backward, are built
+# for: hymba's (16, 64), rwkv6's (64, 64), and the reduced configs' (8, 16)
+KEY_VALUE_DIMS = {torch.bfloat16: ((16, 64), (64, 64)),
+                  torch.float32: ((16, 64), (64, 64), (8, 16))}
 CHUNK = 64            # steps per chunk (csrc/gla_chunk.cu kChunk)
 MAX_GRID_Y = 65_535   # batch x heads ride in gridDim.y
 
@@ -43,6 +45,12 @@ def _check(q, k, v, g) -> None:
                              ".contiguous() on a transposed view")
 
 
+def _check_widths(q, dk: int, dv: int) -> None:
+    if (dk, dv) not in KEY_VALUE_DIMS[q.dtype]:
+        raise ValueError(f"(dk, dv) = ({dk}, {dv}): the {str(q.dtype)[6:]} kernels "
+                         f"take {KEY_VALUE_DIMS[q.dtype]}")
+
+
 def _forward(q, k, v, g):
     """(o, final state, the state before each chunk (B, H, chunks, dk, dv)
     f32): the forward kernels on the card (the states are the scan pass's
@@ -51,9 +59,7 @@ def _forward(q, k, v, g):
         return gla_chunked_fwd_ref(q, k, v, g)
     b, h, t, dk = q.shape
     dv = v.shape[-1]
-    if dk not in KEY_DIMS or dv not in VALUE_DIMS:
-        raise ValueError(f"(dk, dv) = ({dk}, {dv}): the kernel takes dk in "
-                         f"{KEY_DIMS}, dv in {VALUE_DIMS}")
+    _check_widths(q, dk, dv)
     if b * h > MAX_GRID_Y:
         raise ValueError(f"{b} x {h} (batch x heads) exceeds the grid")
     if any(x.data_ptr() % 16 for x in (q, k, v, g)):
@@ -84,9 +90,7 @@ def backward_checks(q, k, v, g, states, state, do, dstate) -> None:
     and 16-byte aligned (the kernels' float4 and 16-byte loads)."""
     b, h, t, dk = q.shape
     dv = v.shape[-1]
-    if dk not in KEY_DIMS or dv not in VALUE_DIMS:
-        raise ValueError(f"(dk, dv) = ({dk}, {dv}): the kernel takes dk in "
-                         f"{KEY_DIMS}, dv in {VALUE_DIMS}")
+    _check_widths(q, dk, dv)
     if b * h > MAX_GRID_Y:
         raise ValueError(f"{b} x {h} (batch x heads) exceeds the grid")
     if do.dtype != q.dtype or do.shape != v.shape:
@@ -166,7 +170,8 @@ def gla_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     contiguous, f32 or bf16; g is the per-step log-decay, clamped to [-8, 0].
     Returns (o (B, H, T, dv) in q's dtype, final state (B, H, dk, dv) f32).
     Any T: the kernel reads steps past T as zero q, k, v and zero decay.  On
-    the card (dk, dv) must be (16, 64) or (64, 64).  Differentiable: the
+    the card (dk, dv) must be in ``KEY_VALUE_DIMS[dtype]``: (16, 64) or (64,
+    64), and (8, 16) in f32; another raises.  Differentiable: the
     gradients come from the backward kernels (their plain versions on the
     CPU), in the inputs' dtypes; g's follows the reference's ``jnp.clip``,
     half a gradient on either bound.

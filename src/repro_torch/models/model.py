@@ -1,7 +1,8 @@
-"""Config-driven decoder of the port: the reference's ``models/model.py``
-for the families ``dense``, ``moe``, ``ssm`` and ``hybrid`` — the forward
-(differentiable: ``train/step.py`` trains through it), and the serving
-half: ``cache_spec`` / ``init_cache``, ``prefill`` and ``decode_step``.
+"""Config-driven model of the port: the reference's ``models/model.py`` for
+all six families (``dense``, ``moe``, ``ssm``, ``hybrid``, the
+encoder-decoder ``encdec`` and the ``vlm``) — the forward (differentiable:
+``train/step.py`` trains through it), and the serving half: ``cache_spec`` /
+``init_cache``, ``prefill`` and ``decode_step``.
 
 Layer parameters are stacked on a leading L axis, as the reference stacks
 them for its layer scan (``scan_layers=True``), so its parameter tree maps
@@ -12,18 +13,28 @@ stack's gradient; indexing ``t[i]`` would write a zero tensor of the whole
 stack for every layer).  Attention goes through the flash wrapper, the SSM
 branch through the gla_chunk wrapper: the hand-written kernels on the card,
 forward and backward, their plain versions on the CPU.  With ``cfg.remat``
-each decoder block of a differentiated forward runs under
+each block of a differentiated forward (decoder and encoder) runs under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` with
 ``nothing_saveable``): only the block's input is kept, and the backward runs
-the block's forward again.  A decode step attends one token against the
-cache (``layers.decode_attention``), advances the SSM state
+the block's forward again.  With ``cfg.remat_groups`` G > 1 dividing the
+depth L, each group of L / G decoder blocks runs under one more checkpoint
+(the reference's two-level "sqrt" remat, applied with or without
+``cfg.remat``): the backward keeps G group inputs and re-runs one group at
+a time.  The stub frontends are the reference's: an encoder-decoder
+(whisper) encodes ``batch["frames"]`` (B, enc_seq, D) with rope and
+non-causal self-attention, and each decoder layer attends to the encoded
+sequence through its own ``xwk`` / ``xwv`` projections (non-causal,
+through the flash wrapper; in decoding against the ``cross_k`` / ``cross_v``
+cache that ``prefill`` fills); a VLM (llava) prepends
+``batch["patch_embeds"]`` (B, P, D), cast to the model dtype, to the token
+embeddings, so its logits are P + S long.  A decode step attends one token
+against the cache (``layers.decode_attention``), advances the SSM state
 (``linear_attn.gla_decode_step``) and routes MoE tokens densely
 (``moe.moe_ffn_dense``): torch ops, as the reference's are XLA with no
 Pallas original.  ``prefill`` and ``decode_step`` run under ``no_grad``; the
 decode cache is written in place, so its tensors keep their storage from
 step to step.  The reference's ``scan`` and ``shard_hints`` are JAX/TPU
-machinery with no counterpart on one card; its ``remat_groups`` (sqrt
-remat over layer groups) is not ported yet.
+machinery with no counterpart on one card.
 """
 
 from __future__ import annotations
@@ -43,7 +54,7 @@ from repro_torch.models.linear_attn import gla_chunked, gla_decode_step
 from repro_torch.models.moe import moe_ffn, moe_ffn_dense
 
 VOCAB_PAD = 128
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def _dt(cfg: ModelConfig) -> torch.dtype:
@@ -60,9 +71,14 @@ def _ssm_dv(cfg: ModelConfig) -> int:
     return cfg.head_dim
 
 
-def layer_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
-    """One decoder layer's parameter shapes (the reference's
-    ``Model._layer_shapes`` for the ported families)."""
+def layer_shapes(cfg: ModelConfig, cross: Optional[bool] = None) -> Dict[str, Tuple[int, ...]]:
+    """One layer's parameter shapes (the reference's ``Model._layer_shapes``):
+    with ``cross`` the cross-attention's ``ln_x``, ``xwq``, ``xwk``, ``xwv``
+    and ``xwo`` too.  ``cross`` defaults to the decoder's (an
+    encoder-decoder's decoder layers have them); the encoder's layers are
+    ``cross=False``."""
+    if cross is None:
+        cross = cfg.family == "encdec"
     d, qd, kvd, f = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
     shapes: Dict[str, Tuple[int, ...]] = {"ln1": (d,), "ln2": (d,)}
     if cfg.has_attention:
@@ -72,6 +88,8 @@ def layer_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
         shapes.update(s_wq=(d, nh * dk), s_wk=(d, nh * dk),
                       s_wv=(d, nh * dv), s_wg=(d, nh * dk),
                       s_gbias=(nh * dk,), s_wo=(nh * dv, d))
+    if cross:
+        shapes.update(ln_x=(d,), xwq=(d, qd), xwk=(d, kvd), xwv=(d, kvd), xwo=(qd, d))
     if cfg.is_moe:
         e = cfg.num_experts
         shapes.update(router=(d, e), e_w1=(e, d, f), e_w3=(e, d, f),
@@ -86,7 +104,8 @@ def cache_spec(cfg: ModelConfig, batch: int, cache_len: int) -> Dict[str, Tuple[
     ``Model.cache_spec`` for the ported families.  ``pos`` (B,) int32 is each
     sequence's position; ``k``, ``v`` (L, B, Hkv, S, hd) in the model dtype,
     S = min(cache_len, window) for a sliding window (a ring) and cache_len
-    without one; ``ssm`` (L, B, H, dk, dv) f32."""
+    without one; ``ssm`` (L, B, H, dk, dv) f32; an encoder-decoder's
+    ``cross_k``, ``cross_v`` (L, B, Hkv, enc_seq, hd) in the model dtype."""
     L = cfg.num_layers
     spec = {"pos": ((batch,), torch.int32)}
     if cfg.has_attention:
@@ -97,6 +116,9 @@ def cache_spec(cfg: ModelConfig, batch: int, cache_len: int) -> Dict[str, Tuple[
     if cfg.has_ssm:
         spec["ssm"] = ((L, batch, cfg.num_ssm_heads, cfg.ssm_state, _ssm_dv(cfg)),
                        torch.float32)
+    if cfg.family == "encdec":
+        spec["cross_k"] = spec["cross_v"] = (
+            (L, batch, cfg.num_kv_heads, cfg.enc_seq, cfg.head_dim), _dt(cfg))
     return spec
 
 
@@ -111,11 +133,8 @@ class Model(nn.Module):
         super().__init__()
         cfg.validate()
         if cfg.family not in FAMILIES:
-            what = {"encdec": "the encoder-decoder family",
-                    "vlm": "the VLM family"}.get(cfg.family, cfg.family)
-            raise NotImplementedError(
-                f"{cfg.name}: {what} is not ported yet (ROADMAP queue 1 item "
-                f"14); the port runs the families {FAMILIES}")
+            raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}; the port runs "
+                             f"{FAMILIES}")
         self.cfg = cfg
         dev = resolve_device(device)
         dt = _dt(cfg)
@@ -131,6 +150,16 @@ class Model(nn.Module):
              for name, shp in sorted(layer_shapes(cfg).items())})
         self.final_norm = empty(cfg.d_model)
         self.head = empty(cfg.d_model, vp)
+        if cfg.family == "encdec":
+            self.enc_layers = nn.ParameterDict(
+                {name: empty(cfg.encoder_layers, *shp)
+                 for name, shp in sorted(layer_shapes(cfg, cross=False).items())})
+            self.enc_norm = empty(cfg.d_model)
+
+    def _stacks(self):
+        """The stacked layer parameter dicts: the decoder's, then the
+        encoder's where there is one."""
+        return [self.layers] + ([self.enc_layers] if self.cfg.family == "encdec" else [])
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "Model":
@@ -138,47 +167,95 @@ class Model(nn.Module):
         distributions (``model.py`` ``_init_stack`` / ``init``): norms 0,
         ``s_gbias`` -1, matrices N(0, 1) * fan_in^-0.5, vectors N(0, 1) *
         0.02, the embedding N(0, 1) * 0.02, the head N(0, 1) * d^-0.5.
-        Drawn in f32 on the generator's device, then cast and copied."""
+        Drawn in f32 on the generator's device, then cast and copied; an
+        encoder's stack after the head, its norm 0."""
         def normal(p: torch.Tensor, scale: float) -> None:
             x = torch.randn(p.shape, generator=generator, dtype=torch.float32,
                             device=generator.device)
             p.copy_(x.mul_(scale))
 
+        def stack(layers: nn.ParameterDict) -> None:
+            for name, p in layers.items():
+                shp = p.shape[1:]
+                if name.startswith("ln"):
+                    p.zero_()
+                elif name == "s_gbias":
+                    p.fill_(-1.0)
+                else:
+                    fan_in = shp[-2] if len(shp) >= 2 else shp[-1]
+                    normal(p, 0.02 if len(shp) < 2 else fan_in ** -0.5)
+
         normal(self.embed, 0.02)
-        for name, p in self.layers.items():
-            shp = p.shape[1:]
-            if name.startswith("ln"):
-                p.zero_()
-            elif name == "s_gbias":
-                p.fill_(-1.0)
-            else:
-                fan_in = shp[-2] if len(shp) >= 2 else shp[-1]
-                normal(p, 0.02 if len(shp) < 2 else fan_in ** -0.5)
+        stack(self.layers)
         self.final_norm.zero_()
         normal(self.head, self.cfg.d_model ** -0.5)
+        if self.cfg.family == "encdec":
+            stack(self.enc_layers)
+            self.enc_norm.zero_()
         return self
 
     # ------------------------------------------------------------- the block
-    def _per_layer(self) -> List[Dict[str, torch.Tensor]]:
-        """Each layer's parameters: views of the stacks, one ``unbind`` per
-        stack and pass."""
-        views = {n: t.unbind(0) for n, t in self.layers.items()}
-        return [{n: v[i] for n, v in views.items()} for i in range(self.cfg.num_layers)]
+    def _per_layer(self, stacks: Optional[nn.ParameterDict] = None) -> List[Dict[str, torch.Tensor]]:
+        """Each layer's parameters (the decoder's, or ``stacks``'): views of
+        the stacks, one ``unbind`` per stack and pass."""
+        stacks = self.layers if stacks is None else stacks
+        views = {n: t.unbind(0) for n, t in stacks.items()}
+        depth = next(iter(stacks.values())).shape[0]
+        return [{n: v[i] for n, v in views.items()} for i in range(depth)]
 
-    def _attn_branch(self, p, h, *, window: int):
-        """(output, (k after RoPE, v), each (B, Hkv, S, hd))."""
+    def _attention(self, p, h):
+        """q (B, H, S, hd), k and v (B, Hkv, S, hd) of ``h``, before RoPE."""
         cfg = self.cfg
         b, s, _ = h.shape
         q = (h @ p["wq"]).view(b, s, cfg.num_heads, cfg.head_dim)
         k = (h @ p["wk"]).view(b, s, cfg.num_kv_heads, cfg.head_dim)
         v = (h @ p["wv"]).view(b, s, cfg.num_kv_heads, cfg.head_dim)
+        return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+    def _attn_branch(self, p, h, *, window: int):
+        """(output, (k after RoPE, v), each (B, Hkv, S, hd)): causal
+        self-attention, within ``window`` when it is > 0."""
+        cfg = self.cfg
+        b, s, _ = h.shape
+        q, k, v = self._attention(p, h)
         pos = torch.arange(s, device=h.device)
-        q = rope(q.transpose(1, 2), pos, cfg.rope_theta)
-        k = rope(k.transpose(1, 2), pos, cfg.rope_theta)
-        v = v.transpose(1, 2)
+        q = rope(q, pos, cfg.rope_theta)
+        k = rope(k, pos, cfg.rope_theta)
         o = mea_attention(q, k, v, causal=True, window=window, q_offset=0)
         o = o.transpose(1, 2).reshape(b, s, cfg.q_dim)
         return o @ p["wo"], (k, v)
+
+    def _cross_kv(self, p, enc):
+        """A decoder layer's keys and values of the encoded sequence enc (B,
+        enc_seq, D): (B, Hkv, enc_seq, hd) each, no RoPE."""
+        cfg = self.cfg
+        b, se, _ = enc.shape
+        ek = (enc @ p["xwk"]).view(b, se, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
+        ev = (enc @ p["xwv"]).view(b, se, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
+        return ek, ev
+
+    def _cross_branch(self, p, x, enc_kv):
+        """Non-causal attention of x's queries (``ln_x``, ``xwq``, no RoPE)
+        over the encoded sequence's keys and values: Sq != Skv."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        h = rms_norm(x, p["ln_x"], cfg.norm_eps)
+        q = (h @ p["xwq"]).view(b, s, cfg.num_heads, cfg.head_dim).transpose(1, 2)
+        o = mea_attention(q, *enc_kv, causal=False)
+        return o.transpose(1, 2).reshape(b, s, cfg.q_dim) @ p["xwo"]
+
+    def _encoder_block(self, p, x):
+        """One encoder layer: RoPE and non-causal self-attention over the
+        frames, then the MLP (the reference's ``_encoder_block``)."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        q, k, v = self._attention(p, rms_norm(x, p["ln1"], cfg.norm_eps))
+        pos = torch.arange(s, device=x.device)
+        q, k = rope(q, pos, cfg.rope_theta), rope(k, pos, cfg.rope_theta)
+        o = mea_attention(q, k, v, causal=False)
+        x = x + o.transpose(1, 2).reshape(b, s, cfg.q_dim) @ p["wo"]
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        return x + mlp_block(h, p["w1"], p["w2"], p["w3"], cfg.mlp)
 
     def _ssm_branch(self, p, h):
         """(output, final state (B, H, dk, dv) f32)."""
@@ -218,8 +295,10 @@ class Model(nn.Module):
         y = torch.cat([o for o, _ in outs]).view(b, s, d)
         return y, torch.stack([a for _, a in outs]).mean()
 
-    def _decoder_block(self, p, x):
-        """(x out, (k, v) or None, final SSM state or None, aux or None)."""
+    def _decoder_block(self, p, x, enc=None):
+        """(x out, (k, v) or None, final SSM state or None, aux or None,
+        (cross k, cross v) or None).  ``enc``: the encoded sequence of an
+        encoder-decoder, whose keys and values the layer projects."""
         cfg = self.cfg
         kv = state = None
         # both branches of a hybrid layer read the same ln1 norm
@@ -234,30 +313,70 @@ class Model(nn.Module):
         else:
             a, kv = self._attn_branch(p, h, window=0)
             x = x + a
+        enc_kv = None
+        if enc is not None:
+            enc_kv = self._cross_kv(p, enc)
+            x = x + self._cross_branch(p, x, enc_kv)
         f, aux = self._ffn_branch(p, x)
-        return x + f, kv, state, aux
+        return x + f, kv, state, aux, enc_kv
 
-    def _train_block(self, p, x) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        x, _, _, aux = self._decoder_block(p, x)
+    def _train_block(self, p, x, enc=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        x, _, _, aux, _ = self._decoder_block(p, x, enc)
         return x, aux
+
+    def _blocks(self, ps, x, aux_total, enc, remat: bool):
+        """x and the aux sum through the decoder layers ``ps`` in order, each
+        under a checkpoint when ``remat``."""
+        for p in ps:
+            if remat:
+                x, aux = checkpoint(self._train_block, p, x, enc, use_reentrant=False)
+            else:
+                x, aux = self._train_block(p, x, enc)
+            if aux is not None:
+                aux_total = aux_total + aux
+        return x, aux_total
+
+    def _embed_inputs(self, batch) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(x, the encoded sequence or None): the token embeddings, after a
+        VLM's patch embeddings; an encoder-decoder's frames through the
+        encoder stack (per-block remat as the decoder's) and ``enc_norm``."""
+        cfg = self.cfg
+        x = self.embed[batch["tokens"].long()]
+        if cfg.family == "vlm":
+            x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
+        if cfg.family != "encdec":
+            return x, None
+        enc = batch["frames"].to(x.dtype)
+        remat = cfg.remat and torch.is_grad_enabled()
+        for p in self._per_layer(self.enc_layers):
+            enc = (checkpoint(self._encoder_block, p, enc, use_reentrant=False) if remat
+                   else self._encoder_block(p, enc))
+        return x, rms_norm(enc, self.enc_norm, cfg.norm_eps)
 
     # ------------------------------------------------------------ full pass
     def forward(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Logits of ``batch["tokens"]`` (B, S): returns (logits (B, S, Vp)
-        in the model dtype, the MoE aux loss summed over layers, f32; 0
-        without experts).  Differentiable; rematerialised per block when
-        ``cfg.remat`` is set and grad is enabled."""
+        """Logits of ``batch["tokens"]`` (B, S) (with ``frames`` (B,
+        enc_seq, D) for an encoder-decoder, ``patch_embeds`` (B, P, D) for
+        a VLM): returns (logits (B, S, Vp), (B, P + S, Vp) for a VLM, in the
+        model dtype; the MoE aux loss summed over layers, f32, 0 without
+        experts).  Differentiable.  When grad is enabled: each block under a
+        checkpoint when ``cfg.remat`` is set, and each group of L / G
+        decoder blocks under one more when ``cfg.remat_groups`` G > 1
+        divides L."""
         cfg = self.cfg
-        x = self.embed[batch["tokens"].long()]
+        x, enc = self._embed_inputs(batch)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-        remat = cfg.remat and torch.is_grad_enabled()
-        for p in self._per_layer():
-            if remat:
-                x, aux = checkpoint(self._train_block, p, x, use_reentrant=False)
-            else:
-                x, aux = self._train_block(p, x)
-            if aux is not None:
-                aux_total = aux_total + aux
+        grad = torch.is_grad_enabled()
+        remat = cfg.remat and grad
+        layers = self._per_layer()
+        G, L = cfg.remat_groups, cfg.num_layers
+        if grad and G > 1 and L % G == 0:
+            n = L // G
+            for g0 in range(0, L, n):
+                x, aux_total = checkpoint(self._blocks, layers[g0:g0 + n], x, aux_total,
+                                          enc, remat, use_reentrant=False)
+        else:
+            x, aux_total = self._blocks(layers, x, aux_total, enc, remat)
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
         return x @ self.head, aux_total
 
@@ -274,28 +393,34 @@ class Model(nn.Module):
     @torch.no_grad()
     def prefill(self, batch: Dict[str, torch.Tensor],
                 cache_len: Optional[int] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """The forward over the prompt ``batch["tokens"]`` (B, S), building the
-        decode cache for ``cache_len`` positions (default S).  Returns
-        (last-token logits (B, Vp), cache) with ``pos`` = S.  A ring shorter
-        than the prompt keeps the last keys, rolled so that position p lives
-        in slot p % ring."""
+        """The forward over the prompt ``batch["tokens"]`` (B, S) (and the
+        family's ``frames`` or ``patch_embeds``), building the decode cache
+        for ``cache_len`` positions (default S).  Returns (last-token logits
+        (B, Vp), cache) with ``pos`` = N, the positions the forward ran (S,
+        or P + S for a VLM), and an encoder-decoder's ``cross_k`` /
+        ``cross_v``.  A cache shorter than N keeps the last keys, rolled by
+        S (the reference's roll) so that in a ring position p lives in slot
+        p % ring."""
         cfg = self.cfg
         tokens = batch["tokens"]
         b, s = tokens.shape
         cache = self.init_cache(b, cache_len or max(s, 1))
-        cache["pos"].fill_(s)
-        x = self.embed[tokens.long()]
+        x, enc = self._embed_inputs(batch)
+        n = x.shape[1]
+        cache["pos"].fill_(n)
         for i, p in enumerate(self._per_layer()):
-            x, kv, state, _ = self._decoder_block(p, x)
+            x, kv, state, _, enc_kv = self._decoder_block(p, x, enc)
             if kv is not None:
                 store = cache["k"].shape[3]
                 for name, t in zip(("k", "v"), kv):
-                    if s <= store:
-                        cache[name][i, :, :, :s] = t
+                    if n <= store:
+                        cache[name][i, :, :, :n] = t
                     else:
                         cache[name][i] = torch.roll(t[:, :, -store:], s % store, dims=2)
             if state is not None:
                 cache["ssm"][i] = state
+            if enc_kv is not None:
+                cache["cross_k"][i], cache["cross_v"][i] = enc_kv
         x = rms_norm(x[:, -1, :], self.final_norm, cfg.norm_eps)
         return x @ self.head, cache
 
@@ -310,7 +435,8 @@ class Model(nn.Module):
         slot is seen once the ring is full.  Without a window the slot is pos,
         clamped to S - 1 as the reference's ``dynamic_update_slice`` clamps
         it, so past the end the last slot is overwritten and every slot is
-        seen."""
+        seen.  An encoder-decoder's token then attends to the whole
+        encoded sequence in ``cross_k`` / ``cross_v``."""
         cfg = self.cfg
         pos = cache["pos"]
         x = self.embed[token.long()]                           # (B, D)
@@ -324,6 +450,8 @@ class Model(nn.Module):
             else:
                 slot, seen = pos64.clamp(max=store - 1), pos64
             posv = pos.view(b, 1, 1)                           # broadcast over heads
+        if cfg.family == "encdec":                             # every encoded frame
+            enc_pos = torch.full((b,), cfg.enc_seq - 1, dtype=torch.int32, device=x.device)
         for i, p in enumerate(self._per_layer()):
             hn = rms_norm(x, p["ln1"], cfg.norm_eps)
             attn_out = ssm_out = None
@@ -353,6 +481,12 @@ class Model(nn.Module):
                 x = x + ssm_out
             else:
                 x = x + attn_out
+            if cfg.family == "encdec":
+                hx = rms_norm(x, p["ln_x"], cfg.norm_eps)
+                q = (hx @ p["xwq"]).view(b, cfg.num_heads, cfg.head_dim)
+                xk, xv = cache["cross_k"][i], cache["cross_v"][i]
+                o = decode_attention(q, xk, xv, pos=enc_pos, window=0)
+                x = x + o.reshape(b, cfg.q_dim) @ p["xwo"]
             hf = rms_norm(x, p["ln2"], cfg.norm_eps)
             if cfg.is_moe:
                 # dropless dense combine: exact routing, no sort or scatter

@@ -33,18 +33,23 @@ def _misaligned(t):
 
 
 def test_flash_backward_checks_accept_what_the_kernels_take():
-    for d in (64, 128):
-        for dtype in (torch.bfloat16, torch.float32):
+    for dtype, dims in flash_ops.HEAD_DIMS.items():
+        for d in dims:
             flash_ops.backward_checks(**_flash(d=d, dtype=dtype))
 
 
-@pytest.mark.parametrize("fault", ["head_dim", "do_dtype", "o_shape", "lse_shape",
+@pytest.mark.parametrize("fault", ["head_dim", "head_dim_f32_256", "head_dim_bf16_16",
+                                   "do_dtype", "o_shape", "lse_shape",
                                    "lse_dtype", "not_contiguous", "misaligned_q",
                                    "misaligned_lse", "misaligned_do"])
 def test_flash_backward_checks_refuse(fault):
     t = _flash()
     if fault == "head_dim":
         t = _flash(d=32)
+    elif fault == "head_dim_f32_256":   # each dtype its own widths
+        t = _flash(d=256, dtype=torch.float32)
+    elif fault == "head_dim_bf16_16":
+        t = _flash(d=16)
     elif fault == "do_dtype":
         t["do"] = t["do"].float()
     elif fault == "o_shape":
@@ -76,6 +81,11 @@ def test_flash_backward_grids_and_stats():
     assert flash_ops.backward_grids(t["q"], t["k"]) == [
         (32 * 2, 16), (4096 // flash_ops.BWD_KV_ROWS[128] * 2, 8)]
     assert flash_ops.stats_floats(t["q"]) == 2 * 2 * 16 * 4096
+    # the scalar kernels: 32-row CTAs at bf16 d 256, 64-row at f32 d 16
+    t = _flash(b=2, hq=16, hkv=16, s=2048, d=256)
+    assert flash_ops.backward_grids(t["q"], t["k"]) == [(64 * 2, 16), (64 * 2, 16)]
+    t = _flash(b=8, hq=4, hkv=2, s=65, d=16, dtype=torch.float32)
+    assert flash_ops.backward_grids(t["q"], t["k"]) == [(2 * 8, 4), (2 * 8, 2)]
 
 
 def _gla(b=1, h=3, t=130, dk=16, dv=64, dtype=torch.bfloat16, dstate=True):
@@ -89,13 +99,14 @@ def _gla(b=1, h=3, t=130, dk=16, dv=64, dtype=torch.bfloat16, dstate=True):
 
 
 def test_gla_backward_checks_accept_what_the_kernels_take():
-    for dk in (16, 64):
-        for dtype in (torch.bfloat16, torch.float32):
+    for dtype, widths in gla_ops.KEY_VALUE_DIMS.items():
+        for dk, dv in widths:
             for dstate in (True, False):
-                gla_ops.backward_checks(**_gla(dk=dk, dtype=dtype, dstate=dstate))
+                gla_ops.backward_checks(**_gla(dk=dk, dv=dv, dtype=dtype, dstate=dstate))
 
 
-@pytest.mark.parametrize("fault", ["key_dim", "value_dim", "do_dtype", "states_shape",
+@pytest.mark.parametrize("fault", ["key_dim", "value_dim", "bf16_8_16", "f32_8_64",
+                                   "do_dtype", "states_shape",
                                    "state_dtype", "dstate_shape", "not_contiguous",
                                    "misaligned_q", "misaligned_states"])
 def test_gla_backward_checks_refuse(fault):
@@ -104,6 +115,10 @@ def test_gla_backward_checks_refuse(fault):
         x = _gla(dk=32)
     elif fault == "value_dim":
         x = _gla(dv=32)
+    elif fault == "bf16_8_16":   # the reduced widths are built for f32 only
+        x = _gla(dk=8, dv=16)
+    elif fault == "f32_8_64":    # pairs, not any dk with any dv
+        x = _gla(dk=8, dv=64, dtype=torch.float32)
     elif fault == "do_dtype":
         x["do"] = x["do"].float()
     elif fault == "states_shape":

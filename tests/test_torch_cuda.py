@@ -24,6 +24,7 @@ from repro_torch.kernels.taqa_solve import ops as taqa_ops
 from repro_torch.kernels.graph_nodes import captured_node_types
 from segment_sum_mirror import mirror_few, mirror_slab, slab_keys
 from taqa_solve_mirror import solve_mirror
+from torch_parity import spec_batch
 
 pytestmark = pytest.mark.cuda
 
@@ -700,7 +701,8 @@ def _normal(rng, shape, dev, dtype, scale=1.0):
 # (B, Hq, Hkv, Sq, Skv, d, dtype, causal, window): hymba's GQA and window at
 # a short sequence and at the eval shape, internlm2's d 128, ragged and
 # non-causal (bf16: Sq and Skv off the tiles, for TMA's zero fill), f32 and
-# bf16
+# bf16; gemma-7b's d 256 (bf16) and the reduced configs' d 16 (f32), off
+# the tiles, with a window and with Sq != Skv
 FLASH_CASES = [
     (2, 10, 2, 300, 300, 64, torch.bfloat16, True, 128),
     (1, 4, 4, 200, 200, 64, torch.float32, True, 0),
@@ -709,6 +711,12 @@ FLASH_CASES = [
     (1, 5, 1, 257, 257, 64, torch.float32, False, 64),
     (2, 25, 5, 2048, 2048, 64, torch.bfloat16, True, 1024),
     (1, 6, 2, 201, 333, 128, torch.bfloat16, False, 0),
+    (2, 4, 4, 300, 300, 256, torch.bfloat16, True, 0),
+    (1, 4, 2, 130, 200, 256, torch.bfloat16, False, 0),
+    (1, 2, 2, 1000, 1000, 256, torch.bfloat16, True, 100),
+    (2, 4, 2, 100, 100, 16, torch.float32, True, 16),
+    (1, 4, 4, 70, 130, 16, torch.float32, False, 0),
+    (2, 4, 4, 24, 1500, 64, torch.bfloat16, False, 0),
 ]
 
 
@@ -738,7 +746,7 @@ def test_flash_attention_matches_plain_version_on_the_card(cuda, case):
 
 # (B, H, T, dk, dv, dtype): hymba's (16, 64) and rwkv6's (64, 64), T off the
 # chunk, f32 and bf16; hymba's eval shape (32 chunks) and a ragged tail after
-# 15 chunks
+# 15 chunks; the reduced configs' (8, 16) in f32
 GLA_CASES = [
     (2, 5, 200, 16, 64, torch.bfloat16),
     (1, 3, 130, 64, 64, torch.float32),
@@ -746,6 +754,8 @@ GLA_CASES = [
     (1, 2, 100, 64, 64, torch.bfloat16),
     (2, 25, 2048, 16, 64, torch.bfloat16),
     (1, 3, 1000, 64, 64, torch.float32),
+    (2, 4, 200, 8, 16, torch.float32),
+    (1, 4, 64, 8, 16, torch.float32),
 ]
 
 
@@ -1033,7 +1043,8 @@ def _bf16_within_its_own_rounding(got, plain_bf16, plain_f32, scale, what):
 # (B, Hq, Hkv, S, d, causal, window), each in f32 and bf16: one query; GQA
 # 1, 2, 5; S 65, 127, 129, 200 off the 64- and 128-row tiles; windows whose
 # edge crosses a 128-row tile; non-causal with and without a window; d 64
-# and 128
+# and 128.  Then gemma-7b's d 256 in bf16 and the reduced configs' d 16 in
+# f32, at the same kinds of shapes (S off the 32- and 64-row tiles)
 FLASH_BWD_CASES = [
     (*shape, dtype, *mask)
     for shape, mask in [((1, 2, 2, 1, 64), (True, 0)), ((1, 4, 2, 65, 64), (True, 0)),
@@ -1041,6 +1052,20 @@ FLASH_BWD_CASES = [
                         ((1, 4, 4, 130, 128), (True, 32)), ((1, 6, 3, 300, 128), (False, 50)),
                         ((1, 4, 2, 129, 128), (True, 0)), ((1, 6, 3, 200, 128), (True, 100)),
                         ((1, 5, 1, 129, 64), (False, 70)), ((1, 2, 1, 200, 64), (True, 150))]
+    for dtype in (torch.float32, torch.bfloat16)
+] + [
+    (*shape, dtype, *mask)
+    for dtype, d in ((torch.bfloat16, 256), (torch.float32, 16))
+    for shape, mask in [((1, 2, 2, 1, d), (True, 0)), ((1, 4, 2, 65, d), (True, 0)),
+                        ((2, 4, 4, 97, d), (False, 0)), ((1, 2, 1, 200, d), (True, 40)),
+                        ((1, 4, 2, 130, d), (False, 33))]
+]
+# (B, Hq, Hkv, Sq, Skv, d, causal, window), each in f32 and bf16: non-causal
+# with Sq != Skv, as cross-attention runs it: whisper-like MHA over 1500
+# encoded frames; llava-like GQA 7 with both lengths off the tiles
+FLASH_BWD_CROSS_CASES = [
+    (*shape, dtype, False, 0)
+    for shape in [(1, 4, 4, 40, 1500, 64), (1, 7, 1, 200, 333, 128)]
     for dtype in (torch.float32, torch.bfloat16)
 ]
 
@@ -1053,13 +1078,23 @@ def test_flash_attention_backward_matches_plain_version_on_the_card(cuda, case):
     _bf16_within_its_own_rounding.  The forward's lse against the plain
     one's (1e-5); asking for it leaves o bitwise; two backward launches
     bitwise equal, one counted per backward."""
+    b, hq, hkv, s, d, dtype, causal, window = case
+    _check_flash_backward(cuda, b, hq, hkv, s, s, d, dtype, causal, window)
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_CROSS_CASES)
+def test_flash_attention_backward_with_sq_not_skv_on_the_card(cuda, case):
+    """As above, non-causal with Sq != Skv (cross-attention's shape)."""
+    _check_flash_backward(cuda, *case)
+
+
+def _check_flash_backward(cuda, b, hq, hkv, sq, skv, d, dtype, causal, window):
     from repro_torch.kernels.flash_attn import (flash_attention, flash_attention_bwd_ref,
                                                 flash_attention_lse_ref)
-    b, hq, hkv, s, d, dtype, causal, window = case
-    rng = np.random.default_rng(s + d + hq)
-    q, k, v = (_normal(rng, (b, h, s, d), cuda, dtype).requires_grad_()
-               for h in (hq, hkv, hkv))
-    do = _normal(rng, (b, hq, s, d), cuda, dtype)
+    rng = np.random.default_rng(sq + d + hq + (0 if sq == skv else skv))
+    q = _normal(rng, (b, hq, sq, d), cuda, dtype).requires_grad_()
+    k, v = (_normal(rng, (b, hkv, skv, d), cuda, dtype).requires_grad_() for _ in range(2))
+    do = _normal(rng, (b, hq, sq, d), cuda, dtype)
     before = flash_attention.launches, flash_attention.bwd_launches
     o = flash_attention(q, k, v, causal=causal, window=window)
     with torch.no_grad():
@@ -1089,17 +1124,21 @@ def test_flash_attention_backward_matches_plain_version_on_the_card(cuda, case):
             _bf16_within_its_own_rounding(g, w, w32, scale, f"d{name}")
 
 
-# (B, H, T, dk, dtype, with a final-state gradient): hymba's (16, 64) and
-# rwkv6's (64, 64), T 130 and 200 off the chunk, f32 and bf16
+# (B, H, T, dk, dtype, with a final-state gradient, dv): hymba's (16, 64)
+# and rwkv6's (64, 64), T 130 and 200 off the chunk, f32 and bf16; the
+# reduced configs' (8, 16) in f32
 GLA_BWD_CASES = [
-    (1, 3, 130, 16, torch.float32, True),
-    (2, 2, 200, 64, torch.bfloat16, False),
-    (1, 4, 64, 16, torch.bfloat16, True),
-    (1, 2, 100, 64, torch.float32, False),
-    (1, 3, 130, 16, torch.bfloat16, True),
-    (1, 2, 200, 16, torch.bfloat16, True),
-    (1, 3, 130, 64, torch.bfloat16, True),
-    (2, 2, 200, 64, torch.float32, True),
+    (1, 3, 130, 16, torch.float32, True, 64),
+    (2, 2, 200, 64, torch.bfloat16, False, 64),
+    (1, 4, 64, 16, torch.bfloat16, True, 64),
+    (1, 2, 100, 64, torch.float32, False, 64),
+    (1, 3, 130, 16, torch.bfloat16, True, 64),
+    (1, 2, 200, 16, torch.bfloat16, True, 64),
+    (1, 3, 130, 64, torch.bfloat16, True, 64),
+    (2, 2, 200, 64, torch.float32, True, 64),
+    (1, 3, 130, 8, torch.float32, True, 16),
+    (2, 4, 200, 8, torch.float32, False, 16),
+    (1, 2, 64, 8, torch.float32, True, 16),
 ]
 
 
@@ -1111,18 +1150,18 @@ def test_gla_chunked_backward_matches_plain_version_on_the_card(cuda, case):
     bf16 as _bf16_within_its_own_rounding; two launches bitwise equal, one
     counted per backward."""
     from repro_torch.kernels.gla_chunk import gla_chunked, gla_chunked_bwd_ref, gla_chunked_fwd_ref
-    b, h, t, dk, dtype, with_ds = case
+    b, h, t, dk, dtype, with_ds, dv = case
     rng = np.random.default_rng(t + dk)
     q = _normal(rng, (b, h, t, dk), cuda, dtype, 0.5).requires_grad_()
     k = _normal(rng, (b, h, t, dk), cuda, dtype, 0.5).requires_grad_()
-    v = _normal(rng, (b, h, t, 64), cuda, dtype).requires_grad_()
-    do = _normal(rng, (b, h, t, 64), cuda, dtype)
+    v = _normal(rng, (b, h, t, dv), cuda, dtype).requires_grad_()
+    do = _normal(rng, (b, h, t, dv), cuda, dtype)
     g = torch.from_numpy(-rng.uniform(0.0, 0.3, (b, h, t, dk)).astype(np.float32))
     g[..., :3, :] = -9.0
     g[..., 3, :] = -8.0
     g[..., 4, :] = 0.0
     g = g.to(cuda).to(dtype).requires_grad_()
-    ds = (torch.from_numpy(rng.standard_normal((b, h, dk, 64)).astype(np.float32)).to(cuda)
+    ds = (torch.from_numpy(rng.standard_normal((b, h, dk, dv)).astype(np.float32)).to(cuda)
           if with_ds else None)
     before = gla_chunked.bwd_launches
     o, s = gla_chunked(q, k, v, g)
@@ -1145,6 +1184,61 @@ def test_gla_chunked_backward_matches_plain_version_on_the_card(cuda, case):
         scale = max(float(w.abs().max()) for w in want32)
         for name, gr, w, w32 in zip("qkvg", grads, want, want32):
             _bf16_within_its_own_rounding(gr, w, w32, scale, f"d{name}")
+
+
+@pytest.mark.parametrize("arch", ["gemma-7b", "granite-20b", "granite-moe-1b-a400m",
+                                  "hymba-1.5b", "internlm2-1.8b", "llava-next-34b",
+                                  "mistral-large-123b", "olmoe-1b-7b", "rwkv6-7b",
+                                  "whisper-large-v3"])
+def test_reduced_config_runs_on_the_card(cuda, arch):
+    """Every family at its ``.reduced()`` widths (head_dim 16, GLA (8, 16),
+    f32) through the hand-written kernels: forward and prefill logits within
+    1e-4 of the CPU port on the same weights, and one loss's gradients
+    within 1e-4 of each leaf's scale (its largest, or 1; f32 on both sides,
+    the kernels sum in other orders: test_torch_train.py's gradient
+    tolerance); the forward and backward launches counted."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.kernels.gla_chunk import gla_chunked
+    from repro_torch.models import Model
+    from repro_torch.train.step import cross_entropy
+    cfg = get_config(arch).reduced()
+    cpu = Model(cfg, device="cpu").init(torch.Generator().manual_seed(2))
+    gpu = Model(cfg, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    batch = {k: torch.from_numpy(v) for k, v in spec_batch(cfg, "train", 2, 24, len(arch)).items()}
+    n_flash = (cfg.encoder_layers + 2 * cfg.num_layers if cfg.family == "encdec"
+               else cfg.num_layers if cfg.has_attention else 0)
+    n_gla = cfg.num_layers if cfg.has_ssm else 0
+    outs = []
+    for model in (cpu, gpu):
+        dev = model.embed.device
+        b = {k: v.to(dev) for k, v in batch.items()}
+        launches = flash_attention.launches, gla_chunked.launches
+        with torch.no_grad():
+            logits, _ = model(b)
+        prompt = {k: v for k, v in b.items() if k != "labels"}
+        pl, _ = model.prefill(prompt, cache_len=40)
+        torch.cuda.synchronize()
+        if dev.type == "cuda":
+            assert (flash_attention.launches - launches[0],
+                    gla_chunked.launches - launches[1]) == (2 * n_flash, 2 * n_gla)
+        model.requires_grad_(True)
+        bwd = flash_attention.bwd_launches, gla_chunked.bwd_launches
+        lg, aux = model(b)
+        loss = cross_entropy(lg, b["labels"], cfg.vocab_size) + 0.01 * aux
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+        if dev.type == "cuda":
+            assert (flash_attention.bwd_launches - bwd[0],
+                    gla_chunked.bwd_launches - bwd[1]) == (n_flash, n_gla)
+        outs.append((logits, pl, [g.cpu() for g in grads]))
+    (lc, pc, gc), (lg, pg, gg) = outs
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(pg.cpu(), pc, rtol=1e-4, atol=1e-4)
+    for (name, _), a, w in zip(cpu.named_parameters(), gg, gc):
+        err = float((a - w).abs().max())
+        assert err <= 1e-4 * max(float(w.abs().max()), 1.0), (name, err)
 
 
 def test_full_width_two_layer_step_on_the_card_matches_the_cpu(cuda):

@@ -24,12 +24,11 @@ from repro.train import data as ref_data
 from repro.train import elastic as ref_elastic
 from repro.train import optimizer as ref_opt
 from repro.train import step as ref_step
-from repro_torch.convert import (_tree_to_arrays, train_state_from_arrays,
-                                 train_state_to_arrays)
+from repro_torch.convert import _tree_to_arrays, train_state_to_arrays
 from repro_torch.launch import train as launch
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import compression, data, elastic, optimizer, step
-from torch_parity import both_models
+from torch_parity import assert_tree_close, bind_train_state, both_models, both_train_states
 
 jax.config.update("jax_default_matmul_precision", "highest")
 
@@ -57,40 +56,6 @@ def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def _port(arch, overrides, *, compress=False, seed=1):
-    """(reference model, its TrainState, the port's model, its TrainState on
-    the model's parameters), both from the reference's weights."""
-    ref_model, params, model = both_models(arch, overrides, seed=seed)
-    ref_state = ref_step.TrainState(
-        params, ref_opt.init_opt_state(params),
-        jax.tree.map(lambda p: jnp.zeros(p.shape, jnp.float32), params) if compress else None)
-    return ref_model, ref_state, model, _bind(model, ref_state)
-
-
-def _bind(model, ref_state):
-    """The port's TrainState of ``ref_state``, on ``model``'s parameters."""
-    st = _np(ref_state)
-    ported = train_state_from_arrays(model.cfg, st.params, st.opt._asdict(), st.residual,
-                                     device="cpu")
-    model.load_state_dict(ported.params)
-    model.requires_grad_(True)
-    return step.TrainState(dict(model.named_parameters()), ported.opt, ported.residual)
-
-
-def _assert_tree_close(got, want, rel, what):
-    """Every leaf: max |got - want| <= rel * max |want| (and <= rel when the
-    leaf is all zeros)."""
-    flat = jax.tree_util.tree_flatten_with_path(want)[0]
-    gflat = jax.tree_util.tree_flatten_with_path(got)[0]
-    assert [p for p, _ in flat] == [p for p, _ in gflat], what
-    for (path, w), (_, g) in zip(flat, gflat):
-        w, g = np.asarray(w, np.float64), np.asarray(g, np.float64)
-        assert g.shape == w.shape, (what, path)
-        err = np.abs(g - w).max()
-        assert err <= rel * max(np.abs(w).max(), 1.0), (what, jax.tree_util.keystr(path), err,
-                                                         np.abs(w).max())
-
-
 def _port_grads(model, batch, vocab):
     logits, aux = model(batch)
     loss = step.cross_entropy(logits, batch["labels"], vocab) + 0.01 * aux
@@ -109,7 +74,7 @@ def test_one_train_step_matches_the_reference(arch):
     chunks of 64 against the reference's 32; measured up to 2.3e-6); the
     parameters within 1e-5 of their scale after AdamW (measured 1.5e-7) and
     the moments within 1e-4 of theirs (measured 4.8e-6)."""
-    ref_model, ref_state, model, state = _port(arch, FAMILIES[arch])
+    ref_model, ref_state, model, state = both_train_states(arch, FAMILIES[arch])
     vocab = model.cfg.vocab_size
     batch_np = _batch(vocab)
     batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
@@ -122,7 +87,7 @@ def test_one_train_step_matches_the_reference(arch):
     want_loss, want_grads = jax.value_and_grad(ref_loss)(ref_state.params)
     loss, grads = _port_grads(model, batch, vocab)
     np.testing.assert_allclose(float(loss.detach()), float(want_loss), rtol=1e-5)
-    _assert_tree_close(_tree_to_arrays(grads), _np(want_grads), 1e-4, "grads")
+    assert_tree_close(_tree_to_arrays(grads), _np(want_grads), 1e-4, "grads")
 
     new_ref, ref_metrics = jax.jit(ref_step.make_train_step(
         ref_model, ref_opt.AdamWConfig(**OPT)))(ref_state, jbatch)
@@ -132,9 +97,9 @@ def test_one_train_step_matches_the_reference(arch):
                                rtol=1e-5)
     assert float(metrics["lr"]) == float(ref_metrics["lr"])
     params, opt, _ = train_state_to_arrays(new)
-    _assert_tree_close(params, _np(new_ref.params), 1e-5, "params")
-    _assert_tree_close(opt["mu"], _np(new_ref.opt.mu), 1e-4, "mu")
-    _assert_tree_close(opt["nu"], _np(new_ref.opt.nu), 1e-4, "nu")
+    assert_tree_close(params, _np(new_ref.params), 1e-5, "params")
+    assert_tree_close(opt["mu"], _np(new_ref.opt.mu), 1e-4, "mu")
+    assert_tree_close(opt["nu"], _np(new_ref.opt.nu), 1e-4, "nu")
     assert int(opt["step"]) == int(new_ref.opt.step) == 1
     assert opt["step"].dtype == np.int32
 
@@ -143,7 +108,7 @@ def test_microbatched_steps_match_the_reference():
     """Three steps with microbatches=2 (the strided split, f32 gradient
     sums): losses within rtol 1e-5, the parameters within 1e-5 of their
     scale after each."""
-    ref_model, ref_state, model, state = _port("internlm2-1.8b", {})
+    ref_model, ref_state, model, state = both_train_states("internlm2-1.8b", {})
     cfg = ref_opt.AdamWConfig(**OPT)
     ref_fn = jax.jit(ref_step.make_train_step(ref_model, cfg, microbatches=2))
     fn = step.make_train_step(model, optimizer.AdamWConfig(**OPT), microbatches=2)
@@ -152,7 +117,7 @@ def test_microbatched_steps_match_the_reference():
         ref_state, rm = ref_fn(ref_state, {k: jnp.asarray(v) for k, v in b.items()})
         state, m = fn(state, {k: torch.from_numpy(v) for k, v in b.items()})
         np.testing.assert_allclose(float(m["loss"]), float(rm["loss"]), rtol=1e-5)
-        _assert_tree_close(train_state_to_arrays(state)[0], _np(ref_state.params), 1e-5,
+        assert_tree_close(train_state_to_arrays(state)[0], _np(ref_state.params), 1e-5,
                            f"params after step {i}")
 
 
@@ -165,7 +130,7 @@ def test_compressed_step_matches_the_reference():
     whose residual then differs by one quantization step (max |g| / 127);
     everywhere else the residual agrees to 1e-3 of a step and the parameters
     within 1e-5."""
-    ref_model, ref_state, model, state = _port("hymba-1.5b", FAMILIES["hymba-1.5b"],
+    ref_model, ref_state, model, state = both_train_states("hymba-1.5b", FAMILIES["hymba-1.5b"],
                                                compress=True)
     vocab = model.cfg.vocab_size
     b = _batch(vocab)
@@ -241,8 +206,10 @@ def test_adamw_update_equals_the_reference():
     g = [{"a": mk(5, 3) * 3, "b": mk(7) * 1e-6}, {"a": mk(5, 3), "b": mk(7)}]
     cfg = dict(lr=1e-2, warmup_steps=1, total_steps=10)
     for dt, jdt in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
-        tp = {k: torch.from_numpy(v).to(dt) for k, v in p.items()}
-        jp = {k: jnp.asarray(v).astype(jdt) for k, v in p.items()}
+        # each package its own copy: adamw_update writes tp in place, and
+        # torch.from_numpy(v) and jnp.asarray(v) may both alias v
+        tp = {k: torch.from_numpy(v.copy()).to(dt) for k, v in p.items()}
+        jp = {k: jnp.asarray(v.copy()).astype(jdt) for k, v in p.items()}
         ts, js = optimizer.init_opt_state(tp), ref_opt.init_opt_state(jp)
         for gs in g:
             tp, ts, tm = optimizer.adamw_update(optimizer.AdamWConfig(**cfg), tp,
@@ -418,14 +385,14 @@ def test_train_state_checkpoints_cross_both_ways(tmp_path):
     restores into the port's state and the port's back into the reference's
     structure; gc keeps the last, shape mismatches raise, latest_step
     finds the newest."""
-    ref_model, ref_state, model, state = _port("internlm2-1.8b", {}, compress=True)
+    ref_model, ref_state, model, state = both_train_states("internlm2-1.8b", {}, compress=True)
     ref_state = ref_state._replace(opt=ref_state.opt._replace(step=jnp.int32(4)),
                                    residual=jax.tree.map(lambda p: p + 0.5,
                                                          ref_state.residual))
     names = ref_ckpt._flatten(ref_state)[1]
     assert [n for n, _ in ckpt._flatten(state)] == names
     ref_ckpt.save(str(tmp_path), 4, ref_state)
-    _, _, model2, state2 = _port("internlm2-1.8b", {}, compress=True, seed=9)
+    _, _, model2, state2 = both_train_states("internlm2-1.8b", {}, compress=True, seed=9)
     ckpt.restore(str(tmp_path), 4, state2)
     want_p, want_opt, want_r = (_np(ref_state.params), _np(ref_state.opt), _np(ref_state.residual))
     got_p, got_opt, got_r = train_state_to_arrays(state2)
@@ -503,7 +470,7 @@ def test_launcher_matches_the_reference_launcher(monkeypatch, capsys):
         ref_model, _, _ = both_models("internlm2-1.8b", {}, seed=0)
         params = ref_model.init(jax.random.PRNGKey(2))
         ref_state = ref_step.TrainState(params, ref_opt.init_opt_state(params), None)
-        return _bind(model, ref_state)
+        return bind_train_state(model, ref_state)
 
     monkeypatch.setattr(launch, "init_train_state", init_from_reference)
     got = launch.main(flags + ["--device", "cpu"])
