@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import importlib
 import os
 import shutil
 import subprocess
@@ -77,6 +78,7 @@ _SIGNATURES = {
     "flash_attn_bwd": {
         "flash_attn_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                   _I, _I, _I, _I, _I, _F, _I, _I, _P],
+        "flash_attn_bwd_tile_rows": [_I, _I, _P, _P],
     },
     "gla_chunk": {
         "gla_chunk_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -98,6 +100,11 @@ _SIGNATURES = {
         "taqa_draw_compact_launch": [_P, _L, _P, _P, _P, _P, _P],
     },
 }
+
+# What ``load`` checks in a library before it hands it out: (module, function
+# of the library) that raises where the library and its wrapper's host-side
+# copy of its launch shapes differ.
+LOAD_CHECKS = {"flash_attn_bwd": ("repro_torch.kernels.flash_attn.ops", "check_tile_rows")}
 
 # Launch counters of the wrappers are bumped under this lock: drain workers
 # launch from several threads, and ``fn.launches += 1`` is a read-modify-write
@@ -187,7 +194,8 @@ def build_log(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built on first use."""
+    """The loaded library of kernel ``name``, built on first use and held to
+    its ``LOAD_CHECKS`` entry, if any, before it is kept."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -199,6 +207,9 @@ def load(name: str) -> ctypes.CDLL:
             err = getattr(lib, f"{name}_error_string")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
+            if name in LOAD_CHECKS:
+                module, fn_name = LOAD_CHECKS[name]
+                getattr(importlib.import_module(module), fn_name)(lib)
             _libs[name] = lib
         return lib
 

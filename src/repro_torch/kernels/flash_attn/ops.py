@@ -11,6 +11,7 @@ launches exactly what it did before the backward existed.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -20,15 +21,21 @@ from repro_torch.kernels.flash_attn.ref import (flash_attention_bwd_ref,
                                                 flash_attention_lse_ref)
 
 # the head dims each dtype's kernels, forward and backward, are built for:
-# bf16 on the tensor cores (the backward at 256 on the scalar kernels), f32
-# on the scalar kernels (16: the reduced configs')
+# bf16 on the tensor cores, f32 on the scalar kernels (16: the reduced
+# configs')
 HEAD_DIMS = {torch.bfloat16: (64, 128, 256), torch.float32: (16, 64, 128)}
 MAX_GRID_YZ = 65_535   # q heads ride in gridDim.y, the batch in gridDim.z
 BWD_TILE = 64          # rows of the backward's streamed tiles (csrc/flash_attn_bwd.cu)
-# kv rows of a bf16 dK/dV CTA by head_dim, as launch_bwd_wgmma sets them
-# (csrc/flash_attn_bwd.cu): the faster of 64 and 128 at the training inputs;
-# the head dims the wgmma backward takes
-BWD_KV_ROWS = {64: 64, 128: 128}
+# the rows of one CTA of the backward's two launches, (q rows of a dQ CTA,
+# kv rows of a dK/dV CTA), by dtype and head dim: the source of
+# ``backward_grids``.  The library reports its own (BwdShape in
+# csrc/flash_attn_bwd.cu, through ``flash_attn_bwd_tile_rows``) and
+# ``check_tile_rows`` holds the two equal when ``_build`` loads it.  bf16:
+# dQ CTAs of two warpgroups (128 rows), one (64) at d 256; dK/dV CTAs of one
+# warpgroup at d 64, two at d 128, two over the same 64 rows at d 256; f32:
+# the scalar kernels' 64-row tiles.
+BWD_TILE_ROWS = {torch.bfloat16: {64: (128, 64), 128: (128, 128), 256: (64, 64)},
+                 torch.float32: {16: (64, 64), 64: (64, 64), 128: (64, 64)}}
 
 
 def _check(q, k, v, window: int, q_offset: int) -> None:
@@ -98,17 +105,29 @@ def _forward(q, k, v, causal: bool, window: int, scale: float, with_lse: bool):
 
 def backward_grids(q, k):
     """The (x, y) CTA grids of the backward's two launches on the card, dQ
-    then dK/dV, with the batch folded into x (the launch floor's shape):
-    bf16 (wgmma) dQ CTAs of 128 q rows and dK/dV CTAs of ``BWD_KV_ROWS[d]``
-    kv rows; the scalar kernels' (f32, and bf16 at d 256) CTAs of 64 rows,
-    32 at d 256."""
+    then dK/dV, with the batch folded into x (the launch floor's shape),
+    from ``BWD_TILE_ROWS``."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    if q.dtype == torch.bfloat16 and d in BWD_KV_ROWS:
-        q_rows, kv_rows = 2 * BWD_TILE, BWD_KV_ROWS[d]
-    else:
-        q_rows = kv_rows = BWD_TILE if d < 256 else BWD_TILE // 2
+    q_rows, kv_rows = BWD_TILE_ROWS[q.dtype][d]
     return [(-(-sq // q_rows) * b, hq), (-(-skv // kv_rows) * b, hkv)]
+
+
+def check_tile_rows(lib) -> None:
+    """Raise unless the backward library's CTA rows, as its
+    ``flash_attn_bwd_tile_rows`` reports them, are ``BWD_TILE_ROWS``'s for
+    every dtype and head dim (``_build.load`` calls this when it loads the
+    library, so the host's grids and the launches cannot drift apart)."""
+    for dtype, by_dim in BWD_TILE_ROWS.items():
+        for d, want in by_dim.items():
+            q_rows, kv_rows = ctypes.c_int(-1), ctypes.c_int(-1)
+            rc = lib.flash_attn_bwd_tile_rows(_build.FLOAT_CODES[dtype], d,
+                                              ctypes.byref(q_rows), ctypes.byref(kv_rows))
+            got = (q_rows.value, kv_rows.value)
+            if rc != 0 or got != want:
+                raise RuntimeError(
+                    f"flash_attn_bwd: the library's {str(dtype)[6:]} d {d} CTAs hold (q, kv) "
+                    f"rows {got} (code {rc}), BWD_TILE_ROWS says {want}")
 
 
 def stats_floats(q) -> int:

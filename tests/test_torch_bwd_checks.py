@@ -5,12 +5,14 @@ before every backward launch on the card (the TMA loads want 16-byte
 aligned, contiguous tensors of the head dims the kernels are built for);
 they look only at shapes, dtypes, strides and addresses, so CPU tensors
 exercise every refusal here.  ``backward_grids`` and ``stats_floats`` size
-the launches and the flash backward's scratch.
+the launches and the flash backward's scratch; ``_build.load`` holds the
+flash backward library's CTA rows to the host's ``BWD_TILE_ROWS``.
 """
 
 import pytest
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attn import ops as flash_ops
 from repro_torch.kernels.gla_chunk import ops as gla_ops
 
@@ -68,24 +70,84 @@ def test_flash_backward_checks_refuse(fault):
 
 
 def test_flash_backward_grids_and_stats():
-    """bf16: dQ CTAs of 128 q rows, dK/dV CTAs of BWD_KV_ROWS kv rows; f32:
-    64-row CTAs; the stats scratch holds lse log2 e and delta of every row,
-    rows padded to 64."""
+    """bf16: dQ CTAs of 128 q rows and dK/dV CTAs of 64 (d 64) or 128 (d
+    128) kv rows, both of 64 rows at d 256; f32: 64-row CTAs; the stats
+    scratch holds lse log2 e and delta of every row, rows padded to 64."""
     t = _flash(b=2, hq=25, hkv=5, s=2048, d=64)
-    assert flash_ops.backward_grids(t["q"], t["k"]) == [
-        (16 * 2, 25), (2048 // flash_ops.BWD_KV_ROWS[64] * 2, 5)]
+    assert flash_ops.backward_grids(t["q"], t["k"]) == [(16 * 2, 25), (32 * 2, 5)]
     t = _flash(b=1, hq=6, hkv=3, s=200, d=128, dtype=torch.float32)
     assert flash_ops.backward_grids(t["q"], t["k"]) == [(4, 6), (4, 3)]
     assert flash_ops.stats_floats(t["q"]) == 2 * 6 * 256
     t = _flash(b=2, hq=16, hkv=8, s=4096, d=128)
-    assert flash_ops.backward_grids(t["q"], t["k"]) == [
-        (32 * 2, 16), (4096 // flash_ops.BWD_KV_ROWS[128] * 2, 8)]
+    assert flash_ops.backward_grids(t["q"], t["k"]) == [(32 * 2, 16), (32 * 2, 8)]
     assert flash_ops.stats_floats(t["q"]) == 2 * 2 * 16 * 4096
-    # the scalar kernels: 32-row CTAs at bf16 d 256, 64-row at f32 d 16
+    # bf16 d 256: dQ CTAs of one warpgroup (64 q rows), dK/dV CTAs of two
+    # warpgroups over the same 64 kv rows; f32 d 16: 64-row CTAs
     t = _flash(b=2, hq=16, hkv=16, s=2048, d=256)
-    assert flash_ops.backward_grids(t["q"], t["k"]) == [(64 * 2, 16), (64 * 2, 16)]
+    assert flash_ops.backward_grids(t["q"], t["k"]) == [(32 * 2, 16), (32 * 2, 16)]
+    t = _flash(b=1, hq=4, hkv=2, s=129, d=256)
+    assert flash_ops.backward_grids(t["q"], t["k"]) == [(3, 4), (3, 2)]
     t = _flash(b=8, hq=4, hkv=2, s=65, d=16, dtype=torch.float32)
     assert flash_ops.backward_grids(t["q"], t["k"]) == [(2 * 8, 4), (2 * 8, 2)]
+
+
+def test_flash_backward_tile_rows_cover_every_head_dim():
+    """The host's table of CTA rows names exactly the widths the kernels
+    take, each a whole number of 64-row warpgroup bands."""
+    assert {dt: tuple(rows) for dt, rows in flash_ops.BWD_TILE_ROWS.items()} == \
+        flash_ops.HEAD_DIMS
+    for rows in flash_ops.BWD_TILE_ROWS.values():
+        for q_rows, kv_rows in rows.values():
+            assert q_rows % flash_ops.BWD_TILE == 0 and kv_rows % flash_ops.BWD_TILE == 0
+
+
+class _FakeBwdLibrary:
+    """Stands in for the flash_attn_bwd library on the CPU: reports the
+    host's BWD_TILE_ROWS, or ``wrong`` for one (dtype code, head dim)."""
+
+    def __init__(self, wrong=None):
+        wrong = wrong or {}
+
+        def tile_rows(code, d, q_rows, kv_rows):   # (dtype code, head dim, int*, int*)
+            dtype = {c: t for t, c in _build.FLOAT_CODES.items()}[code]
+            rows = wrong.get((code, d), flash_ops.BWD_TILE_ROWS[dtype].get(d))
+            if rows is None:
+                return 1   # cudaErrorInvalidValue
+            q_rows._obj.value, kv_rows._obj.value = rows
+            return 0
+
+        # plain functions, so that load can set their argtypes and restype
+        self.flash_attn_bwd_tile_rows = tile_rows
+        self.flash_attn_bwd_launch = lambda *a: 0
+        self.flash_attn_bwd_error_string = lambda code: b"error"
+
+
+def _load_fake(monkeypatch, lib):
+    """``_build.load("flash_attn_bwd")`` with ``lib`` in place of the built
+    library (no nvcc, no card)."""
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "build", lambda names: {n: f"/nonexistent/{n}.so" for n in names})
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: lib)
+    return _build.load("flash_attn_bwd")
+
+
+def test_flash_backward_library_load_accepts_matching_tile_rows(monkeypatch):
+    lib = _FakeBwdLibrary()
+    assert _load_fake(monkeypatch, lib) is lib
+    assert _build._libs["flash_attn_bwd"] is lib
+
+
+@pytest.mark.parametrize("wrong", [((3, 256), (128, 64)), ((3, 64), (128, 128)),
+                                   ((0, 16), (32, 32)), ((3, 128), None)])
+def test_flash_backward_library_load_refuses_other_tile_rows(monkeypatch, wrong):
+    """A library whose CTAs hold other rows than BWD_TILE_ROWS (or that does
+    not know a width the host has) is refused when it is loaded, and not
+    kept."""
+    (code, d), rows = wrong
+    lib = _FakeBwdLibrary({(code, d): rows})
+    with pytest.raises(RuntimeError, match=f"d {d} CTAs"):
+        _load_fake(monkeypatch, lib)
+    assert "flash_attn_bwd" not in _build._libs
 
 
 def _gla(b=1, h=3, t=130, dk=16, dv=64, dtype=torch.bfloat16, dstate=True):

@@ -1059,15 +1059,24 @@ FLASH_BWD_CASES = [
     for shape, mask in [((1, 2, 2, 1, d), (True, 0)), ((1, 4, 2, 65, d), (True, 0)),
                         ((2, 4, 4, 97, d), (False, 0)), ((1, 2, 1, 200, d), (True, 40)),
                         ((1, 4, 2, 130, d), (False, 33))]
+] + [
+    # bf16 d 256 across its 64-row dQ and dK/dV CTAs: S 64, 127 and 129 on
+    # and off their edges, a window whose edge falls inside a 64-row tile,
+    # GQA 2 at S 200
+    (*shape, torch.bfloat16, *mask)
+    for shape, mask in [((1, 2, 2, 64, 256), (True, 0)), ((1, 4, 2, 127, 256), (True, 0)),
+                        ((2, 2, 1, 129, 256), (True, 0)), ((1, 2, 2, 129, 256), (False, 0)),
+                        ((1, 4, 2, 200, 256), (True, 100)), ((1, 4, 2, 200, 256), (False, 0))]
 ]
 # (B, Hq, Hkv, Sq, Skv, d, causal, window), each in f32 and bf16: non-causal
 # with Sq != Skv, as cross-attention runs it: whisper-like MHA over 1500
-# encoded frames; llava-like GQA 7 with both lengths off the tiles
+# encoded frames; llava-like GQA 7 with both lengths off the tiles; then
+# bf16 d 256 with GQA 2, both lengths off the 64-row tiles
 FLASH_BWD_CROSS_CASES = [
     (*shape, dtype, False, 0)
     for shape in [(1, 4, 4, 40, 1500, 64), (1, 7, 1, 200, 333, 128)]
     for dtype in (torch.float32, torch.bfloat16)
-]
+] + [(1, 4, 2, 40, 333, 256, torch.bfloat16, False, 0)]
 
 
 @pytest.mark.parametrize("case", FLASH_BWD_CASES)
@@ -1086,6 +1095,37 @@ def test_flash_attention_backward_matches_plain_version_on_the_card(cuda, case):
 def test_flash_attention_backward_with_sq_not_skv_on_the_card(cuda, case):
     """As above, non-causal with Sq != Skv (cross-attention's shape)."""
     _check_flash_backward(cuda, *case)
+
+
+# a process whose first CUDA work of the backward library is a bf16
+# backward on autograd's own thread, which has no CUDA context of its own yet
+_FIRST_BACKWARD_ON_AUTOGRADS_THREAD = """
+import torch
+from repro_torch.kernels.flash_attn import flash_attention
+g = torch.Generator(device="cuda").manual_seed(0)
+q, k, v, do = (torch.randn((1, 4, 130, 64), generator=g, device="cuda").bfloat16()
+               for _ in range(4))
+q, k, v = (t.requires_grad_() for t in (q, k, v))
+o = flash_attention(q, k, v, causal=True)
+grads = torch.autograd.grad(o, (q, k, v), do)
+torch.cuda.synchronize()
+print(flash_attention.bwd_launches, all(bool(t.isfinite().all()) for t in grads))
+"""
+
+
+def test_flash_attention_backward_first_in_its_process_on_the_card(cuda):
+    """The first backward of a process, on autograd's own thread (no CUDA
+    context of its own yet), launches once and gives finite gradients; the
+    launch reports no error that an earlier runtime call left behind."""
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+    env = {**os.environ, "PYTHONPATH": src + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    done = subprocess.run([sys.executable, "-c", _FIRST_BACKWARD_ON_AUTOGRADS_THREAD],
+                          env=env, capture_output=True, text=True, timeout=600)
+    assert done.returncode == 0, done.stderr[-2000:]
+    assert done.stdout.split() == ["1", "True"], done.stdout
 
 
 def _check_flash_backward(cuda, b, hq, hkv, sq, skv, d, dtype, causal, window):

@@ -32,6 +32,12 @@ FLASH_GRAD_CASES = [
     (2, 1, 31, False, 5),
     (3, 3, 1, True, 0),
 ]
+# the same at gemma-7b's head dim 256: causal with S off the 64-row tile, and
+# a window over GQA 2
+FLASH_GRAD_WIDE_CASES = [
+    (2, 2, 70, True, 0),
+    (4, 2, 96, True, 40),
+]
 
 # (T, dk, dv, g low, with dstate): T off the chunk (64 and the reference's
 # 32), decays past the -8 clamp, with and without a final-state gradient
@@ -47,13 +53,13 @@ def _normal(rng, shape, dtype=np.float64, scale=1.0):
     return (rng.standard_normal(shape) * scale).astype(dtype)
 
 
-def _flash_inputs(case, dtype):
+def _flash_inputs(case, dtype, head_dim=16):
     hq, hkv, s, causal, window = case
     rng = np.random.default_rng(s * 7 + hq + hkv)
-    q = _normal(rng, (2, hq, s, 16), dtype)
-    k = _normal(rng, (2, hkv, s, 16), dtype)
-    v = _normal(rng, (2, hkv, s, 16), dtype)
-    do = _normal(rng, (2, hq, s, 16), dtype)
+    q = _normal(rng, (2, hq, s, head_dim), dtype)
+    k = _normal(rng, (2, hkv, s, head_dim), dtype)
+    v = _normal(rng, (2, hkv, s, head_dim), dtype)
+    do = _normal(rng, (2, hq, s, head_dim), dtype)
     return q, k, v, do
 
 
@@ -83,14 +89,17 @@ def test_flash_backward_plain_version_matches_autograd(case):
         torch.testing.assert_close(g, w, rtol=1e-10, atol=1e-10)
 
 
-@pytest.mark.parametrize("case", FLASH_GRAD_CASES)
-def test_flash_backward_matches_jax_grad_of_the_reference(case):
+@pytest.mark.parametrize("case,head_dim", [
+    *(pytest.param(c, 16, id=f"case{i}") for i, c in enumerate(FLASH_GRAD_CASES)),
+    *(pytest.param(c, 256, id=f"d256-case{i}") for i, c in enumerate(FLASH_GRAD_WIDE_CASES))])
+def test_flash_backward_matches_jax_grad_of_the_reference(case, head_dim):
     """f32: the port's autograd Function (plain versions on the CPU) against
     jax.grad of the reference's mea_attention, which its training
     differentiates; sums in other orders, 2e-5 of each gradient's scale
-    (at least 1: one query's dq is 0 up to f32 rounding)."""
+    (at least 1: one query's dq is 0 up to f32 rounding); head dim 16, and
+    256 (gemma-7b's)."""
     _, _, _, causal, window = case
-    arrays = _flash_inputs(case, np.float32)
+    arrays = _flash_inputs(case, np.float32, head_dim)
     q, k, v = (torch.from_numpy(a).requires_grad_() for a in arrays[:3])
     o = flash_attention(q, k, v, causal=causal, window=window)
     got = torch.autograd.grad(o, (q, k, v), torch.from_numpy(arrays[3]))

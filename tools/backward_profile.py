@@ -6,17 +6,19 @@ split each call's device time by kernel, on one CUDA card.
 
 ``DIR`` is the ``src`` directory whose ``repro_torch`` to load (default:
 this checkout's), so that two trees can be compared in one call.  Inputs
-are seeded normals at internlm2-1.8b's (2, 16 / 8 heads, 4096, 128) causal
-and hymba-1.5b's (2, 25 / 5 heads, 2048, 64) window-1024 attention, and
-GLA at hymba's (2, 25, 2048, dk 16, dv 64) and rwkv6's (1, 64, 2048, dk 64,
-dv 64), all bf16.  For each: the
+are seeded normals at internlm2-1.8b's (2, 16 / 8 heads, 4096, 128) causal,
+hymba-1.5b's (2, 25 / 5 heads, 2048, 64) window-1024 and gemma-7b's (2, 16
+heads, 2048, 256) causal attention, and GLA at hymba's (2, 25, 2048, dk 16,
+dv 64) and rwkv6's (1, 64, 2048, dk 64, dv 64), all bf16.  For each: the
 backward's median device time with the L2 flushed before every launch (CUDA
 events, ``chip_smoke.time_cold``), SDPA's backward on the same inputs for
-flash, the bound (``chip_smoke.least_ms``), and one ``torch.profiler``
-window of ``N`` backward calls (L2 not flushed) split by device kernel (ms
-per call).  For flash at d 64 the backward is timed once more with a
-variant library built from a copy of the tree's ``flash_attn_bwd.cu`` whose
-dK/dV CTAs hold 128 kv rows (two warpgroups, as at d 128) instead of 64;
+flash, the bound (``chip_smoke.least_ms``), for flash the launch floor of
+its two grids (an empty kernel on each, ``ops.backward_grids``), and one
+``torch.profiler`` window of ``N`` backward calls (L2 not flushed) split by
+device kernel (ms per call).  For flash at d 64 the backward is timed once
+more with a variant library built from a copy of the tree's
+``flash_attn_bwd.cu`` whose dK/dV CTAs hold 128 kv rows (two warpgroups,
+as at d 128) instead of 64;
 the copy goes under ``build/prof/`` and the library the port builds is not
 changed.  Prints one line per input and kernel, one JSON line, and the card's name
 and power limit last.
@@ -33,13 +35,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 FLASH_POINTS = [("internlm2", (2, 16, 8, 4096, 128), True, 0),
-                ("hymba", (2, 25, 5, 2048, 64), True, 1024)]
+                ("hymba", (2, 25, 5, 2048, 64), True, 1024),
+                ("gemma-7b", (2, 16, 16, 2048, 256), True, 0)]
 GLA_POINTS = [("hymba", (2, 25, 2048, 16)), ("rwkv6", (1, 64, 2048, 64))]
 
 
-# the dK/dV CTA's warpgroups in launch_bwd_wgmma, and the variant's
-WG_CHOICE = "  constexpr int WG = D == 64 ? 1 : 2;\n"
-WG_WIDE = "  constexpr int WG = 2;\n"
+# the dK/dV CTA's warpgroups in BwdShape (csrc/flash_attn_bwd.cu), and the
+# variant's
+WG_CHOICE = "  static constexpr int kKvWg = D == 64 ? 1 : 2;\n"
+WG_WIDE = "  static constexpr int kKvWg = 2;\n"
 
 
 def variant_library(name: str, text: str, kernels_dir: str, tag: str):
@@ -100,7 +104,13 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attn import ops as flash_ops
     from repro_torch.kernels.gla_chunk import ops as gla_ops
-    _build.build([n for n in ("flash_attn", "flash_attn_bwd", "gla_chunk", "gla_chunk_bwd")])
+    _build.build(["filtered_agg", "flash_attn", "flash_attn_bwd", "gla_chunk", "gla_chunk_bwd"])
+    floor_lib = _build.load("filtered_agg")
+
+    def launch_floor(gx, gy):   # an empty kernel on a (gx, gy) grid (chip_smoke.py phase 3)
+        rc = floor_lib.column_floor_launch(gx, gy, torch.cuda.current_stream().cuda_stream)
+        _build.check(floor_lib, "filtered_agg", rc)
+
     kernels_dir = os.path.dirname(os.path.abspath(_build.__file__))
     bwd_src = open(os.path.join(kernels_dir, "flash_attn", "csrc", "flash_attn_bwd.cu")).read()
     wide = (variant_library("flash_attn_bwd", bwd_src.replace(WG_CHOICE, WG_WIDE), kernels_dir,
@@ -123,6 +133,9 @@ def main() -> int:
         sdpa_ms = cs.time_cold(torch, cs.sdpa_backward(torch, q, k, v, do, causal, window),
                                iters=args.iters)
         bound_ms, by = cs.least_ms(*cs.flash_bwd_work(np, q, k, causal, window), q.dtype)
+        grids = flash_ops.backward_grids(q, k)
+        floor_ms = sum(cs.time_cold(torch, lambda g=g: launch_floor(*g), iters=args.iters)
+                       for g in grids)
         split = kernel_split(torch, call, args.iters)
         by_rows, same = {}, None
         if d == 64 and wide is not None:
@@ -135,8 +148,9 @@ def main() -> int:
                 _build._libs["flash_attn_bwd"] = own
         out.append({"kernel": "flash_attention_bwd", "input": name, "shape": [b, hq, hkv, s, d],
                     "window": window, "ms": ms, "sdpa_backward_ms": sdpa_ms,
-                    "bound_ms": bound_ms, "bound_by": by, "split": split,
-                    "ms_by_kv_rows": by_rows, "kv_rows_128_bitwise_equal": same})
+                    "bound_ms": bound_ms, "bound_by": by, "grids": grids, "floor_ms": floor_ms,
+                    "split": split, "ms_by_kv_rows": by_rows,
+                    "kv_rows_128_bitwise_equal": same})
         del q, k, v, do, o, lse
     for name, (b, h, t, dk) in GLA_POINTS:
         rng = np.random.default_rng(t + dk)
@@ -155,6 +169,8 @@ def main() -> int:
     for r in out:
         lib = (f", SDPA backward {r['sdpa_backward_ms'] * 1e3:.2f} us"
                if "sdpa_backward_ms" in r else "")
+        if "floor_ms" in r:
+            lib += f", launch floor of grids {r['grids']} {r['floor_ms'] * 1e3:.2f} us"
         lib += "".join(f"; dK/dV CTAs of {rows} kv rows {t * 1e3:.2f} us"
                        for rows, t in r.get("ms_by_kv_rows", {}).items())
         if r.get("kv_rows_128_bitwise_equal") is not None:

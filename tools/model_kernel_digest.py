@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Print a SHA-256 digest of the model kernels' forward outputs on seeded
-inputs, so that two checkouts can be held to each other bit for bit on one
-card.
+"""Print a SHA-256 digest of the model kernels' forward outputs and of the
+flash backward's gradients on seeded inputs, so that two checkouts can be
+held to each other bit for bit on one card.
 
     python3 tools/model_kernel_digest.py [--src DIR]
 
@@ -13,8 +13,13 @@ internlm2's (2, 16, 4096, 128) causal, a ragged (1, 6, 201, 128) over 333
 keys non-causal and a (1, 4, 65, 64) causal, in bf16 and f32;
 ``gla_chunked`` (o and the final state) at (2, 25, 2048, 16 / 64), (1, 64,
 2048, 64 / 64) and (1, 3, 130, 16 / 64) with decays past the -8 clamp, in
-bf16 and f32.  Prints one line per wrapper, ``<name> <calls> <sha256>``,
-then ``all <sha256>``.  Equal lines from two checkouts mean bitwise equal
+bf16 and f32; then dq, dk and dv of the flash backward kernels (the
+wrapper's ``ops._forward`` with the log-sum-exp, then ``ops._backward``
+with an output gradient drawn from the same seed) at the same flash inputs
+in bf16 and f32 and at the reduced configs' (8, 4, 64, 16) causal in f32
+(bf16 d 256, gemma-7b's, is left out).  Prints one line per wrapper,
+``<name> <calls> <sha256>`` (the backward as ``flash_attention_bwd``), then
+``all <sha256>``.  Equal lines from two checkouts mean bitwise equal
 outputs.  Needs a CUDA card.
 """
 
@@ -37,10 +42,12 @@ def main() -> int:
         return 2
     sys.path.insert(0, src)
     from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.kernels.flash_attn import ops as flash_ops
     from repro_torch.kernels.gla_chunk import gla_chunked
 
     dev = torch.device("cuda")
-    digests = {"flash_attention": hashlib.sha256(), "gla_chunked": hashlib.sha256()}
+    digests = {"flash_attention": hashlib.sha256(), "gla_chunked": hashlib.sha256(),
+               "flash_attention_bwd": hashlib.sha256()}
     calls = dict.fromkeys(digests, 0)
 
     def add(name, *outs):
@@ -70,6 +77,18 @@ def main() -> int:
                 g = torch.from_numpy(-rng.uniform(0.0, 0.3, (b, h, t, dk)).astype(np.float32))
                 g[..., :3, :] = -9.0
                 add("gla_chunked", *gla_chunked(q, k, v, g.to(dev).to(dtype)))
+    reduced = [((8, 4, 2, 64, 64, 16), True, 0)]
+    for dtype in (torch.bfloat16, torch.float32):
+        for (b, hq, hkv, sq, skv, d), causal, window in flash + (
+                reduced if dtype == torch.float32 else []):
+            rng = np.random.default_rng(sq + d + 1)
+            q = normal(rng, (b, hq, sq, d), dtype)
+            k, v = (normal(rng, (b, hkv, skv, d), dtype) for _ in range(2))
+            do = normal(rng, (b, hq, sq, d), dtype)
+            scale = 1.0 / d ** 0.5
+            o, lse = flash_ops._forward(q, k, v, causal, window, scale, True)
+            add("flash_attention_bwd",
+                *flash_ops._backward(q, k, v, o, lse, do, causal, window, scale))
     total = hashlib.sha256()
     for name, h in digests.items():
         print(f"{name} {calls[name]} {h.hexdigest()}")
