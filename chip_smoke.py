@@ -327,6 +327,24 @@ Phases, each printing its own lines:
              same weights and batches: the parameters after one step bitwise
              equal and both steps' losses equal; each run's second-step wall
              and peak device memory.
+17. mesh   — (last) the device mesh, on a one-rank NCCL group (a
+             ``HashStore``, no network) and ``launch.mesh.make_host_mesh``:
+             (a) internlm2-1.8b at full width cut to 2 layers, bf16, 2 x 4,096
+             tokens in 2 microbatches, 3 steps with the state sharded by
+             ``train.sharding`` (DTensor parameters and moments, the dry run's
+             hints) against 3 unsharded steps from the same weights and
+             batches: losses and parameters bitwise, flash launches equal and
+             > 0, each run's median step and peak memory; (b) the sharded
+             state checkpointed at step 2 (``build/mesh_ckpt``, removed) and
+             restored with ``shardings`` into a fresh sharded state and into an
+             unsharded one: step 3 bitwise the uninterrupted run's; (c)
+             ``launch.dryrun.lower_cell`` of (a)'s configuration on a fake
+             (1, 1) mesh: FLOPs equal to ``TraceAnalysis`` over the card's
+             step, peak within 15 % of the card's; (d) the dry run of
+             internlm2-1.8b x train_4k and x decode_32k and mistral-large-123b
+             x train_4k on the fake (16, 16) production mesh (one process
+             each, started with (a), on the host: fake tensors): status ok,
+             each roofline row at the H100's peaks and the dry run's wall.
 
 Then one JSON line of per-kernel numbers, the ``nvidia-smi`` line again, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -3829,6 +3847,252 @@ def run_remat_groups(torch, np, smi):
             "phase_s": time.perf_counter() - t_phase}
 
 
+# phase 17: the device mesh.  (a)-(c) internlm2-1.8b at full width cut to 2
+# layers on a one-rank NCCL (1, 1) host mesh, TRAIN_BATCH x TRAIN_SEQ tokens
+# in the dry run's microbatches; (d) production cells of the dry run on the
+# fake (16, 16) mesh, one process each, started with (a) (they trace on the
+# host: fake tensors, no kernel)
+MESH_LAYERS, MESH_STEPS, MESH_CKPT_AT = 2, 3, 2
+MESH_PEAK_TOL = 0.15             # the dry run's peak against the card's
+MESH_CELLS = (("internlm2-1.8b", "train_4k"), ("internlm2-1.8b", "decode_32k"),
+              ("mistral-large-123b", "train_4k"))
+MESH_CELL_TIMEOUT = 900
+
+
+def start_mesh_cells(out_dir):
+    """Phase 17 (d)'s dry-run cells, each ``python -m repro_torch.launch.dryrun
+    --mesh single --device cuda`` in a process of its own, all started now."""
+    cells = []
+    for arch, shape in MESH_CELLS:
+        out = os.path.join(out_dir, f"{arch}_{shape}.json")
+        log = open(out + ".log", "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh", "single",
+             "--arch", arch, "--shape", shape, "--device", "cuda", "--out", out],
+            cwd=ROOT, env={**os.environ, "PYTHONPATH": SRC, "OMP_NUM_THREADS": "1"},
+            stdout=log, stderr=subprocess.STDOUT)
+        cells.append({"arch": arch, "shape": shape, "out": out, "proc": proc, "log": log,
+                      "t0": time.perf_counter()})
+    return cells
+
+
+def finish_mesh_cells(cells, smi):
+    """Waits for phase 17 (d)'s cells; each must be ``ok``.  Their roofline
+    rows at the H100's peaks, and each cell's wall."""
+    from repro_torch.launch import roofline
+
+    merged, walls = {}, {}
+    for c in cells:
+        try:
+            rc = c["proc"].wait(timeout=max(MESH_CELL_TIMEOUT - (time.perf_counter() - c["t0"]), 1))
+        except subprocess.TimeoutExpired:
+            c["proc"].kill()
+            c["proc"].wait()
+            rc = "timeout"
+        c["log"].close()
+        key = f"{c['arch']}|{c['shape']}"
+        walls[key] = time.perf_counter() - c["t0"]
+        with open(c["out"] + ".log") as f:
+            tail = f.read()[-1500:]
+        check(rc == 0 and os.path.exists(c["out"]), f"dry run {key}: exit {rc}; {tail}")
+        with open(c["out"]) as f:
+            row = json.load(f)[key]
+        check(row["status"] == "ok", f"dry run {key}: {row.get('status')} {row.get('error')}")
+        merged[key] = row
+    path = os.path.join(os.path.dirname(cells[0]["out"]), "dryrun_single.json")
+    with open(path, "w") as f:
+        json.dump(merged, f, indent=1)
+    table = roofline.analyze(path, chips=256)
+    lines = roofline.to_markdown(table).splitlines()
+    for line in lines[:2]:
+        print(f"[mesh] (d) {line}")
+    for key, line in zip(table, lines[2:]):
+        m = merged[key]["memory"]
+        print(f"[mesh] (d) {line} dry run wall {walls[key]:.1f} s (trace {merged[key]['trace_s']:.1f} s, "
+              f"{len(merged[key]['traced'])} traces); per device: args "
+              f"{m['argument_bytes'] / 2**30:.3f} GiB, peak {m['peak_bytes'] / 2**30:.2f} GiB  [{smi}]")
+    return {"cells": merged, "roofline": table, "wall_s": walls}
+
+
+def run_mesh(torch, np, smi):
+    """Phase 17: the device mesh.  (a) one-rank NCCL (1, 1) host mesh:
+    internlm2-1.8b at full width, 2 layers, 3 steps with the state sharded
+    by ``params_shardings`` and the dry run's hints, against 3 unsharded
+    steps from the same weights and batches: losses and parameters bitwise,
+    flash forward and backward launches equal and > 0; each run's median
+    step and peak memory.  (b) the sharded state checkpointed at step 2 and
+    restored (with ``shardings``) into a fresh sharded state and into an
+    unsharded one: step 3 bitwise the uninterrupted run's.  (c) the dry
+    run's host-mesh cell of (a)'s configuration: its FLOPs equal to
+    ``TraceAnalysis`` over the card's restored step 3, its peak within
+    MESH_PEAK_TOL of (a)'s.  (d) the production cells (started first)."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world, make_host_mesh
+    from repro_torch.launch.specs import ShapeSpec
+    from repro_torch.launch.trace_analysis import TraceAnalysis
+    from repro_torch.models import Model
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import sharding
+    from repro_torch.train.data import TokenPipeline
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.step import (TrainState, init_train_state, make_train_step,
+                                        state_shardings)
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(ROOT, "build", "mesh_phase")
+    ck_dir = os.path.join(ROOT, "build", "mesh_ckpt")
+    for d in (out_dir, ck_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(out_dir)
+    cells = start_mesh_cells(out_dir)
+    try:
+        dev = torch.device("cuda")
+        cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=MESH_LAYERS)
+        shape = ShapeSpec("host", "train", TRAIN_SEQ, TRAIN_BATCH)
+        pipe = TokenPipeline(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=17)
+        batches = [{k: torch.from_numpy(v).to(dev) for k, v in pipe.next_batch().items()}
+                   for _ in range(MESH_STEPS)]
+        opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=MESH_STEPS, weight_decay=0.0)
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+        mesh = make_host_mesh()
+        mbs = dryrun.microbatches(shape, mesh)
+
+        def fresh(sharded):
+            model = Model(cfg)
+            state = init_train_state(model, torch.Generator(device="cuda").manual_seed(7))
+            if sharded:
+                sharding.shard_model(model, mesh)
+                model.shard_hints = dryrun.shard_hints(cfg, shape, mesh, "baseline")
+                params = dict(model.named_parameters())
+                state = TrainState(params, init_opt_state(params), None)
+            return model, state
+
+        def full(t):
+            return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+        def step(fn, state, b, walls=None):
+            t0 = time.perf_counter()
+            state, m = fn(state, b)
+            loss = float(full(m["loss"]))
+            torch.cuda.synchronize()
+            if walls is not None:
+                walls.append(time.perf_counter() - t0)
+            return state, loss
+
+        # -- (a) sharded against unsharded, same weights and batches ----------
+        runs = {}
+        for sharded in (False, True):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            model, state = fresh(sharded)
+            fn = make_train_step(model, opt, microbatches=mbs)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = flash_attention.launches, flash_attention.bwd_launches
+            losses, walls = [], []
+            for i, b in enumerate(batches):
+                state, loss = step(fn, state, b, walls)
+                losses.append(loss)
+                if sharded and i + 1 == MESH_CKPT_AT:
+                    ckpt.save(ck_dir, MESH_CKPT_AT, state, extra={"step": MESH_CKPT_AT})
+            peak = torch.cuda.max_memory_allocated() - base
+            launches = (flash_attention.launches - before[0],
+                        flash_attention.bwd_launches - before[1])
+            params = {n: full(p).detach().to("cpu", copy=True) for n, p in model.named_parameters()}
+            runs[sharded] = {"losses": losses, "walls": walls, "peak": peak,
+                             "launches": launches, "params": params}
+            what = "sharded, (1, 1) host mesh" if sharded else "unsharded"
+            print(f"[mesh] (a) {TRAIN_ARCH} full width, {MESH_LAYERS} layers, {TRAIN_BATCH} x "
+                  f"{TRAIN_SEQ} tokens, {mbs} microbatches, {what}: losses {losses}; step "
+                  f"{statistics.median(walls) * 1e3:.2f} ms median of {len(walls)} "
+                  f"({', '.join(f'{w * 1e3:.2f}' for w in walls)}); peak device memory "
+                  f"{peak / 1e9:.3f} GB over the state's start; flash launches {launches[0]} "
+                  f"forward, {launches[1]} backward  [{smi}]")
+            del model, state, fn
+        a, b_ = runs[False], runs[True]
+        check(b_["losses"] == a["losses"], f"sharded losses {b_['losses']} != {a['losses']}")
+        same = [n for n in a["params"] if torch.equal(a["params"][n], b_["params"][n])]
+        check(len(same) == len(a["params"]),
+              f"sharded parameters differ bitwise: {sorted(set(a['params']) - set(same))}")
+        check(b_["launches"] == a["launches"] and min(a["launches"]) > 0,
+              f"flash launches sharded {b_['launches']} against unsharded {a['launches']}")
+        print(f"[mesh] (a) losses and parameters bitwise equal; flash launches equal; "
+              f"sharded / unsharded step {statistics.median(b_['walls']) / statistics.median(a['walls']):.3f}x, "
+              f"peak {b_['peak'] / 1e9:.3f} / {a['peak'] / 1e9:.3f} GB  [{smi}]")
+
+        # -- (b) the elastic restore, onto the mesh and onto no mesh ----------
+        restored = {}
+        for sharded in (True, False):
+            torch.cuda.empty_cache()
+            model, state = fresh(sharded)
+            shardings = state_shardings(model, mesh) if sharded else None
+            state, extra = ckpt.restore(ck_dir, MESH_CKPT_AT, state, shardings=shardings)
+            check(extra == {"step": MESH_CKPT_AT}, f"restore extra {extra}")
+            fn = make_train_step(model, opt, microbatches=mbs)
+            if sharded:
+                with TraceAnalysis(mesh.size()) as trace:
+                    state, loss = step(fn, state, batches[MESH_CKPT_AT])
+            else:
+                state, loss = step(fn, state, batches[MESH_CKPT_AT])
+            same = all(torch.equal(full(p).detach().cpu(), b_["params"][n])
+                       for n, p in model.named_parameters())
+            check(loss == b_["losses"][MESH_CKPT_AT] and same,
+                  f"restored {'sharded' if sharded else 'unsharded'} step {MESH_CKPT_AT + 1}: "
+                  f"loss {loss} against {b_['losses'][MESH_CKPT_AT]}, parameters bitwise {same}")
+            restored["sharded" if sharded else "unsharded"] = loss
+            del model, state, fn
+        ck_gb = sum(os.path.getsize(os.path.join(dp, f))
+                    for dp, _, fs in os.walk(ck_dir) for f in fs) / 1e9
+        shutil.rmtree(ck_dir, ignore_errors=True)
+        real_flops = trace.result()["flops_per_device"]
+        print(f"[mesh] (b) the sharded state's checkpoint at step {MESH_CKPT_AT} ({ck_gb:.2f} GB "
+              f"on disk, the single-process layout) restored into a fresh sharded state (with "
+              f"shardings) and into an unsharded one: step {MESH_CKPT_AT + 1} bitwise the "
+              f"uninterrupted run's (loss {restored['sharded']})  [{smi}]")
+        dist.destroy_process_group()
+
+        # -- (c) the dry run's host-mesh cell against the card -----------------
+        with fake_world(1):
+            cell = dryrun.lower_cell(TRAIN_ARCH, "host", make_host_mesh(), device="cuda",
+                                     cfg=cfg, shape=shape)
+        check(cell["status"] == "ok", f"host-mesh dry run: {cell}")
+        fake_flops = cell["hlo_profile"]["flops_per_device"]
+        fake_peak = cell["memory"]["peak_bytes"]
+        gap = abs(fake_peak - b_["peak"]) / b_["peak"]
+        print(f"[mesh] (c) host-mesh dry run (fake tensors, {cell['trace_s']:.1f} s): FLOPs "
+              f"{fake_flops:.6e} against TraceAnalysis over the card's step {real_flops:.6e}; "
+              f"peak {fake_peak / 1e9:.3f} GB against the card's {b_['peak'] / 1e9:.3f} GB "
+              f"({gap:+.1%})  [{smi}]")
+        check(fake_flops == real_flops > 0, f"dry-run FLOPs {fake_flops} != the card step's {real_flops}")
+        check(gap <= MESH_PEAK_TOL, f"dry-run peak {fake_peak} vs the card's {b_['peak']}: {gap:.1%}")
+
+        # -- (d) the production cells ------------------------------------------
+        cells_out = finish_mesh_cells(cells, smi)
+    finally:
+        for c in cells:
+            if c["proc"].poll() is None:
+                c["proc"].kill()
+                c["proc"].wait()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    summary = {"runs": {("sharded" if k else "unsharded"): {kk: vv for kk, vv in v.items()
+                                                           if kk != "params"}
+                        for k, v in runs.items()},
+               "restored": restored, "checkpoint_gb": ck_gb,
+               "host_cell": {"flops": fake_flops, "card_flops": real_flops,
+                             "peak_bytes": fake_peak, "card_peak_bytes": b_["peak"]},
+               **cells_out, "phase_s": time.perf_counter() - t_phase}
+    print(f"[mesh] phase 17 in {summary['phase_s']:.1f} s  [{smi}]")
+    return summary
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -4357,6 +4621,9 @@ def main() -> int:
     # -- 16. two-level remat at full depth ---------------------------------------
     remat = run_remat_groups(torch, np, smi)
 
+    # -- 17. the device mesh: DTensor training, the elastic restore, the dry run -
+    mesh = run_mesh(torch, np, smi)
+
     # -- results ---------------------------------------------------------------
     sources = {
         "filtered_agg": "src/repro_torch/kernels/filtered_agg/csrc/filtered_agg.cu",
@@ -4513,6 +4780,7 @@ def main() -> int:
                            if isinstance(r, dict) else r for arch, r in families.items()}
     summary["reduced"] = {k: v for k, v in reduced.items() if k != "kernels"}
     summary["remat_groups"] = remat
+    summary["mesh"] = mesh
     summary["drain"] = drain
     summary["fused"] = {k: v for k, v in fused.items() if k != "kernels"}
     summary["gather"] = gather

@@ -509,16 +509,19 @@ template <int D>
 cudaError_t launch_flash_wgmma(const void* q, const void* k, const void* v, void* o,
                                float* lse, int batch, int hq, int hkv, int sq, int skv, float scale,
                                int causal, int window, cudaStream_t stream) {
-  CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, batch * hq, sq, D, kWgBQ) ||
-      !make_map(&tk, k, batch * hkv, skv, D, kBK) ||
-      !make_map(&tv, v, batch * hkv, skv, D, kBK))
-    return cudaErrorInvalidValue;
+  // the runtime call first: it makes the thread's context current, which
+  // the driver's tensor-map encoding needs (a thread's first CUDA work, as
+  // on autograd's worker thread, has none before it)
   const size_t smem = WgSmem<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(flash_attn_wgmma_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, batch * hq, sq, D, kWgBQ) ||
+      !make_map(&tk, k, batch * hkv, skv, D, kBK) ||
+      !make_map(&tv, v, batch * hkv, skv, D, kBK))
+    return cudaErrorInvalidValue;
   const dim3 grid((sq + kWgBQ - 1) / kWgBQ, hq, batch);
   flash_attn_wgmma_kernel<D><<<grid, kWgThreads, smem, stream>>>(
       tq, tk, tv, static_cast<bf16*>(o), lse, hq, hkv, sq, skv, scale * kLog2e, causal,

@@ -1,6 +1,6 @@
 """Wrapper of the flash_attn CUDA kernels: the forward (``csrc/flash_attn.cu``)
-and the backward (``csrc/flash_attn_bwd.cu``), joined by an autograd
-Function.
+and the backward (``csrc/flash_attn_bwd.cu``), two custom operators joined
+by autograd.
 
 A CUDA tensor launches the hand-written kernels, or raises; a CPU tensor runs
 the plain PyTorch versions (``ref.py``).  The tensors' device alone decides:
@@ -12,9 +12,14 @@ launches exactly what it did before the backward existed.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
+from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attn.ref import (flash_attention_bwd_ref,
@@ -138,11 +143,12 @@ def stats_floats(q) -> int:
     return 2 * b * hq * (-(-sq // BWD_TILE) * BWD_TILE)
 
 
-def backward_checks(q, k, v, o, lse, do) -> None:
+def backward_checks(q, k, v, o, lse, do, *, addresses: bool = True) -> None:
     """What the backward kernels take, checked on the host (any device):
     the forward's checks, o and do like q and contiguous, lse (B, Hq, Sq)
     f32 contiguous, every base 16-byte aligned (the TMA loads and the
-    vector stores), the stats scratch's rows within int32."""
+    vector stores; ``addresses`` False skips that, for fake tensors), the
+    stats scratch's rows within int32."""
     _launch_checks(q)
     if do.dtype != q.dtype:
         raise ValueError(f"the output's gradient is {do.dtype}, q {q.dtype}")
@@ -156,7 +162,7 @@ def backward_checks(q, k, v, o, lse, do) -> None:
     for what, t in (("q", q), ("k", k), ("v", v), ("o", o), ("lse", lse), ("do", do)):
         if not t.is_contiguous():
             raise ValueError(f"{what} must be contiguous")
-        if t.data_ptr() % 16:
+        if addresses and t.data_ptr() % 16:
             raise ValueError(f"{what} must be 16-byte aligned")
     if stats_floats(q) >= 2 ** 31:
         raise ValueError(f"{tuple(q.shape)}: 2 B Hq Sq (padded to {BWD_TILE}) rows exceed "
@@ -188,26 +194,110 @@ def _backward(q, k, v, o, lse, do, causal: bool, window: int, scale: float):
     return dq, dk, dv
 
 
-class FlashAttentionFn(torch.autograd.Function):
-    """Attention whose forward saves q, k, v, o and each row's log-sum-exp
-    and whose backward recomputes P tile by tile from them: the kernels on
-    the card, the plain versions on the CPU."""
+# The forward and the backward are custom operators (``repro_torch::``), so
+# that a DTensor and a fake tensor can call them: autograd joins the two
+# through ``register_autograd``; ``register_fake`` gives shapes and dtypes
+# only (a trace under ``FakeTensorMode`` launches nothing); the FLOP formulas
+# count the pairs the masks keep; the sharding rules run the kernel on each
+# rank's shard of the batch or of the heads.  On a real tensor each op calls
+# ``_forward`` / ``_backward``, looked up when it runs.
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int, scale: float, with_lse: bool):
-        o, lse = _forward(q, k, v, causal, window, scale, with_lse)
-        if with_lse:
-            ctx.save_for_backward(q, k, v, o, lse)
-        ctx.attrs = (causal, window, scale)
-        return o
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                        window: int, scale: float,
+                        with_lse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse): lse (B, Hq, Sq) f32 when ``with_lse``, else (B, Hq, 0)."""
+    o, lse = _forward(q, k, v, causal, window, scale, with_lse)
+    if not with_lse:
+        lse = q.new_empty(q.shape[:2] + (0,), dtype=torch.float32)
+    return o, lse
 
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        causal, window, scale = ctx.attrs
-        grads = _backward(q, k, v, o, lse, do.contiguous(), causal, window, scale)
-        return (*grads, None, None, None, None)
+
+@flash_attention_fwd.register_fake
+def _(q, k, v, causal, window, scale, with_lse):
+    if q.device.type == "cuda":
+        _launch_checks(q)
+    sq = q.shape[2] if with_lse else 0
+    return torch.empty_like(q), q.new_empty(q.shape[:2] + (sq,), dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                        lse: torch.Tensor, do: torch.Tensor, causal: bool, window: int,
+                        scale: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of the forward's o against its gradient do."""
+    return _backward(q, k, v, o, lse, do, causal, window, scale)
+
+
+@flash_attention_bwd.register_fake
+def _(q, k, v, o, lse, do, causal, window, scale):
+    if q.device.type == "cuda":
+        backward_checks(q, k, v, o, lse, do, addresses=False)   # a fake tensor has none
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, causal, window, scale, with_lse = inputs
+    if with_lse:
+        ctx.save_for_backward(q, k, v, output[0], output[1])
+    ctx.attrs = (causal, window, scale)
+
+
+def _backward_rule(ctx, do, _dlse):
+    q, k, v, o, lse = ctx.saved_tensors
+    dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(), *ctx.attrs)
+    return dq, dk, dv, None, None, None, None
+
+
+flash_attention_fwd.register_autograd(_backward_rule, setup_context=_setup_context)
+
+
+@functools.lru_cache(maxsize=256)
+def attention_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks keep: the work attention needs."""
+    r = np.arange(sq)
+    hi = np.minimum(r, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(0, r - window + 1) if window else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _(q_shape, k_shape, v_shape, causal, window, scale, with_lse, out_shape=None):
+    """4 d per kept pair and q head: QK^T and PV."""
+    b, hq, sq, d = q_shape
+    return 4 * d * b * hq * attention_pairs(sq, k_shape[2], causal, window)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _(q_shape, k_shape, v_shape, o_shape, lse_shape, do_shape, causal, window, scale,
+      out_shape=None):
+    """10 d per kept pair and q head: S recomputed, dO V^T, dV, dK, dQ."""
+    b, hq, sq, d = q_shape
+    return 10 * d * b * hq * attention_pairs(sq, k_shape[2], causal, window)
+
+
+def _shardings(q, k, v, *rest, outputs: int):
+    """Single-mesh-dim strategies (outputs, then inputs; None for a
+    non-tensor): replicated, batch-sharded, or head-sharded when every mesh
+    dim divides the kv heads (q head h reads kv head h // (Hq / Hkv), which
+    holds on each shard only then)."""
+    tensors = 3 + sum(hasattr(t, "mesh") for t in rest)
+    others = len(rest) + 3 - tensors
+    strategies = [([Replicate()] * outputs, [Replicate()] * tensors + [None] * others),
+                  ([Shard(0)] * outputs, [Shard(0)] * tensors + [None] * others)]
+    if all(k.shape[1] % n == 0 for n in q.mesh.shape):
+        strategies.append(([Shard(1)] * outputs, [Shard(1)] * tensors + [None] * others))
+    return strategies
+
+
+@register_sharding(torch.ops.repro_torch.flash_attention_fwd.default)
+def _(q, k, v, causal, window, scale, with_lse):
+    return _shardings(q, k, v, causal, window, scale, with_lse, outputs=2)
+
+
+@register_sharding(torch.ops.repro_torch.flash_attention_bwd.default)
+def _(q, k, v, o, lse, do, causal, window, scale):
+    return _shardings(q, k, v, o, lse, do, causal, window, scale, outputs=3)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -223,6 +313,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     another raises.
     Differentiable: the gradients of q, k and v come from the backward
     kernels (their plain versions on the CPU), in the inputs' dtypes.
+    DTensors of the same placements (batch or heads sharded) run the kernel
+    on each rank's shard; fake tensors give shapes only.
     """
     _check(q, k, v, window, q_offset)
     _build.count(flash_attention, "calls")
@@ -230,7 +322,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     scale = float(scale if scale is not None else 1.0 / (q.shape[3] ** 0.5))
     with_lse = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
-    return FlashAttentionFn.apply(q, k, v, causal, int(window), scale, with_lse)
+    return flash_attention_fwd(q, k, v, causal, int(window), scale, with_lse)[0]
 
 
 # ``calls`` counts every call on either device; ``launches`` counts forward

@@ -1,6 +1,6 @@
 """Wrapper of the gla_chunk CUDA kernels: the forward (``csrc/gla_chunk.cu``)
-and the backward (``csrc/gla_chunk_bwd.cu``), joined by an autograd
-Function.
+and the backward (``csrc/gla_chunk_bwd.cu``), two custom operators joined
+by autograd.
 
 A CUDA tensor launches the hand-written kernels, or raises; a CPU tensor runs
 the plain PyTorch versions (``ref.py``).  The tensors' device alone decides:
@@ -8,14 +8,18 @@ there is no mode switch and no fallback.  One forward call on the card is
 three kernels on the current stream: per-(chunk, head) state contributions,
 the scan over chunks, and per-(chunk, head) outputs; it counts as one
 launch.  The scan leaves the state before each chunk in its scratch, which
-the Function keeps for the backward (three kernels, one count).
+the forward operator returns for the backward (three kernels, one
+count).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.gla_chunk.ref import gla_chunked_bwd_ref, gla_chunked_fwd_ref
@@ -83,11 +87,12 @@ def _forward(q, k, v, g):
     return o, state, ds.view(b, h, chunks, dk, dv)
 
 
-def backward_checks(q, k, v, g, states, state, do, dstate) -> None:
+def backward_checks(q, k, v, g, states, state, do, dstate, *, addresses: bool = True) -> None:
     """What the backward kernels take, checked on the host (any device):
     the forward's shapes, do like v, the chunk-start states (B, H, chunks,
     dk, dv), the final state and dstate (B, H, dk, dv) f32, all contiguous
-    and 16-byte aligned (the kernels' float4 and 16-byte loads)."""
+    and 16-byte aligned (the kernels' float4 and 16-byte loads;
+    ``addresses`` False skips that, for fake tensors)."""
     b, h, t, dk = q.shape
     dv = v.shape[-1]
     _check_widths(q, dk, dv)
@@ -106,7 +111,7 @@ def backward_checks(q, k, v, g, states, state, do, dstate) -> None:
     for what, x in (("q", q), ("k", k), ("v", v), ("g", g), ("do", do), *[w[:2] for w in wants]):
         if not x.is_contiguous():
             raise ValueError(f"{what} must be contiguous")
-        if x.data_ptr() % 16:
+        if addresses and x.data_ptr() % 16:
             raise ValueError(f"{what} must be 16-byte aligned")
 
 
@@ -143,25 +148,105 @@ def _backward(q, k, v, g, states, state, do, dstate):
     return dq, dk_, dv_, dg
 
 
-class GlaChunkedFn(torch.autograd.Function):
-    """Chunked GLA whose forward keeps the state before each chunk (the
-    forward scan's scratch on the card) and whose backward reads it: the
-    kernels on the card, the plain versions on the CPU.  The final state's
-    gradient may be None (training ignores the state)."""
+# The forward and the backward are custom operators (``repro_torch::``), so
+# that a DTensor and a fake tensor can call them: autograd joins the two
+# through ``register_autograd`` (the forward keeps the state before each
+# chunk for the backward); ``register_fake`` gives shapes and dtypes only;
+# the FLOP formulas count the chunk products; the sharding rules run the
+# kernels on each rank's shard of the batch or of the heads.  On a real
+# tensor each op calls ``_forward`` / ``_backward``, looked up when it runs.
 
-    @staticmethod
-    def forward(ctx, q, k, v, g):
-        ctx.set_materialize_grads(False)
-        o, state, states = _forward(q, k, v, g)
-        ctx.save_for_backward(q, k, v, g, states, state)
-        return o, state
+@torch.library.custom_op("repro_torch::gla_chunked_fwd", mutates_args=())
+def gla_chunked_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(o, final state, the state before each chunk (B, H, chunks, dk, dv))."""
+    return _forward(q, k, v, g)
 
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, do, dstate):
-        q, k, v, g, states, state = ctx.saved_tensors
-        do = torch.zeros_like(v) if do is None else do.contiguous()
-        return _backward(q, k, v, g, states, state, do, dstate)
+
+@gla_chunked_fwd.register_fake
+def _(q, k, v, g):
+    b, h, t, dk = q.shape
+    dv = v.shape[-1]
+    if q.device.type == "cuda":
+        _check_widths(q, dk, dv)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    return (torch.empty_like(v), torch.empty((b, h, dk, dv), **f32),
+            torch.empty((b, h, -(-t // CHUNK), dk, dv), **f32))
+
+
+@torch.library.custom_op("repro_torch::gla_chunked_bwd", mutates_args=())
+def gla_chunked_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+                    states: torch.Tensor, state: torch.Tensor, do: torch.Tensor,
+                    dstate: Optional[torch.Tensor]
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv, dg); ``dstate`` None reads as zero."""
+    return _backward(q, k, v, g, states, state, do, dstate)
+
+
+@gla_chunked_bwd.register_fake
+def _(q, k, v, g, states, state, do, dstate):
+    if q.device.type == "cuda":
+        backward_checks(q, k, v, g, states, state, do,
+                        None if dstate is None else dstate.float().contiguous(),
+                        addresses=False)                       # a fake tensor has none
+    return tuple(torch.empty_like(x) for x in (q, k, v, g))
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.set_materialize_grads(False)
+    ctx.save_for_backward(*inputs, output[2], output[1])
+
+
+def _backward_rule(ctx, do, dstate, _dstates):
+    q, k, v, g, states, state = ctx.saved_tensors
+    do = torch.zeros_like(v) if do is None else do.contiguous()
+    return gla_chunked_bwd(q, k, v, g, states, state, do, dstate)
+
+
+gla_chunked_fwd.register_autograd(_backward_rule, setup_context=_setup_context)
+
+
+def _chunk_flops(q_shape, dv: int, per_chunk) -> int:
+    b, h, t, dk = q_shape
+    c = CHUNK
+    return b * h * -(-t // c) * per_chunk(c, c * (c + 1) // 2, dk, dv)
+
+
+@register_flop_formula(torch.ops.repro_torch.gla_chunked_fwd)
+def _(q_shape, k_shape, v_shape, g_shape, out_shape=None):
+    """Per chunk of 64: the inter term and the state update (2 C dk dv
+    each), the lower-triangular A (2 dk a pair) and A v (2 dv a pair)."""
+    return _chunk_flops(q_shape, v_shape[-1],
+                        lambda c, tri, dk, dv: 4 * c * dk * dv + 2 * tri * (dk + dv))
+
+
+@register_flop_formula(torch.ops.repro_torch.gla_chunked_bwd)
+def _(q_shape, k_shape, v_shape, g_shape, states_shape, state_shape, do_shape,
+      dstate_shape, out_shape=None):
+    """Per chunk of 64: the state-gradient contribution and the inter terms
+    of dq, dk and dv (2 C dk dv each), B and dv's intra term (2 dv a pair),
+    A and the intra terms of dq and dk (2 dk a pair)."""
+    return _chunk_flops(q_shape, v_shape[-1],
+                        lambda c, tri, dk, dv: 8 * c * dk * dv + 2 * tri * (2 * dv + 3 * dk))
+
+
+def _shardings(*args, outputs: int):
+    """Single-mesh-dim strategies (outputs, then inputs; None for an absent
+    tensor): replicated, batch-sharded or head-sharded; every (B, H, ...)
+    slice is independent."""
+    present = [hasattr(a, "mesh") for a in args]
+    return [([p] * outputs, [p if t else None for t in present])
+            for p in (Replicate(), Shard(0), Shard(1))]
+
+
+@register_sharding(torch.ops.repro_torch.gla_chunked_fwd.default)
+def _(q, k, v, g):
+    return _shardings(q, k, v, g, outputs=3)
+
+
+@register_sharding(torch.ops.repro_torch.gla_chunked_bwd.default)
+def _(q, k, v, g, states, state, do, dstate):
+    return _shardings(q, k, v, g, states, state, do, dstate, outputs=4)
 
 
 def gla_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -174,13 +259,16 @@ def gla_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     64), and (8, 16) in f32; another raises.  Differentiable: the
     gradients come from the backward kernels (their plain versions on the
     CPU), in the inputs' dtypes; g's follows the reference's ``jnp.clip``,
-    half a gradient on either bound.
+    half a gradient on either bound.  DTensors of the same placements
+    (batch or heads sharded) run the kernels on each rank's shard; fake
+    tensors give shapes only.
     """
     _check(q, k, v, g)
     _build.count(gla_chunked, "calls")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gla_chunked runs on cuda or cpu, not {q.device}")
-    return GlaChunkedFn.apply(q, k, v, g)
+    o, state, _ = gla_chunked_fwd(q, k, v, g)
+    return o, state
 
 
 # ``calls`` counts every call on either device; ``launches`` counts forward

@@ -15,10 +15,40 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.kernels.flash_attn import flash_attention
 
 NEG_INF = -1e30
+
+
+def like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``t`` (the same on every rank) as a replicated DTensor on ``ref``'s
+    mesh when ``ref`` is a DTensor and ``t`` is not, else ``t`` itself: so
+    that a sharded pass mixes no plain tensor into DTensor ops, forward or
+    backward."""
+    if not isinstance(ref, DTensor) or isinstance(t, DTensor):
+        return t
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def heads(x: torch.Tensor, *shape: int, dim: int = -1) -> torch.Tensor:
+    """``x.view(*shape)``, splitting x's dim ``dim`` (the last by default)
+    into two, (heads, head_dim) or (kv heads, group).  On a mesh, that dim
+    sharded over more ranks than divide the outer of the two is first
+    gathered over those mesh dims (a GQA model's few kv heads on a wide
+    model axis)."""
+    if isinstance(x, DTensor):
+        at, mesh = dim % x.ndim, x.device_mesh
+        split = [i for i, p in enumerate(x.placements) if p.is_shard(at)]
+        ranks = 1
+        for i in split:
+            ranks *= mesh.size(i)
+        if shape[at] % ranks:
+            x = x.redistribute(mesh, [Replicate() if i in split else p
+                                      for i, p in enumerate(x.placements)])
+    return x.view(*shape)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -35,7 +65,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4) -> torch.
     half = d // 2
     freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
                                           device=x.device) / half))
-    ang = positions.float()[..., None] * freqs            # (..., S, half)
+    ang = like(positions, x).float()[..., None] * like(freqs, x)   # (..., S, half)
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
@@ -50,6 +80,23 @@ def mea_attention(q, k, v, *, causal: bool = True, window: int = 0,
     flash wrapper contiguous (B, H, S, d) tensors.  ``q_offset`` must be 0:
     no path of the reference passes another (``forward`` and ``prefill``
     start at position 0)."""
+    if isinstance(q, DTensor) and any(k.shape[1] % n for n in q.device_mesh.shape):
+        # on a mesh whose axes do not divide the kv heads the kernel cannot
+        # run on head shards (its sharding rule): give every q head its own
+        # kv head, so the heads shard as the q heads do.  The repeat runs on
+        # whole heads, and the closing no-op redistribute hands its
+        # gradient back whole too (a head-sharded one cannot be folded into
+        # fewer heads than ranks)
+        b, hkv, skv, d = k.shape
+        g = q.shape[1] // hkv
+
+        def repeat(t):
+            mesh = t.device_mesh
+            whole = [Replicate() if p.is_shard(1) else p for p in t.placements]
+            t = t.redistribute(mesh, whole)[:, :, None].expand(b, hkv, g, skv, d)
+            t = t.reshape(b, hkv * g, skv, d)
+            return t.redistribute(mesh, t.placements)
+        k, v = repeat(k), repeat(v)
     return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                            causal=causal, window=window, q_offset=q_offset,
                            scale=scale)
@@ -65,7 +112,7 @@ def decode_attention(q, k_cache, v_cache, *, pos, window: int = 0,
     b, hq, d = q.shape
     hkv, s = k_cache.shape[1], k_cache.shape[2]
     scale = float(scale if scale is not None else 1.0 / (d ** 0.5))
-    qg = q.reshape(b, hkv, hq // hkv, d).float()
+    qg = heads(q.contiguous(), b, hkv, hq // hkv, d, dim=1).float()
     sc = torch.matmul(qg, k_cache.float().transpose(-1, -2)) * scale
     k_pos = torch.arange(s, device=q.device)
     pos = pos.to(torch.int64)

@@ -33,25 +33,44 @@ against the cache (``layers.decode_attention``), advances the SSM state
 (``moe.moe_ffn_dense``): torch ops, as the reference's are XLA with no
 Pallas original.  ``prefill`` and ``decode_step`` run under ``no_grad``; the
 decode cache is written in place, so its tensors keep their storage from
-step to step.  The reference's ``scan`` and ``shard_hints`` are JAX/TPU
-machinery with no counterpart on one card.
+step to step.  The reference's ``scan`` is JAX machinery with no
+counterpart: the layers run in a Python loop.
+
+The model runs on a device mesh too: with its parameters DTensors
+(``train.sharding.shard_model``), every op is DTensor's, the flash and GLA
+kernels run on each rank's shard (their sharding rules), the MoE FFN runs on
+replicas of its inputs, and the decode cache is made and written as DTensors
+(``train.sharding.cache_pspecs``).  ``shard_hints`` is the reference's
+counterpart: with it set (``dp``, ``tp``, ``dp_ok``, ``sp``), the hidden
+states at block boundaries and the logits are redistributed to the
+reference's placements (``_c``: ``hidden3`` (dp, sp, None), ``hidden2``
+(dp, None), ``logits3`` (dp, sp, tp or None), ``logits2`` (dp, tp)), and each
+norm's output, the projections' input, to (dp, None, ...), whole over the
+model axis (what GSPMD works out for the reference; DTensor would compute
+the projections whole on every model rank).  With plain parameters and
+``shard_hints`` None every op is what it was.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import contextlib
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed import tensor as dtensor
+from torch._subclasses.fake_tensor import maybe_get_fake_mode
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (decode_attention, mea_attention,
+from repro_torch.models.layers import (decode_attention, heads, like, mea_attention,
                                        mlp_block, rms_norm, rope)
 from repro_torch.models.linear_attn import gla_chunked, gla_decode_step
 from repro_torch.models.moe import moe_ffn, moe_ffn_dense
+from repro_torch.train import sharding
 
 VOCAB_PAD = 128
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
@@ -136,6 +155,10 @@ class Model(nn.Module):
             raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}; the port runs "
                              f"{FAMILIES}")
         self.cfg = cfg
+        # activation placements on a mesh (the reference's shard_hints): None,
+        # or {"dp": data axes, "tp": model axis, "dp_ok": batch divisible by
+        # dp, "sp": sequence-parallel residual stream}
+        self.shard_hints: Optional[Dict[str, Any]] = None
         dev = resolve_device(device)
         dt = _dt(cfg)
 
@@ -155,6 +178,69 @@ class Model(nn.Module):
                 {name: empty(cfg.encoder_layers, *shp)
                  for name, shp in sorted(layer_shapes(cfg, cross=False).items())})
             self.enc_norm = empty(cfg.d_model)
+
+    def _c(self, x, kind: str):
+        """x redistributed to the placements ``shard_hints`` give ``kind``
+        (the reference's ``_c``); x itself without hints or off a mesh."""
+        h = self.shard_hints
+        if not h or not isinstance(x, DTensor):
+            return x
+        dp = h.get("dp") if h.get("dp_ok", True) else None
+        tp = h.get("tp")
+        # sequence-parallel TP: the residual stream between blocks sharded
+        # over the model axis along the sequence
+        sp = tp if h.get("sp") else None
+        spec = {"hidden3": (dp, sp, None),              # (B, S, D)
+                "hidden2": (dp, None),                  # (B, D)
+                "logits3": (dp, sp, tp if not sp else None),  # (B, S, V)
+                "logits2": (dp, tp),                    # (B, V)
+                # a norm's output, the input of the projections: whole over
+                # the model axis, so each rank computes its slice of their
+                # outputs (DTensor's cost model weighs bytes moved, not
+                # FLOPs, and would keep a partial sum here and compute every
+                # projection whole on every model rank)
+                "norm3": (dp, None, None),
+                "norm2": (dp, None)}[kind]
+        mesh = x.device_mesh
+        return x.redistribute(mesh, sharding.placements(spec, mesh))
+
+    def _lookup(self, tokens):
+        """The tokens' embedding rows.  On a mesh each rank gathers from its
+        own columns of the table for its own tokens (no DTensor op: a
+        gather's gradient, an indexed accumulate, has no usable sharding
+        rule), and declares the table's gradient a partial sum over the
+        mesh dims that split the tokens."""
+        if not isinstance(self.embed, DTensor):
+            return self.embed[tokens.long()]
+        mesh = self.embed.device_mesh
+        rows, cols = tokens.placements, self.embed.placements
+        if any(r.is_shard() and c.is_shard() for r, c in zip(rows, cols)):
+            raise ValueError(f"tokens {rows} and embedding {cols} split one mesh dim")
+        out = [Shard(0) if r.is_shard() else Shard(tokens.ndim) if c.is_shard() else Replicate()
+               for r, c in zip(rows, cols)]
+        grad = [Partial() if r.is_shard() else c for r, c in zip(rows, cols)]
+        local = self.embed.to_local(grad_placements=grad)[tokens.to_local().long()]
+        return DTensor.from_local(local, mesh, out, run_check=False)
+
+    def _norm(self, x, weight, kind: str):
+        """``rms_norm`` of x, placed as ``kind`` on a mesh with hints."""
+        return self._c(rms_norm(x, weight, self.cfg.norm_eps), kind)
+
+    @contextlib.contextmanager
+    def _mesh_inference(self):
+        """For the no-grad passes on a mesh: plain tensors (positions, slots,
+        masks; the same on every rank) read as replicated DTensors.  The
+        flag is saved and restored, so passes nest."""
+        if not isinstance(self.embed, DTensor):
+            yield
+            return
+        dispatcher = DTensor._op_dispatcher
+        before = dispatcher._allow_implicit_replication
+        dispatcher._allow_implicit_replication = True
+        try:
+            yield
+        finally:
+            dispatcher._allow_implicit_replication = before
 
     def _stacks(self):
         """The stacked layer parameter dicts: the decoder's, then the
@@ -207,9 +293,9 @@ class Model(nn.Module):
         """q (B, H, S, hd), k and v (B, Hkv, S, hd) of ``h``, before RoPE."""
         cfg = self.cfg
         b, s, _ = h.shape
-        q = (h @ p["wq"]).view(b, s, cfg.num_heads, cfg.head_dim)
-        k = (h @ p["wk"]).view(b, s, cfg.num_kv_heads, cfg.head_dim)
-        v = (h @ p["wv"]).view(b, s, cfg.num_kv_heads, cfg.head_dim)
+        q = heads(h @ p["wq"], b, s, cfg.num_heads, cfg.head_dim)
+        k = heads(h @ p["wk"], b, s, cfg.num_kv_heads, cfg.head_dim)
+        v = heads(h @ p["wv"], b, s, cfg.num_kv_heads, cfg.head_dim)
         return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
     def _attn_branch(self, p, h, *, window: int):
@@ -230,8 +316,8 @@ class Model(nn.Module):
         enc_seq, D): (B, Hkv, enc_seq, hd) each, no RoPE."""
         cfg = self.cfg
         b, se, _ = enc.shape
-        ek = (enc @ p["xwk"]).view(b, se, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
-        ev = (enc @ p["xwv"]).view(b, se, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
+        ek = heads(enc @ p["xwk"], b, se, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
+        ev = heads(enc @ p["xwv"], b, se, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
         return ek, ev
 
     def _cross_branch(self, p, x, enc_kv):
@@ -239,8 +325,8 @@ class Model(nn.Module):
         over the encoded sequence's keys and values: Sq != Skv."""
         cfg = self.cfg
         b, s, _ = x.shape
-        h = rms_norm(x, p["ln_x"], cfg.norm_eps)
-        q = (h @ p["xwq"]).view(b, s, cfg.num_heads, cfg.head_dim).transpose(1, 2)
+        h = self._norm(x, p["ln_x"], "norm3")
+        q = heads(h @ p["xwq"], b, s, cfg.num_heads, cfg.head_dim).transpose(1, 2)
         o = mea_attention(q, *enc_kv, causal=False)
         return o.transpose(1, 2).reshape(b, s, cfg.q_dim) @ p["xwo"]
 
@@ -249,12 +335,12 @@ class Model(nn.Module):
         frames, then the MLP (the reference's ``_encoder_block``)."""
         cfg = self.cfg
         b, s, _ = x.shape
-        q, k, v = self._attention(p, rms_norm(x, p["ln1"], cfg.norm_eps))
+        q, k, v = self._attention(p, self._norm(x, p["ln1"], "norm3"))
         pos = torch.arange(s, device=x.device)
         q, k = rope(q, pos, cfg.rope_theta), rope(k, pos, cfg.rope_theta)
         o = mea_attention(q, k, v, causal=False)
         x = x + o.transpose(1, 2).reshape(b, s, cfg.q_dim) @ p["wo"]
-        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        h = self._norm(x, p["ln2"], "norm3")
         return x + mlp_block(h, p["w1"], p["w2"], p["w3"], cfg.mlp)
 
     def _ssm_branch(self, p, h):
@@ -262,12 +348,12 @@ class Model(nn.Module):
         cfg = self.cfg
         b, s, _ = h.shape
         nh, dk, dv = cfg.num_ssm_heads, cfg.ssm_state, _ssm_dv(cfg)
-        q = (h @ p["s_wq"]).view(b, s, nh, dk).transpose(1, 2)
-        k = (h @ p["s_wk"]).view(b, s, nh, dk).transpose(1, 2)
-        v = (h @ p["s_wv"]).view(b, s, nh, dv).transpose(1, 2)
+        q = heads(h @ p["s_wq"], b, s, nh, dk).transpose(1, 2)
+        k = heads(h @ p["s_wk"], b, s, nh, dk).transpose(1, 2)
+        v = heads(h @ p["s_wv"], b, s, nh, dv).transpose(1, 2)
         # data-dependent log-decay (RWKV6-style): -softplus(xW + b)
         g = -F.softplus((h @ p["s_wg"]) + p["s_gbias"])
-        g = g.view(b, s, nh, dk).transpose(1, 2)
+        g = heads(g, b, s, nh, dk).transpose(1, 2)
         o, state = gla_chunked(q, k, v, g)
         o = o.transpose(1, 2).reshape(b, s, nh * dv)
         return o @ p["s_wo"], state
@@ -277,7 +363,7 @@ class Model(nn.Module):
         with ``moe_dense_train`` and ``moe_chunk`` token chunks (the aux
         loss averaged over chunks)."""
         cfg = self.cfg
-        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        h = self._norm(x, p["ln2"], "norm3")
         if not cfg.is_moe:
             return mlp_block(h, p["w1"], p["w2"], p["w3"], cfg.mlp), None
         b, s, d = h.shape
@@ -302,7 +388,7 @@ class Model(nn.Module):
         cfg = self.cfg
         kv = state = None
         # both branches of a hybrid layer read the same ln1 norm
-        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        h = self._norm(x, p["ln1"], "norm3")
         if cfg.family == "hybrid":
             a, kv = self._attn_branch(p, h, window=cfg.sliding_window)
             sso, state = self._ssm_branch(p, h)
@@ -322,7 +408,7 @@ class Model(nn.Module):
 
     def _train_block(self, p, x, enc=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         x, _, _, aux, _ = self._decoder_block(p, x, enc)
-        return x, aux
+        return self._c(x, "hidden3"), aux
 
     def _blocks(self, ps, x, aux_total, enc, remat: bool):
         """x and the aux sum through the decoder layers ``ps`` in order, each
@@ -341,7 +427,9 @@ class Model(nn.Module):
         VLM's patch embeddings; an encoder-decoder's frames through the
         encoder stack (per-block remat as the decoder's) and ``enc_norm``."""
         cfg = self.cfg
-        x = self.embed[batch["tokens"].long()]
+        if isinstance(self.embed, DTensor):
+            batch = sharding.place_batch(batch, self.embed.device_mesh)
+        x = self._lookup(batch["tokens"])
         if cfg.family == "vlm":
             x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
         if cfg.family != "encdec":
@@ -351,7 +439,7 @@ class Model(nn.Module):
         for p in self._per_layer(self.enc_layers):
             enc = (checkpoint(self._encoder_block, p, enc, use_reentrant=False) if remat
                    else self._encoder_block(p, enc))
-        return x, rms_norm(enc, self.enc_norm, cfg.norm_eps)
+        return x, self._norm(enc, self.enc_norm, "norm3")
 
     # ------------------------------------------------------------ full pass
     def forward(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -365,7 +453,8 @@ class Model(nn.Module):
         divides L."""
         cfg = self.cfg
         x, enc = self._embed_inputs(batch)
-        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux_total = like(torch.zeros((), dtype=torch.float32, device=x.device), x)
+        x = self._c(x, "hidden3")
         grad = torch.is_grad_enabled()
         remat = cfg.remat and grad
         layers = self._per_layer()
@@ -377,18 +466,29 @@ class Model(nn.Module):
                                           enc, remat, use_reentrant=False)
         else:
             x, aux_total = self._blocks(layers, x, aux_total, enc, remat)
-        x = rms_norm(x, self.final_norm, cfg.norm_eps)
-        return x @ self.head, aux_total
+        x = self._norm(x, self.final_norm, "norm3")
+        return self._c(x @ self.head, "logits3"), aux_total
 
     # --------------------------------------------------------------- serving
     def cache_spec(self, batch: int, cache_len: int):
         return cache_spec(self.cfg, batch, cache_len)
 
     def init_cache(self, batch: int, cache_len: int) -> Dict[str, torch.Tensor]:
-        """A zeroed decode cache on the model's device (see :func:`cache_spec`)."""
+        """A zeroed decode cache on the model's device (see :func:`cache_spec`);
+        on a mesh, DTensors placed by ``sharding.cache_pspecs``."""
+        spec = self.cache_spec(batch, cache_len)
+        if isinstance(self.embed, DTensor):
+            mesh = self.embed.device_mesh
+            specs = sharding.cache_pspecs({n: shape for n, (shape, _) in spec.items()}, mesh)
+            # fake parameters (a dry run's trace) get a fake cache
+            fake = maybe_get_fake_mode(self.embed.to_local())
+            with fake if fake is not None else contextlib.nullcontext():
+                return {n: dtensor.zeros(shape, dtype=dt, device_mesh=mesh,
+                                         placements=sharding.placements(specs[n], mesh))
+                        for n, (shape, dt) in spec.items()}
         dev = self.embed.device
         return {name: torch.zeros(shape, dtype=dt, device=dev)
-                for name, (shape, dt) in self.cache_spec(batch, cache_len).items()}
+                for name, (shape, dt) in spec.items()}
 
     @torch.no_grad()
     def prefill(self, batch: Dict[str, torch.Tensor],
@@ -401,6 +501,10 @@ class Model(nn.Module):
         ``cross_v``.  A cache shorter than N keeps the last keys, rolled by
         S (the reference's roll) so that in a ring position p lives in slot
         p % ring."""
+        with self._mesh_inference():
+            return self._prefill(batch, cache_len)
+
+    def _prefill(self, batch, cache_len):
         cfg = self.cfg
         tokens = batch["tokens"]
         b, s = tokens.shape
@@ -410,10 +514,17 @@ class Model(nn.Module):
         cache["pos"].fill_(n)
         for i, p in enumerate(self._per_layer()):
             x, kv, state, _, enc_kv = self._decoder_block(p, x, enc)
+            x = self._c(x, "hidden3")
             if kv is not None:
                 store = cache["k"].shape[3]
                 for name, t in zip(("k", "v"), kv):
-                    if n <= store:
+                    if n <= store and isinstance(t, DTensor):
+                        # a slice of a sequence-sharded cache takes no
+                        # in-place write: write the whole layer, zero-padded
+                        zero = torch.zeros((), dtype=t.dtype, device=t.device)
+                        pad = like(zero, t).expand(*t.shape[:2], store - n, t.shape[3])
+                        cache[name][i].copy_(torch.cat([t, pad], dim=2))
+                    elif n <= store:
                         cache[name][i, :, :, :n] = t
                     else:
                         cache[name][i] = torch.roll(t[:, :, -store:], s % store, dims=2)
@@ -421,8 +532,8 @@ class Model(nn.Module):
                 cache["ssm"][i] = state
             if enc_kv is not None:
                 cache["cross_k"][i], cache["cross_v"][i] = enc_kv
-        x = rms_norm(x[:, -1, :], self.final_norm, cfg.norm_eps)
-        return x @ self.head, cache
+        x = self._norm(x[:, -1, :], self.final_norm, "norm2")
+        return self._c(x @ self.head, "logits2"), cache
 
     @torch.no_grad()
     def decode_step(self, cache: Dict[str, torch.Tensor],
@@ -437,9 +548,15 @@ class Model(nn.Module):
         it, so past the end the last slot is overwritten and every slot is
         seen.  An encoder-decoder's token then attends to the whole
         encoded sequence in ``cross_k`` / ``cross_v``."""
+        with self._mesh_inference():
+            return self._decode_step(cache, token)
+
+    def _decode_step(self, cache, token):
         cfg = self.cfg
         pos = cache["pos"]
-        x = self.embed[token.long()]                           # (B, D)
+        if isinstance(self.embed, DTensor):
+            token = sharding.place_batch({"token": token}, self.embed.device_mesh)["token"]
+        x = self._lookup(token)                                # (B, D)
         b = x.shape[0]
         if cfg.has_attention:
             store = cache["k"].shape[3]
@@ -453,25 +570,33 @@ class Model(nn.Module):
         if cfg.family == "encdec":                             # every encoded frame
             enc_pos = torch.full((b,), cfg.enc_seq - 1, dtype=torch.int32, device=x.device)
         for i, p in enumerate(self._per_layer()):
-            hn = rms_norm(x, p["ln1"], cfg.norm_eps)
+            hn = self._norm(x, p["ln1"], "norm2")
             attn_out = ssm_out = None
             if cfg.has_attention:
-                q = (hn @ p["wq"]).view(b, cfg.num_heads, cfg.head_dim)
-                k = (hn @ p["wk"]).view(b, cfg.num_kv_heads, cfg.head_dim)
-                v = (hn @ p["wv"]).view(b, cfg.num_kv_heads, cfg.head_dim)
+                q = heads(hn @ p["wq"], b, cfg.num_heads, cfg.head_dim)
+                k = heads(hn @ p["wk"], b, cfg.num_kv_heads, cfg.head_dim)
+                v = heads(hn @ p["wv"], b, cfg.num_kv_heads, cfg.head_dim)
                 q = rope(q[:, :, None, :], posv, cfg.rope_theta)[:, :, 0, :]
                 k = rope(k[:, :, None, :], posv, cfg.rope_theta)[:, :, 0, :]
                 kc, vc = cache["k"][i], cache["v"][i]
-                kc[rows, :, slot] = k
-                vc[rows, :, slot] = v
+                if isinstance(kc, DTensor):
+                    # a sharded cache takes no indexed write: select each
+                    # row's slot over the whole layer
+                    hit = (torch.arange(store, device=x.device)[None, :] == slot[:, None])
+                    hit = hit[:, None, :, None]
+                    kc.copy_(torch.where(hit, k[:, :, None, :], kc))
+                    vc.copy_(torch.where(hit, v[:, :, None, :], vc))
+                else:
+                    kc[rows, :, slot] = k
+                    vc[rows, :, slot] = v
                 o = decode_attention(q, kc, vc, pos=seen, window=0)
                 attn_out = o.reshape(b, cfg.q_dim) @ p["wo"]
             if cfg.has_ssm:
                 nh, dk, dv = cfg.num_ssm_heads, cfg.ssm_state, _ssm_dv(cfg)
-                sq = (hn @ p["s_wq"]).view(b, nh, dk)
-                sk = (hn @ p["s_wk"]).view(b, nh, dk)
-                sv = (hn @ p["s_wv"]).view(b, nh, dv)
-                sg = -F.softplus((hn @ p["s_wg"]) + p["s_gbias"]).view(b, nh, dk)
+                sq = heads(hn @ p["s_wq"], b, nh, dk)
+                sk = heads(hn @ p["s_wk"], b, nh, dk)
+                sv = heads(hn @ p["s_wv"], b, nh, dv)
+                sg = heads(-F.softplus((hn @ p["s_wg"]) + p["s_gbias"]), b, nh, dk)
                 so, state = gla_decode_step(sq, sk, sv, sg, cache["ssm"][i])
                 cache["ssm"][i] = state
                 ssm_out = so.reshape(b, nh * dv) @ p["s_wo"]
@@ -482,19 +607,19 @@ class Model(nn.Module):
             else:
                 x = x + attn_out
             if cfg.family == "encdec":
-                hx = rms_norm(x, p["ln_x"], cfg.norm_eps)
-                q = (hx @ p["xwq"]).view(b, cfg.num_heads, cfg.head_dim)
+                hx = self._norm(x, p["ln_x"], "norm2")
+                q = heads(hx @ p["xwq"], b, cfg.num_heads, cfg.head_dim)
                 xk, xv = cache["cross_k"][i], cache["cross_v"][i]
                 o = decode_attention(q, xk, xv, pos=enc_pos, window=0)
                 x = x + o.reshape(b, cfg.q_dim) @ p["xwo"]
-            hf = rms_norm(x, p["ln2"], cfg.norm_eps)
+            hf = self._norm(x, p["ln2"], "norm2")
             if cfg.is_moe:
                 # dropless dense combine: exact routing, no sort or scatter
                 y = moe_ffn_dense(hf, p["router"], p["e_w1"], p["e_w3"],
                                   p["e_w2"], top_k=cfg.top_k, mlp_kind=cfg.mlp)
             else:
                 y = mlp_block(hf, p["w1"], p["w2"], p["w3"], cfg.mlp)
-            x = x + y
+            x = self._c(x + y, "hidden2")
         pos.add_(1)
-        x = rms_norm(x, self.final_norm, cfg.norm_eps)
-        return x @ self.head, cache
+        x = self._norm(x, self.final_norm, "norm2")
+        return self._c(x @ self.head, "logits2"), cache

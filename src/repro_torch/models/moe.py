@@ -7,9 +7,9 @@
   1. route: top-k softmax gates per token;
   2. sort the (token, expert-slot) pairs by expert id, stably;
   3. each pair's position within its expert from a cumulative count;
-  4. copy the kept pairs' activations into an (E * capacity, D) buffer (a
-     pair past its expert's capacity is dropped: the dropped slot
-     ``E * capacity`` reads zeros);
+  4. copy the pairs' activations into an (E * capacity + 1, D) buffer (a
+     pair past its expert's capacity is dropped into the last row, which
+     the FFN never reads, and its output reads zeros there);
   5. the expert FFNs as batched products over the expert axis;
   6. gather back, scale by the gates and combine.
 
@@ -22,14 +22,23 @@ card add in no repeatable order.
 
 ``moe_ffn_dense`` is the dropless decode route: every expert on every token,
 combined with the sparse top-k gates.
+
+On a device mesh (DTensor inputs) both run on replicas: the tokens and the
+expert weights are gathered onto every rank, each rank routes and computes
+all of them as one card would (so capacities, drops and sums are the
+unsharded run's), and the output goes back to the tokens' placements.  The
+dispatch's sorts, counts and indexed copies have no DTensor sharding rule;
+expert parallelism over the mesh is later work.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 
 def _act(h: torch.Tensor, mlp_kind: str) -> torch.Tensor:
@@ -46,6 +55,29 @@ def _route(x, router_w, top_k: int):
     return probs, gate_vals, expert_idx
 
 
+def _on_replicas(fn):
+    """``fn`` on plain full tensors when its inputs are DTensors: each
+    DTensor argument replicated over its mesh, every tensor result back as a
+    DTensor, the first on x's placements and the rest replicated."""
+    @functools.wraps(fn)
+    def run(x, *args, **kwargs):
+        if not isinstance(x, DTensor):
+            return fn(x, *args, **kwargs)
+        mesh, placed = x.device_mesh, x.placements
+        rep = [Replicate()] * mesh.ndim
+        full = [a.redistribute(mesh, rep).to_local() if isinstance(a, DTensor) else a
+                for a in (x, *args)]
+        out = fn(*full, **kwargs)
+        outs = out if isinstance(out, tuple) else (out,)
+        back = [DTensor.from_local(o, mesh, rep, run_check=False) for o in outs]
+        # a partial sum can be reduced but not made: x's partial dims stay replicated
+        back[0] = back[0].redistribute(mesh, [Replicate() if p.is_partial() else p
+                                              for p in placed])
+        return tuple(back) if isinstance(out, tuple) else back[0]
+    return run
+
+
+@_on_replicas
 def moe_ffn(x, router_w, w1, w3, w2, *, top_k: int, capacity_factor: float,
             mlp_kind: str = "swiglu") -> Tuple[torch.Tensor, torch.Tensor]:
     """x (T, D); router_w (D, E); w1, w3 (E, D, F); w2 (E, F, D).  Returns
@@ -56,7 +88,10 @@ def moe_ffn(x, router_w, w1, w3, w2, *, top_k: int, capacity_factor: float,
 
     # Switch aux loss: E * sum_e f_e * p_e
     flat_expert = expert_idx.reshape(-1)                            # (T*K,)
-    counts = torch.bincount(flat_expert, minlength=e)
+    # counts by a fixed-size scatter (exact integers): every shape of the
+    # dispatch is known before its data, as a fake-tensor trace needs
+    counts = torch.zeros(e, dtype=torch.int64, device=x.device).scatter_add_(
+        0, flat_expert, torch.ones_like(flat_expert))
     aux = e * torch.sum(probs.mean(dim=0) * (counts.float() / (t * top_k)))
 
     capacity = max(int(t * top_k * capacity_factor / e), top_k)
@@ -71,7 +106,7 @@ def moe_ffn(x, router_w, w1, w3, w2, *, top_k: int, capacity_factor: float,
                        torch.full_like(se, e * capacity))
 
     buf = torch.zeros(e * capacity + 1, d, dtype=x.dtype, device=x.device)
-    buf[dest[keep]] = x[st_tok[keep]]
+    buf[dest] = x[st_tok]          # dropped pairs all land in the discarded last row
     buf = buf[:-1].view(e, capacity, d)
     act = _act(torch.bmm(buf, w1), mlp_kind) * torch.bmm(buf, w3)
     out_buf = torch.bmm(act, w2).view(e * capacity, d)
@@ -87,6 +122,7 @@ def moe_ffn(x, router_w, w1, w3, w2, *, top_k: int, capacity_factor: float,
     return y, aux
 
 
+@_on_replicas
 def moe_ffn_dense(x, router_w, w1, w3, w2, *, top_k: int,
                   mlp_kind: str = "swiglu") -> torch.Tensor:
     """Dropless decode route: every expert on every token, combined with the

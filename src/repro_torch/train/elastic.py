@@ -1,20 +1,26 @@
 """Elastic scaling and straggler mitigation of the port: the reference's
-``train/elastic.py`` without ``make_mesh``.
+``train/elastic.py``.
 
 ``plan_mesh`` chooses the largest healthy (data, model) mesh for the
 surviving devices: the tensor-parallel degree is kept, the data extent
-shrinks to what remains.  ``StragglerWatchdog`` is the step-time monitor: an
-EWMA of step latency with a multiplicative threshold; slow steps are recorded
-and surfaced so the launcher can trigger a re-mesh.  Both are pure logic.
-The reference's ``make_mesh`` builds a ``jax.sharding.Mesh``; its port (a
-``torch.distributed`` device mesh) comes with the port's sharding (ROADMAP).
+shrinks to what remains.  ``make_mesh`` builds that plan's ``DeviceMesh``
+over the default process group's ranks.  After a failure: plan_mesh(the
+surviving count), make_mesh, ``checkpoint.restore(..., shardings=...)`` with
+``sharding.params_shardings`` on the new mesh, and resume from the
+manifest's step.  ``StragglerWatchdog`` is the step-time monitor: an EWMA of
+step latency with a multiplicative threshold; slow steps are recorded and
+surfaced so the launcher can trigger a re-mesh.  Both are pure logic.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +51,23 @@ def plan_mesh(num_devices: int, *, tp: int = 16, per_replica_batch: int = 8,
     return MeshPlan(shape=(data, tp), axis_names=("data", "model"),
                     devices_used=data * tp, data_parallel=data,
                     global_batch=data * per_replica_batch)
+
+
+def make_mesh(plan: MeshPlan, devices: Optional[Sequence[int]] = None, *,
+              device_type: str = "cuda") -> DeviceMesh:
+    """The plan's ``DeviceMesh``: ``plan.shape`` with ``plan.axis_names``
+    over ``devices`` (ranks of the default process group; the first
+    ``plan.devices_used`` of its world by default).  Raises when the world
+    holds fewer ranks than the plan uses."""
+    world = dist.get_world_size() if dist.is_initialized() else 0
+    if world < plan.devices_used:
+        raise ValueError(f"the plan uses {plan.devices_used} devices; the default process "
+                         f"group has {world}")
+    ranks = list(devices if devices is not None else range(world))[: plan.devices_used]
+    if len(ranks) < plan.devices_used:
+        raise ValueError(f"the plan uses {plan.devices_used} devices; {len(ranks)} given")
+    return DeviceMesh(device_type, torch.tensor(ranks).reshape(plan.shape),
+                      mesh_dim_names=plan.axis_names)
 
 
 class StragglerWatchdog:

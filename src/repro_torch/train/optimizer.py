@@ -13,6 +13,13 @@ device.  Unlike the reference's pure update, :func:`adamw_update` writes the
 parameters and both moments in place (each op rounds as the reference's
 does), so a full-width step holds one copy of the 3 x 4 bytes per parameter
 the moments and their update need, not two.
+
+DTensor parameters (a device mesh) take the same code: the moments mirror
+each parameter's placements (the reference's ``_state_shardings``), the step
+is a replicated 0-d DTensor, each gradient is first placed as its parameter
+(a reduce-scatter or all-reduce of a partial sum), the global norm reduces
+every leaf's sum of squares over the whole mesh, and the in-place update
+writes each rank's local shards.
 """
 
 from __future__ import annotations
@@ -22,6 +29,9 @@ import math
 from typing import Dict, NamedTuple, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
+
+from repro_torch.models.layers import like
 
 Tree = Dict[str, torch.Tensor]
 
@@ -46,10 +56,10 @@ class OptState(NamedTuple):
 
 
 def init_opt_state(params: Tree) -> OptState:
-    f32 = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-    dev = next(iter(params.values())).device
-    return OptState(step=torch.zeros((), dtype=torch.int32, device=dev),
-                    mu={n: f32(p) for n, p in params.items()},
+    f32 = lambda p: torch.zeros_like(p, dtype=torch.float32)
+    first = next(iter(params.values()))
+    step = like(torch.zeros((), dtype=torch.int32, device=first.device), first)
+    return OptState(step=step, mu={n: f32(p) for n, p in params.items()},
                     nu={n: f32(p) for n, p in params.items()})
 
 
@@ -64,9 +74,17 @@ def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
 
 
+def replicated(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor reduced or gathered onto every rank; a plain tensor as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
+
+
 def global_norm(tree: Tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's f32 sum of squares."""
-    sums = [torch.sum(torch.square(g.float())) for g in tree.values()]
+    """sqrt of the sum over leaves of each leaf's f32 sum of squares (each
+    DTensor leaf's summed over the whole mesh)."""
+    sums = [replicated(torch.sum(torch.square(g.float()))) for g in tree.values()]
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
@@ -75,6 +93,8 @@ def adamw_update(cfg: AdamWConfig, params: Tree, grads: Tree,
                  state: OptState) -> Tuple[Tree, OptState, Dict[str, torch.Tensor]]:
     """Returns (params, new state, metrics {grad_norm, lr}): ``params`` and
     the moments of ``state`` are updated in place and returned."""
+    grads = {n: g.redistribute(params[n].device_mesh, params[n].placements)
+             if isinstance(g, DTensor) else g for n, g in grads.items()}
     gnorm = global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = state.step + 1

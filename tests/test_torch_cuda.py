@@ -1128,6 +1128,133 @@ def test_flash_attention_backward_first_in_its_process_on_the_card(cuda):
     assert done.stdout.split() == ["1", "True"], done.stdout
 
 
+_FIRST_FORWARD_ON_A_NEW_THREAD = """
+import threading
+import torch
+from repro_torch.kernels.flash_attn import flash_attention
+g = torch.Generator(device="cuda").manual_seed(0)
+q, k, v = (torch.randn((1, 4, 130, 64), generator=g, device="cuda").bfloat16()
+           for _ in range(3))
+torch.cuda.synchronize()
+got = {}
+
+def forward():
+    with torch.no_grad():
+        got["o"] = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+
+t = threading.Thread(target=forward)
+t.start()
+t.join()
+with torch.no_grad():
+    want = flash_attention(q, k, v, causal=True)
+torch.cuda.synchronize()
+print(flash_attention.launches, torch.equal(got["o"], want), bool(want.isfinite().all()))
+"""
+
+
+def test_flash_attention_forward_first_on_its_thread_on_the_card(cuda):
+    """A bf16 forward as the first CUDA work of a new thread (no current
+    context there yet) launches, and gives bitwise the main thread's
+    output: the launch's runtime call precedes its tensor-map encoding."""
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+    env = {**os.environ, "PYTHONPATH": src + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    done = subprocess.run([sys.executable, "-c", _FIRST_FORWARD_ON_A_NEW_THREAD],
+                          env=env, capture_output=True, text=True, timeout=600)
+    assert done.returncode == 0, done.stderr[-2000:]
+    assert done.stdout.split() == ["2", "True", "True"], done.stdout
+
+
+# (B, Hq, Hkv, S, d, dtype): one bf16 width on the tensor cores, one f32
+CUSTOM_OP_FLASH = [(2, 4, 2, 130, 64, torch.bfloat16), (2, 4, 2, 70, 16, torch.float32)]
+
+
+@pytest.mark.parametrize("case", CUSTOM_OP_FLASH, ids=lambda c: str(c[-1])[6:])
+def test_flash_custom_ops_launch_the_kernels_as_their_launchers(cuda, case):
+    """Through the custom operators (forward, registered backward) the
+    card runs exactly what the launchers ``ops._forward`` / ``ops._backward``
+    run: bitwise outputs and gradients, one launch each counted."""
+    from repro_torch.kernels.flash_attn import flash_attention, ops
+    b, hq, hkv, s, d, dtype = case
+    rng = np.random.default_rng(d + s)
+    q = _normal(rng, (b, hq, s, d), cuda, dtype).requires_grad_()
+    k, v = (_normal(rng, (b, hkv, s, d), cuda, dtype).requires_grad_() for _ in range(2))
+    do = _normal(rng, (b, hq, s, d), cuda, dtype)
+    before = flash_attention.launches, flash_attention.bwd_launches
+    o = flash_attention(q, k, v, causal=True, window=0)
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches - before[0], flash_attention.bwd_launches - before[1]) == (1, 1)
+    scale = 1.0 / d ** 0.5
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    want_o, lse = ops._forward(qd, kd, vd, True, 0, scale, True)
+    want = ops._backward(qd, kd, vd, want_o, lse, do, True, 0, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(o.detach(), want_o)
+    assert all(torch.equal(g, w) for g, w in zip(grads, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bfloat16", "float32"])
+def test_gla_custom_ops_launch_the_kernels_as_their_launchers(cuda, dtype):
+    from repro_torch.kernels.gla_chunk import gla_chunked, ops
+    rng = np.random.default_rng(11)
+    q, k = (_normal(rng, (2, 3, 130, 16), cuda, dtype).requires_grad_() for _ in range(2))
+    v = _normal(rng, (2, 3, 130, 64), cuda, dtype).requires_grad_()
+    g = (-torch.from_numpy(rng.uniform(0.01, 2.0, (2, 3, 130, 16)).astype(np.float32))
+         ).to(cuda).to(dtype).requires_grad_()
+    do = _normal(rng, (2, 3, 130, 64), cuda, dtype)
+    before = gla_chunked.launches, gla_chunked.bwd_launches
+    o, state = gla_chunked(q, k, v, g)
+    grads = torch.autograd.grad(o, (q, k, v, g), do)
+    torch.cuda.synchronize()
+    assert (gla_chunked.launches - before[0], gla_chunked.bwd_launches - before[1]) == (1, 1)
+    det = [t.detach() for t in (q, k, v, g)]
+    want_o, want_state, states = ops._forward(*det)
+    want = ops._backward(*det, states, want_state, do, None)
+    torch.cuda.synchronize()
+    assert torch.equal(o.detach(), want_o) and torch.equal(state.detach(), want_state)
+    assert all(torch.equal(a, b) for a, b in zip(grads, want))
+
+
+def test_dtensor_calls_on_a_one_rank_nccl_mesh_are_the_plain_calls(cuda):
+    """Flash and GLA on DTensors of a (1, 1) NCCL mesh: the kernels launch on
+    the local tensors (counted), and outputs and gradients are bitwise the
+    plain tensors' calls."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.kernels.gla_chunk import gla_chunked
+    rng = np.random.default_rng(5)
+    q, k, v = (_normal(rng, (2, 4, 130, 64), cuda, torch.bfloat16) for _ in range(3))
+    gq, gk = (_normal(rng, (2, 3, 70, 16), cuda, torch.float32) for _ in range(2))
+    gv = _normal(rng, (2, 3, 70, 64), cuda, torch.float32)
+    gg = -torch.from_numpy(rng.uniform(0.01, 2.0, (2, 3, 70, 16)).astype(np.float32)).to(cuda)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        on = lambda t: DTensor.from_local(t.clone(), mesh, [Replicate(), Replicate()]
+                                          ).requires_grad_()
+        for fn, args in ((lambda *a: flash_attention(*a, causal=True), (q, k, v)),
+                         (lambda *a: gla_chunked(*a)[0], (gq, gk, gv, gg))):
+            plain = [t.clone().requires_grad_() for t in args]
+            want = fn(*plain)
+            want_grads = torch.autograd.grad(want, plain, torch.ones_like(want))
+            placed = [on(t) for t in args]
+            before = flash_attention.launches + gla_chunked.launches
+            got = fn(*placed)
+            grads = torch.autograd.grad(got, placed, torch.ones_like(got))
+            torch.cuda.synchronize()
+            assert flash_attention.launches + gla_chunked.launches - before == 1
+            assert isinstance(got, DTensor) and torch.equal(got.to_local(), want)
+            assert all(torch.equal(a.to_local(), b) for a, b in zip(grads, want_grads))
+    finally:
+        dist.destroy_process_group()
+
+
 def _check_flash_backward(cuda, b, hq, hkv, sq, skv, d, dtype, causal, window):
     from repro_torch.kernels.flash_attn import (flash_attention, flash_attention_bwd_ref,
                                                 flash_attention_lse_ref)

@@ -3,7 +3,7 @@ backward versions (``flash_attention_bwd_ref``, ``gla_chunked_bwd_ref``)
 against ``torch.autograd`` through the plain forwards and against
 ``jax.grad`` of the reference's XLA functions (``mea_attention``,
 ``gla_chunked_xla``, which its training differentiates), finite differences
-in f64 through the autograd Functions, and the model trained through them
+in f64 through the custom operators, and the model trained through them
 (remat and the per-layer views change no gradient)."""
 
 import jax
@@ -15,11 +15,11 @@ import torch
 from repro.models import layers as ref_layers
 from repro.models.linear_attn import gla_chunked_xla
 from repro_torch.configs import get_config
-from repro_torch.kernels.flash_attn import (FlashAttentionFn, flash_attention,
-                                            flash_attention_bwd_ref,
+from repro_torch.kernels.flash_attn import (flash_attention, flash_attention_bwd_ref,
                                             flash_attention_lse_ref)
-from repro_torch.kernels.gla_chunk import (GlaChunkedFn, gla_chunked, gla_chunked_bwd_ref,
-                                           gla_chunked_fwd_ref)
+from repro_torch.kernels.flash_attn.ops import flash_attention_fwd
+from repro_torch.kernels.gla_chunk import gla_chunked, gla_chunked_bwd_ref, gla_chunked_fwd_ref
+from repro_torch.kernels.gla_chunk.ops import gla_chunked_fwd
 from repro_torch.models import Model
 
 # (Hq, Hkv, S, causal, window): GQA 1 / 2 / 4, causal, windowed, non-causal,
@@ -191,21 +191,22 @@ def test_gla_decay_gradient_on_the_clamp_bounds_follows_jnp_clip():
 
 
 def test_autograd_functions_pass_f64_finite_differences():
-    """torch.autograd.gradcheck through both Functions on f64 CPU tensors
-    (the plain versions keep f64): windowed GQA flash; GLA over two chunks
-    with a ragged tail and decays past both bounds."""
+    """torch.autograd.gradcheck through both forward operators and their
+    registered backwards on f64 CPU tensors (the plain versions keep f64):
+    windowed GQA flash; GLA over two chunks with a ragged tail and decays
+    past both bounds."""
     rng = np.random.default_rng(3)
     t = lambda *s, lo=None: torch.from_numpy(
         rng.uniform(lo, 0.5, s) if lo is not None else rng.standard_normal(s)).requires_grad_()
     qkv = (t(1, 4, 9, 8), t(1, 2, 9, 8), t(1, 2, 9, 8))
     assert torch.autograd.gradcheck(
-        lambda q, k, v: FlashAttentionFn.apply(q, k, v, True, 3, 0.3, True), qkv)
+        lambda q, k, v: flash_attention_fwd(q, k, v, True, 3, 0.3, True)[0], qkv)
     gla = (t(1, 2, 70, 4), t(1, 2, 70, 4), t(1, 2, 70, 3), t(1, 2, 70, 4, lo=-10.0))
-    assert torch.autograd.gradcheck(lambda *x: GlaChunkedFn.apply(*x), gla)
+    assert torch.autograd.gradcheck(lambda *x: gla_chunked_fwd(*x)[:2], gla)
 
 
 def test_cpu_calls_count_no_launches():
-    """On the CPU the Functions take the plain versions: calls count, no
+    """On the CPU the operators take the plain versions: calls count, no
     forward or backward launch does."""
     before = (flash_attention.calls, flash_attention.launches, flash_attention.bwd_launches,
               gla_chunked.calls, gla_chunked.launches, gla_chunked.bwd_launches)
