@@ -61,7 +61,11 @@ Phases, each printing its own lines:
              Session.submit then one drain() on the default config (worker
              threads, shared pilots, batched finals, result cache).  Counters
              zeroed just before, read just after: both batched kernels must
-             have launched; 9 pilot stages; every answer bitwise equal to an
+             have launched; 9 pilot stages, the 8 Q6 windows' as ONE stacked
+             call (one filtered_agg_batched launch of 8 lanes, no solo
+             filtered_agg launch: filtered_agg_batched 2 a drain) and the
+             SUM/COUNT pilot solo, so 2 pilot host copies a drain (lanes per
+             stacked launch and copies printed); every answer bitwise equal to an
              equal-seed serial session's Session.sql on the card, and within
              5% of the exact answer (or carrying a fallback); a second drain
              serves all 12 from the result cache with no kernel launch.
@@ -93,8 +97,9 @@ Phases, each printing its own lines:
              torch.profiler (not of the approximate join), and for the join
              the pair tensor's bytes on the card and the host's peak RSS.  A grouped drain herd (4
              constant-varied WHERE l_shipdate < X GROUP BY l_returnflag):
-             one solo pilot per member, its finals take
-             gather_batched, and each answer is bitwise an equal-seed
+             its 4 pilots stacked into ONE segment_sum launch (slab route;
+             its input recorded and replayed with the others), its finals
+             take gather_batched, and each answer is bitwise an equal-seed
              serial session's Session.sql.  Each query prints its exact
              and approximate walls beside their device idle share.  Every
              segment_sum input of the first pass (first call per shape,
@@ -197,7 +202,8 @@ Phases, each printing its own lines:
              session (seed 42, telemetry on); 4 clients post phase 6's herd
              through submit and a fifth streams it through submit_streaming,
              one run().  Counters zeroed just before and read just after:
-             all four column kernels must launch; every answer bitwise an
+             block_agg and both batched kernels must launch and solo
+             filtered_agg must not (the Q6 pilots stack); every answer bitwise an
              equal-seed Session.sql's with the result cache off; each
              streamed ticket one pilot frame, then a final frame bitwise its
              answer; 9 pilots.  Then warm rounds (every ticket a result-cache
@@ -386,6 +392,7 @@ HERD = ([f"SELECT SUM(l_extendedprice * l_discount) AS revenue FROM lineitem "
          f"l_discount BETWEEN 0.02 AND 0.08" + GUARANTEE for i in range(8)]
         + [SUM_COUNT + f" ERROR {e}% CONFIDENCE 95%" for e in (5, 6, 7, 8)])
 HERD_PILOTS = 9                  # 8 Q6 constants + 1 shared SUM/COUNT pilot
+HERD_Q6 = 8                      # the Q6 windows, whose pilots stack into one call
 REPS = 5                         # timed repetitions of each drain mode
 # phase 8: the three gather-route queries of examples/aqp_analytics.py
 GATHER_QUERIES = {
@@ -782,11 +789,31 @@ def read_counters(wrappers):
     return {fn.__name__: fn.launches for fn in wrappers}
 
 
+def spy_pilots(ex):
+    """Record an executor's pilot dispatches: the solo ones (``execute_pilot``,
+    each a host crossing of its block sums and presence) and the stacked
+    ones (``execute_pilots_batched``: their lanes, one host copy each)."""
+    seen = {"solo": 0, "stacked": []}
+    solo, stacked = ex.execute_pilot, ex.execute_pilots_batched
+
+    def spy_solo(*a, **kw):
+        seen["solo"] += 1
+        return solo(*a, **kw)
+
+    def spy_stacked(plans, *a):
+        seen["stacked"].append(len(plans))
+        return stacked(plans, *a)
+
+    ex.execute_pilot, ex.execute_pilots_batched = spy_solo, spy_stacked
+    return seen
+
+
 def run_drain(torch, np, catalog, Session, SessionConfig, wrappers, recorder,
               smi):
     """Phase 6: the herd through submit + drain on the default config,
     against an equal-seed serial session on the card."""
     session = Session(catalog, seed=42)
+    pilots = spy_pilots(session.executor)
     batched = ("filtered_agg_batched", "block_agg_batched")
     zero_counters(wrappers)
     recorder.active = set(batched)
@@ -810,6 +837,20 @@ def run_drain(torch, np, catalog, Session, SessionConfig, wrappers, recorder,
           "the drain never launched block_agg_batched")
     check(stats.pilots_run == HERD_PILOTS,
           f"drain ran {stats.pilots_run} pilot stages, expected {HERD_PILOTS}")
+    # the 8 Q6 windows' pilot draws share one n_phys bucket at seed 42: ONE
+    # stacked call (one filtered_agg_batched launch), no solo filtered_agg
+    # launch; the SUM/COUNT pilot runs solo (its drain group has one pilot)
+    copies = pilots["solo"] + len(pilots["stacked"])
+    print(f"[drain] pilot dispatches: lanes per stacked launch {pilots['stacked']}, "
+          f"solo pilots {pilots['solo']}; pilot host copies per drain {copies} "
+          f"(one per dispatch)")
+    check(pilots["stacked"] == [HERD_Q6] and pilots["solo"] == 1,
+          f"drain pilots: stacked {pilots['stacked']}, solo {pilots['solo']}; expected "
+          f"[{HERD_Q6}] and 1")
+    check(launches["filtered_agg"] == 0 and launches["filtered_agg_batched"] == 2,
+          f"drain launches {launches}: expected no solo filtered_agg and two "
+          f"filtered_agg_batched (the stacked pilots, the batched finals)")
+    check(copies == 2, f"{copies} pilot host copies in a drain, expected 2")
 
     serial = Session(catalog, seed=42, config=SessionConfig(
         async_workers=0, share_pilots=False,
@@ -904,6 +945,8 @@ def run_drain(torch, np, catalog, Session, SessionConfig, wrappers, recorder,
           f"{busy if busy is None else round(busy, 4)} ms of {pwall:.2f} ms wall; "
           f"device idle share {share}  [{smi}]")
     return {"wall_ms": wall * 1e3, "serial_ms": serial_ms, "launches": launches,
+            "stacked_lanes": pilots["stacked"], "solo_pilots": pilots["solo"],
+            "pilot_host_copies": copies,
             "buckets": buckets, "stats": dataclasses.asdict(stats), **split,
             "device_busy_ms": busy, "profiled_wall_ms": pwall, "runs": runs}
 
@@ -1134,25 +1177,41 @@ def run_gather(torch, np, catalog, Session, SessionConfig, segment_sum, recorder
               f"{row['plan']}{extra}  [{smi}]")
     session.close()
 
-    # the grouped drain herd: one solo pilot per member, gather_batched
-    # finals, each answer bitwise the serial session's
+    # the grouped drain herd: the members' pilots stacked into ONE
+    # segment_sum launch (its input recorded, and replayed with the others),
+    # gather_batched finals, each answer bitwise the serial session's
     herd_err = chosen["q1"]
     herd = [q + f" ERROR {herd_err}% CONFIDENCE 95%" for q in GATHER_HERD]
     drain = Session(catalog, seed=42, config=SessionConfig(result_cache_size=0))
-    routes = []
-    compile_batched = drain.executor.physical.compile_batched_query
+    routes, stacked_launches, stacked_inputs = [], [], []
+    ex = drain.executor
+    pilot_spy = spy_pilots(ex)
+    compile_batched, stacked = ex.physical.compile_batched_query, ex.execute_pilots_batched
 
     def spy_compile(*a, **kw):
         c = compile_batched(*a, **kw)
         routes.append(c.route)
         return c
 
-    drain.executor.physical.compile_batched_query = spy_compile
+    def spy_stacked(*a):
+        before, known = segment_sum.launches, set(recorder.calls["segment_sum"])
+        recorder.active = {"segment_sum"}
+        try:
+            return stacked(*a)
+        finally:
+            recorder.active = set()
+            stacked_launches.append(segment_sum.launches - before)
+            stacked_inputs.extend(set(recorder.calls["segment_sum"]) - known)
+
+    ex.physical.compile_batched_query = spy_compile
+    ex.execute_pilots_batched = spy_stacked
+    herd_launches = segment_sum.launches
     t0 = time.perf_counter()
     hs = [drain.submit(q) for q in herd]
     drain.drain()
     torch.cuda.synchronize()
     herd_ms = (time.perf_counter() - t0) * 1e3
+    herd_launches = segment_sum.launches - herd_launches
     serial = Session(catalog, seed=42, config=SessionConfig(
         async_workers=0, share_pilots=False, result_cache_size=0))
     for h in hs:
@@ -1164,14 +1223,25 @@ def run_gather(torch, np, catalog, Session, SessionConfig, segment_sum, recorder
     check("gather_batched" in routes, f"the herd's finals took {routes}, not gather_batched")
     pilots = drain.scheduler.last_drain.pilots_run
     check(pilots == len(herd), f"the herd ran {pilots} pilots, not {len(herd)}")
+    check(pilot_spy["stacked"] == [len(herd)] and pilot_spy["solo"] == 0
+          and stacked_launches == [1],
+          f"the herd's pilots: stacked lanes {pilot_spy['stacked']}, solo "
+          f"{pilot_spy['solo']}, segment_sum launches of the stack {stacked_launches}; "
+          f"expected one stack of {len(herd)} in one launch")
     print(f"[gather] grouped herd of {len(herd)} at ERROR {herd_err}%: drain "
-          f"{herd_ms:.2f} ms; pilots {pilots}; final routes {routes}; "
-          f"plans {[h.report.plan.rates if h.report.plan else h.fallback for h in hs]}; "
+          f"{herd_ms:.2f} ms; pilots {pilots} (one stacked call of "
+          f"{pilot_spy['stacked']} lanes, {stacked_launches} segment_sum launch; "
+          f"segment_sum launches in the drain {herd_launches}); final routes "
+          f"{routes}; plans "
+          f"{[h.report.plan.rates if h.report.plan else h.fallback for h in hs]}; "
           f"every answer bitwise the serial session's Session.sql  [{smi}]")
     drain.close()
     serial.close()
     summary["herd"] = {"wall_ms": herd_ms, "pilots": pilots, "routes": routes,
-                       "error_pct": herd_err}
+                       "error_pct": herd_err, "stacked_lanes": pilot_spy["stacked"],
+                       "stacked_pilot_launches": stacked_launches[0],
+                       "stacked_input": stacked_inputs,
+                       "segment_sum_launches": herd_launches}
     summary["phase_s"] = time.perf_counter() - t_phase
     print(f"[gather] phase 8 queries and herd in {summary['phase_s']:.1f} s")
     return summary
@@ -2143,8 +2213,11 @@ def run_gateway(torch, np, li, Session, SessionConfig, kernels, recorder, smi):
     launches = read_counters(kernels)
     drain = gw.scheduler.last_drain
     check_round(np, tickets, results, want, "gateway cold round")
+    # the Q6 windows' pilots stack (one filtered_agg_batched launch beside
+    # the batched finals'): no solo filtered_agg launch; every other kernel
     for name, n in launches.items():
-        check(n > 0, f"the gateway round never launched {name}")
+        check(n == 0 if name == "filtered_agg" else n > 0,
+              f"the gateway round launched {name} {n} times")
     frames = gw.frames_for("stream")
     by_ticket = {}
     for f in frames:
@@ -4473,6 +4546,12 @@ def main() -> int:
     # sorted route is held and timed at a fixed input of its own
     for r in gather["segment_sum"]:
         check(r["route"] != "sorted", f"segment_sum {r['shape']} took the sorted route")
+    # the grouped herd's stacked pilot: replayed above on the slab route
+    stacked_rows = [r for r in gather["segment_sum"]
+                    if tuple(r["shape"]) in gather["herd"]["stacked_input"]]
+    check(len(stacked_rows) == 1 and stacked_rows[0]["route"] == "slab",
+          f"the herd's stacked pilot input {gather['herd']['stacked_input']}: "
+          f"replayed {[(r['shape'], r['route']) for r in stacked_rows]}")
     gather["segment_sum_sorted_point"] = sorted_route_point(
         torch, np, segment_ops, segment_sum_ref, smi, launch_floor)
     routes = {r["route"] for r in gather["segment_sum"]}
@@ -4671,6 +4750,9 @@ def main() -> int:
                          "physical.py:256, :276, :877-878, :1072-1082); no Pallas original",
         "launches": gather["launches"],
         "launches_by_path": {"gather": gather["launches_by_query"],
+                             "gather_herd": gather["herd"]["segment_sum_launches"],
+                             "gather_herd_stacked_pilot":
+                                 gather["herd"]["stacked_pilot_launches"],
                              "staged_shards": staged_launches["segment_sum"],
                              "obs": obs["launches"]["segment_sum"]},
         "max_abs_err": head["max_abs_err"], "ms": head["ms"],

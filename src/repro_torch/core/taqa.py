@@ -15,7 +15,8 @@ and its segmented-sum kernel for GROUP BY, joins, unions and the rest), and
 the rate solve runs on the host in f64, exactly as in the reference.  A
 drain group's finals run through :meth:`PilotDB.run_finals_batched` (one
 batched call per same-signature bucket); its pilots through
-:meth:`PilotDB.run_pilots_batched`, which runs each member's solo pilot.
+:meth:`PilotDB.run_pilots_batched`, which stacks same-shape pilots into one
+call.
 :meth:`PilotDB.run_fused` runs both stages as one program on the device
 (the pilot, an f32 rate solve and the final draw on the card, then the
 final), bitwise the two-stage answer.  :func:`advisory_estimate` turns a pilot
@@ -464,31 +465,98 @@ class PilotDB:
 
     def run_pilots_batched(self, reqs: List[Tuple[Query, ErrorSpec, int]]
                            ) -> List[object]:
-        """Stage 1 for many pilot subgroups at once.
+        """Stage 1 for many pilot subgroups at once, stacking same-shape
+        pilot scans into one call (:meth:`Executor.execute_pilots_batched`).
 
         ``reqs`` holds one ``(query, spec, pilot_seed)`` per subgroup
         leader; the returned list is position-aligned and each entry is the
         :class:`PilotOutcome` :meth:`run_pilot` would have produced, or the
         exception it would have raised (captured per member, so one failing
-        subgroup cannot sink its siblings).  Every member runs its solo
-        pilot: the reference stacks same-shape gather-route pilots into one
-        ``lax.map`` dispatch, but here a stacked lane would run the same
-        launches as the solo pilot, so stacking would save only host syncs.
-        So the reference's gates that send a staged or sharded pilot table
-        to the solo loop hold here by construction: its solo pilot pins the
-        ladder's seed and serves a covering rung
-        (:meth:`Executor.execute_pilot`), or fans out over the shards
-        (:meth:`repro_torch.dist.DistExecutor.execute_pilot`).
+        subgroup cannot sink its siblings).
+
+        Undershoot retries are a host computation, so each member's draw is
+        resolved here with the solo loop's seeds and x4 bumps, and members
+        agreeing on (pilot table, query signature) stack: one call, one
+        device->host copy, lane k bitwise member k's solo pilot.  The
+        prelude's fallbacks, the eager executor, pair tables, a staged
+        ladder on the pilot table (its solo pilot pins the ladder's seed and
+        serves a rung), a sharded pilot table (its solo pilot fans out over
+        the shards), a plan whose pilots do not stack
+        (:meth:`PhysicalCompiler.pilot_stacks`), an empty draw and a group
+        of one run the solo loop.  Unlike the reference, which stacks its
+        XLA route only, the kernel route stacks too; and a failing stacked
+        call fails each of its members with its exception, where the
+        reference re-runs them solo: on the card a re-run would hide a
+        failed kernel.
         """
-        results: List[object] = []
-        for q, spec, pseed in reqs:
+        ex = self.ex
+        results: List[object] = [None] * len(reqs)
+        prel: List[Optional[Tuple[PilotOutcome, float]]] = [None] * len(reqs)
+        solo: List[int] = []
+        groups: Dict[tuple, List[tuple]] = {}
+        for i, (q, spec, pseed) in enumerate(reqs):
             try:
                 outcome, theta_p = self._pilot_prelude(q, spec)
-                if outcome.fallback is None:
-                    outcome = self._pilot_scan(outcome, spec, theta_p, pseed)
-                results.append(outcome)
             except Exception as e:  # noqa: BLE001 — per-member capture
-                results.append(e)
+                results[i] = e
+                continue
+            prel[i] = (outcome, theta_p)
+            if outcome.fallback is not None:
+                results[i] = outcome
+                continue
+            pt = outcome.pilot_table
+            if (not ex.use_compiled or outcome.pair_tables
+                    or ex.staged.ladder(pt) is not None or ex.is_sharded(pt)
+                    or not ex.physical.pilot_stacks(outcome.plan, pt)):
+                solo.append(i)
+                continue
+            # the solo loop's draws, retries included: drawn at th, then
+            # bumped x4 while short of the minimum
+            n_blocks = ex.table_blocks(pt)
+            need = min(spec.min_pilot_blocks, n_blocks)
+            th = drawn_th = theta_p
+            for attempt in range(3):
+                ids = draw_block_ids(n_blocks, th, pseed + 101 * attempt)
+                drawn_th = th
+                if len(ids) >= need:
+                    break
+                th = min(th * 4.0, 1.0)
+            if len(ids) == 0:
+                solo.append(i)  # the solo path owns the empty draw's stats
+                continue
+            phys, n_real, n_phys = pad_block_ids(ids, n_blocks)
+            runtime = ScanRuntime("block", n_real, n_phys, phys)
+            key = ex.physical.query_signature(outcome.plan, {pt: runtime})
+            groups.setdefault((pt, key), []).append((i, runtime, th, drawn_th))
+
+        for (pt, _), members in groups.items():
+            if len(members) < 2:
+                solo.extend(m[0] for m in members)
+                continue
+            idxs = [m[0] for m in members]
+            for _ in idxs:  # one pilot stage per member
+                ex._count("pilots_run")
+            try:
+                stats = ex.execute_pilots_batched(
+                    [prel[i][0].plan for i in idxs], pt,
+                    [m[3] for m in members], [{pt: m[1]} for m in members])
+            except Exception as e:  # noqa: BLE001 — per-member capture
+                for i in idxs:
+                    results[i] = e
+                continue
+            # the postlude takes the bumped rate, PilotStats the drawn one,
+            # as on the solo loop
+            for (i, _, th, _), st in zip(members, stats):
+                results[i] = self._pilot_postlude(prel[i][0], st, th,
+                                                  st.wall_time_s)
+
+        for i in solo:
+            _, spec, pseed = reqs[i]
+            outcome, theta_p = prel[i]
+            try:
+                results[i] = self._pilot_scan(outcome, spec, theta_p, pseed)
+            except Exception as e:  # noqa: BLE001 — per-member capture
+                results[i] = e
         return results
 
     def run_fused(self, q: Query, spec: ErrorSpec, seed: int = 0,

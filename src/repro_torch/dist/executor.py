@@ -16,8 +16,9 @@ the gather route's ``segment_sum`` slab route for the rest, over each shard's
 local block ids.  Final answers reduce the merged per-block sums in f64 over
 the global block order; pilot statistics ARE the merged matrix.  Both are
 bit-identical for every shard count by construction (see merge.py).  Every
-shard has its own compiler and signature cache, so a shard geometry builds
-once and re-dispatches warm.
+shard has its own compiler and signature cache, and the compilers share
+their builds (:class:`repro_torch.engine.physical.SharedBuildStore`), so a
+shard geometry builds once and every shard of it re-dispatches warm.
 
 Scope (enforced by fallback): the dist route takes plans whose SINGLE
 sharded table carries a block sample at rate < 1; unsharded tables in the
@@ -46,8 +47,8 @@ from repro_torch.dist.shard import ShardedTable, shard_block_ids
 from repro_torch.engine import logical as L
 from repro_torch.engine.executor import (EmptySampleError, Executor,
                                          PilotStats, QueryResult)
-from repro_torch.engine.physical import (ScanRuntime, plan_constants,
-                                         scan_cost_bytes)
+from repro_torch.engine.physical import (ScanRuntime, SharedBuildStore,
+                                         plan_constants, scan_cost_bytes)
 from repro_torch.engine.sampling import SampleInfo, pad_block_ids
 from repro_torch.engine.staged import (DEFAULT_STAGED_RATES,
                                        build_sharded_ladder,
@@ -64,6 +65,11 @@ class DistExecutor(Executor):
         # the shard state exists before the base class registers the catalog
         # through register_table
         self._sharded: Dict[str, ShardedTable] = {}
+        # builds shared between the shard compilers: same-geometry shards
+        # (equal block ranges shard into equal slab shapes) adopt each
+        # other's builds, so N shards build each plan shape once; adoptions
+        # show as ``shared_hits`` in compile_cache_info()
+        self._shared_builds = SharedBuildStore()
         # one engine Executor per shard: its catalog holds the shard slice
         # under the table's name plus every other table's monolithic tensors
         self._shard_executors: Dict[str, List[Executor]] = {}
@@ -90,7 +96,8 @@ class DistExecutor(Executor):
             dev = s.table.device
             cat = {t: v.to(dev) for t, v in self.catalog.items() if t != name}
             cat[name] = s.table
-            executors.append(Executor(cat, device=dev))
+            executors.append(Executor(cat, device=dev,
+                                      shared_builds=self._shared_builds))
         with self._shard_lock:
             self._sharded[name] = sharded
             self._shard_executors[name] = executors
@@ -142,7 +149,8 @@ class DistExecutor(Executor):
     def compile_cache_info(self):
         """Aggregate signature-cache counters: the monolithic compiler PLUS
         every shard executor's compiler — dist dispatches compile there, and
-        session and drain stats must see them."""
+        session and drain stats must see them — with the shard compilers'
+        adoptions of each other's builds as ``shared_hits``."""
         info = super().compile_cache_info()
         with self._shard_lock:
             executors = [ex for exs in self._shard_executors.values()
@@ -160,6 +168,7 @@ class DistExecutor(Executor):
             info.batched_misses += shard_info.batched_misses
             info.fused_hits += shard_info.fused_hits
             info.fused_misses += shard_info.fused_misses
+            info.shared_hits += shard_info.shared_hits
         return info
 
     def shard_scan_info(self) -> Dict[str, Tuple[int, ...]]:

@@ -12,11 +12,12 @@ sampled slabs, row-sampled and exact scans stream everything.
 
 Besides plain execution it produces the artifacts TAQA's pilot needs
 (``execute_pilot``: per-block sums of every simple aggregate and, for a
-join's pair table, per-block-pair sums), and runs a drain group's finals in
-batches (``execute_batch``: members that share a compile key run as one
-batched call).  A sampled scan that draws zero blocks or rows raises
-:class:`EmptySampleError` instead of fabricating an upscale factor — callers
-take their exact fallback.
+join's pair table, per-block-pair sums), stacks a drain group's
+same-signature pilots (``execute_pilots_batched``: one call, one host copy),
+and runs a drain group's finals in batches (``execute_batch``: members that
+share a compile key run as one batched call).  A sampled scan that draws
+zero blocks or rows raises :class:`EmptySampleError` instead of fabricating
+an upscale factor — callers take their exact fallback.
 
 Each query (each batch) crosses the device→host boundary once, where its
 sums are widened to f64 for the host-side upscale and rate solve.
@@ -43,11 +44,13 @@ import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.engine import logical as L
 from repro_torch.engine import ops
 from repro_torch.engine.physical import (PhysicalCompiler, ScanRuntime,
+                                         SharedBuildStore,
                                          plan_constants, scan_cost_bytes)
 from repro_torch.engine.sampling import (SampleInfo, block_sample, draw_block_ids,
                                          draw_row_sample, pad_block_ids, row_sample)
@@ -112,7 +115,8 @@ class PilotStats:
 
 class Executor:
     def __init__(self, catalog: Dict[str, BlockTable], *, device="cuda",
-                 use_compiled: bool = True, staged_bytes: Optional[int] = None):
+                 use_compiled: bool = True, staged_bytes: Optional[int] = None,
+                 shared_builds: Optional[SharedBuildStore] = None):
         self.device = resolve_device(device)
         # False: the eager interpreter, the in-package oracle (no staging,
         # no batching, no fused program)
@@ -124,7 +128,9 @@ class Executor:
         self.catalog: Dict[str, BlockTable] = {}
         for name, table in catalog.items():
             self.register_table(name, table)
-        self.physical = PhysicalCompiler(self.catalog)
+        # shared_builds: builds shared with other executors' compilers of
+        # the same geometry (a DistExecutor's shards)
+        self.physical = PhysicalCompiler(self.catalog, shared_builds=shared_builds)
         # pilots_run counts pilot STAGES (incremented by PilotDB.run_pilot,
         # once per stage regardless of undershoot retries); queries_run
         # counts execute() calls; device_dispatches counts compiled-callable
@@ -721,6 +727,64 @@ class Executor:
             scanned_bytes=sum(i.scanned_bytes for i in infos.values()),
             wall_time_s=time.perf_counter() - t0,
         )
+
+    # -- stacked pilots (shared-pilot drain groups) --------------------------
+    def execute_pilots_batched(
+        self,
+        plans: List[L.Aggregate],
+        pilot_table: str,
+        thetas: List[float],
+        runtimes_list: List[Dict[str, ScanRuntime]],
+    ) -> List[PilotStats]:
+        """One stacked call for B same-signature pilot scans.
+
+        The caller (:meth:`repro_torch.core.taqa.PilotDB.run_pilots_batched`)
+        has resolved each member's draw on the host, undershoot retries
+        included, so every lane arrives with its final block ids; ``thetas``
+        are the rates those ids were drawn at.  The group's block sums and
+        presence cross to the host in ONE copy, widened to f64 as the solo
+        pilot widens them, and lane k is bitwise member k's solo
+        :meth:`execute_pilot`.  Pair-table, staged and sharded pilots never
+        reach here: the caller sends them solo.
+        """
+        batch = len(plans)
+        compiled = self.physical.compile_batched_pilot(
+            plans[0], pilot_table, runtimes_list[0][pilot_table], batch)
+        t0 = time.perf_counter()
+        with _trace.span("scan", pilot=True, table=pilot_table,
+                         batched=batch) as sp:
+            self._count("device_dispatches")
+            bs_d, present_d = compiled.call_batch(
+                runtimes_list, [plan_constants(p) for p in plans])
+            # the group's one device->host copy: block sums and presence
+            # side by side (f32 -> f64 is exact, so the bits are the solo
+            # pilot's)
+            width = bs_d[0].numel()
+            host = torch.cat([bs_d.reshape(batch, width),
+                              present_d.to(bs_d.dtype)], dim=1).double().cpu().numpy()
+            bs_b = host[:, :width].reshape(bs_d.shape)
+            present_b = host[:, width:] > 0
+            sp.set(n_blocks=sum(r[pilot_table].n_real for r in runtimes_list))
+        wall = time.perf_counter() - t0
+        table = self.catalog[pilot_table]
+        out: List[PilotStats] = []
+        for k, plan in enumerate(plans):
+            runtime = runtimes_list[k][pilot_table]
+            out.append(PilotStats(
+                table=pilot_table,
+                theta_p=thetas[k],
+                n_sampled_blocks=runtime.n_real,
+                n_total_blocks=table.num_blocks,
+                block_rows=table.block_rows,
+                agg_names=[a.name for a in plan.aggs] + ["__rows"],
+                block_sums=bs_b[k, :runtime.n_real],
+                group_present=present_b[k],
+                pair_sums={},
+                right_total_blocks={},
+                scanned_bytes=compiled.scanned_bytes(runtimes_list[k]),
+                wall_time_s=wall,
+            ))
+        return out
 
     # -- fused single-launch TAQA --------------------------------------------
     def execute_fused(self, plan: L.Aggregate, pilot_table: str,

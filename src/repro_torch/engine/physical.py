@@ -47,10 +47,29 @@ where the plan has one group and no join-pair statistics, and the traced
 pipeline otherwise, with per-(pilot block, right block) pair sums for a
 join's pair table.
 
+Stacked pilots (:meth:`PhysicalCompiler.compile_batched_pilot`): B
+same-signature pilots of a drain group as one call.  A kernel-route pilot
+takes ONE batched launch per distinct channel column over B id rows
+(``filtered_agg_batched`` / ``block_agg_batched``).  A gather-route pilot
+whose rows are the pilot table's sampled rows and nothing else traces each
+lane as its solo pilot does, concatenates the lanes' rows, offsets lane b's
+keys by ``b · n_phys · max_groups``, and reduces every lane in ONE
+``segment_sum`` call under the slab claim, whose sums per pilot block do
+not depend on the rows or segments around the block.  Either way lane b is
+bitwise member b's solo pilot.  The reference stacks its XLA route only and
+sends Pallas-route pilots solo; here the kernel route stacks too, since on
+the card it is every single-table block-sampled pilot's route.
+
 The route depends on the plan's shape alone, never on the device: a CUDA
 table runs the hand-written kernels, a CPU table runs their plain PyTorch
 versions through the same wrappers.  No reduction uses atomics, so answers
 are the same bits run to run.
+
+Every callable reads its tables from ``rt["catalog"]``, the catalog of the
+compiled object it was called through, never from the compiler that built
+it.  So shard compilers of one geometry share builds through a
+:class:`SharedBuildStore`: an adopted build is rebound to the adopting
+compiler's catalog and reads that shard's tensors.
 
 Scan-cost attribution lives here too: ``n_real · block_rows · row_bytes``
 for block-sampled scans, full table bytes for row-sampled and exact scans.
@@ -252,19 +271,18 @@ class _Tracer:
     """Evaluates a logical plan over the tables' tensors and one call's
     runtime inputs (block ids, row masks, params).
 
-    The catalog is read when the callable runs, not when it is built: a
-    replacement table of the same geometry (same cache key) is read, not
-    the old data.  ``rt`` holds ``ids`` / ``nreal`` / ``mask`` per table and
-    ``params``.
+    The catalog is ``rt["catalog"]``, read when the callable runs, not
+    when it is built: a replacement table of the same geometry (same cache
+    key) is read, not the old data, and an adopted build reads its own
+    shard's.  ``rt`` also holds ``ids`` / ``nreal`` / ``mask`` per table
+    and ``params``.
     """
 
-    def __init__(self, catalog: Dict[str, BlockTable],
-                 needed: Dict[str, Tuple[str, ...]],
+    def __init__(self, needed: Dict[str, Tuple[str, ...]],
                  methods: Dict[str, str],
                  pilot_table: Optional[str] = None,
                  n_phys_pilot: int = 0,
                  pair_table: Optional[str] = None):
-        self.catalog = catalog
         self.needed = needed
         self.methods = methods            # table -> "none" | "block" | "row"
         self.pilot_table = pilot_table
@@ -280,7 +298,7 @@ class _Tracer:
 
     def _trace_scan(self, plan: L.Scan, rt) -> _Traced:
         name = plan.table
-        tab = self.catalog[name]
+        tab = rt["catalog"][name]
         dev = tab.device
         cols = {c: tab.columns[c] for c in self.needed[name]}
         valid, bid = tab.valid, tab.block_id
@@ -498,7 +516,7 @@ class _CompiledBase:
         index with them; memoized device ids (``ids_dev``) were checked when
         they were made and are used as they are."""
         dev = self._device()
-        rt = {"ids": {}, "nreal": {}, "mask": {},
+        rt = {"catalog": self.catalog, "ids": {}, "nreal": {}, "mask": {},
               "params": torch.as_tensor(np.asarray(params, np.float32), device=dev)}
         for name in self.needed:
             method = self.methods.get(name, "none")
@@ -577,7 +595,7 @@ class CompiledBatch(_CompiledBase):
                 f"batch callable built for {self.batch} members, got "
                 f"{len(runtimes_list)} runtimes and {len(params_list)} params")
         dev = self._device()
-        rt = {"ids": {}, "nreal": {}, "mask": {},
+        rt = {"catalog": self.catalog, "ids": {}, "nreal": {}, "mask": {},
               "params": torch.as_tensor(np.asarray(params_list, np.float32)
                                         .reshape(self.batch, -1), device=dev)}
         for name in self.needed:
@@ -604,17 +622,47 @@ class CompiledBatch(_CompiledBase):
         return self.fn(rt)
 
 
+@dataclasses.dataclass
+class CompiledPilotBatch(CompiledBatch):
+    """A stacked pilot: B same-signature pilot scans per call (the shared-
+    pilot drain group's stage 1).
+
+    ``call_batch`` stacks the member pilot runtimes (a (B, n_phys) id
+    matrix, the n_real of each lane, a (B, P) params matrix) and returns
+    (block_sums (B, n_phys, max_groups, num_channels), present (B,
+    max_groups)) on the device; lane k is bitwise member k's solo pilot.
+    ``route`` is ``filtered_agg_batched`` / ``block_agg_batched`` (one
+    launch per distinct channel column) or ``gather_stacked`` (one
+    ``segment_sum`` call)."""
+
+
+def _lane_runtimes(rt: dict, batch: int) -> List[dict]:
+    """The solo runtime dict of each lane of a stacked one, in lane order:
+    lane b holds row b of every stacked input, exactly what its solo call
+    holds."""
+    return [{"catalog": rt["catalog"],
+             "ids": {t: v[b] for t, v in rt["ids"].items()},
+             "nreal": {t: v[b] for t, v in rt["nreal"].items()},
+             "mask": {t: v[b] for t, v in rt["mask"].items()},
+             "params": rt["params"][b]} for b in range(batch)]
+
+
 def _lanes(run: Callable, rt: dict, batch: int) -> List[tuple]:
-    """``run`` on each lane of a stacked runtime dict, in lane order: lane b
-    sees row b of every stacked input, exactly what its solo call sees."""
-    out = []
-    for b in range(batch):
-        member = {"ids": {t: v[b] for t, v in rt["ids"].items()},
-                  "nreal": {t: v[b] for t, v in rt["nreal"].items()},
-                  "mask": {t: v[b] for t, v in rt["mask"].items()},
-                  "params": rt["params"][b]}
-        out.append(run(member))
-    return out
+    """``run`` on each lane of a stacked runtime dict, in lane order."""
+    return [run(member) for member in _lane_runtimes(rt, batch)]
+
+
+def stack_lane_keys(keys: Sequence[torch.Tensor], width: int) -> torch.Tensor:
+    """The keys of B lanes' ``segment_sum`` calls as those of ONE call over
+    their concatenated rows: lane b's keys in ``[0, width)`` move to
+    ``[b · width, (b + 1) · width)``; any other key (a row in no pilot block
+    of its lane, such as the scratch block's) moves to ``B · width``, past
+    every lane's segments, so the stacked call drops it as the lane's solo
+    call does.  An offset alone would put a scratch key of lane b into lane
+    b + 1's first segments."""
+    total = len(keys) * width
+    return torch.cat([torch.where((k >= 0) & (k < width), k + b * width, total)
+                      for b, k in enumerate(keys)])
 
 
 def fused_buckets(num_blocks: int) -> Tuple[int, ...]:
@@ -682,13 +730,49 @@ class CacheInfo:
     # by Executor.compile_cache_info; zero for a bare compiler
     staged_hits: int = 0
     staged_misses: int = 0
+    # local misses that adopted a build from a SharedBuildStore instead of
+    # building (still counted in ``misses``: the local cache did miss)
+    shared_hits: int = 0
+
+
+class SharedBuildStore:
+    """Builds shared between compilers, keyed by compile signature.
+
+    Shards of one geometry give equal compile keys (keys hold block_rows,
+    padded_rows, bucketed block counts, devices and column dtypes, never
+    column data, which a callable reads from ``rt["catalog"]`` at call
+    time).  So the shard compilers of a :class:`repro_torch.dist.
+    DistExecutor` adopt each other's builds, each rebound to its own
+    catalog: N same-geometry shards build each plan shape once.
+    """
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._store: Dict[tuple, object] = {}
+
+    def get(self, key):
+        with self._lock:
+            return self._store.get(key)
+
+    def put(self, key, compiled) -> None:
+        with self._lock:
+            self._store.setdefault(key, compiled)
+
+
+# key[0] -> the CacheInfo kind its hits and misses count under (plain query
+# keys are the remainder)
+_KEY_KIND = {"pilot": "pilot", "pilot_batched": "pilot",
+             "batched": "batched", "fused": "fused"}
 
 
 class PhysicalCompiler:
     """Lowers logical plans to compiled callables, with a signature cache."""
 
-    def __init__(self, catalog: Dict[str, BlockTable]):
+    def __init__(self, catalog: Dict[str, BlockTable],
+                 shared_builds: Optional[SharedBuildStore] = None):
         self.catalog = catalog
+        # consulted on a local miss before building, filled after a build
+        self._shared = shared_builds
         # Values are compiled callables, or a pending Future while one thread
         # builds that key: drain workers compile concurrently, a key builds
         # once and counts one miss, and threads asking for it meanwhile wait
@@ -697,24 +781,22 @@ class PhysicalCompiler:
         self._lock = threading.Lock()
         self.hits = 0
         self.misses = 0
-        self.pilot_hits = 0
-        self.pilot_misses = 0
-        self.batched_hits = 0
-        self.batched_misses = 0
-        self.fused_hits = 0
-        self.fused_misses = 0
+        self.shared_hits = 0
+        self._kind_hits = {"pilot": 0, "batched": 0, "fused": 0}
+        self._kind_misses = {"pilot": 0, "batched": 0, "fused": 0}
 
     def cache_info(self) -> CacheInfo:
         with self._lock:
             size = sum(1 for v in self._cache.values()
                        if not isinstance(v, Future))
             return CacheInfo(self.hits, self.misses, size,
-                             pilot_hits=self.pilot_hits,
-                             pilot_misses=self.pilot_misses,
-                             batched_hits=self.batched_hits,
-                             batched_misses=self.batched_misses,
-                             fused_hits=self.fused_hits,
-                             fused_misses=self.fused_misses)
+                             pilot_hits=self._kind_hits["pilot"],
+                             pilot_misses=self._kind_misses["pilot"],
+                             batched_hits=self._kind_hits["batched"],
+                             batched_misses=self._kind_misses["batched"],
+                             fused_hits=self._kind_hits["fused"],
+                             fused_misses=self._kind_misses["fused"],
+                             shared_hits=self.shared_hits)
 
     def _geometry_sig(self, needed) -> tuple:
         """The geometry of every table the plan scans: the gather route's
@@ -729,22 +811,19 @@ class PhysicalCompiler:
         return tuple(out)
 
     def _lookup(self, key, build):
-        pilot, batched, fused = (key[0] == "pilot", key[0] == "batched",
-                                 key[0] == "fused")
+        kind = _KEY_KIND.get(key[0])
         with self._lock:
             entry = self._cache.get(key)
             if entry is None:  # this thread builds; others wait on the Future
                 self.misses += 1
-                self.pilot_misses += pilot
-                self.batched_misses += batched
-                self.fused_misses += fused
+                if kind is not None:
+                    self._kind_misses[kind] += 1
                 placeholder: Future = Future()
                 self._cache[key] = placeholder
             else:
                 self.hits += 1
-                self.pilot_hits += pilot
-                self.batched_hits += batched
-                self.fused_hits += fused
+                if kind is not None:
+                    self._kind_hits[kind] += 1
         if _trace.active() is not None:  # tag the enclosing stage span
             _trace.annotate_count(
                 "compile_misses" if entry is None else "compile_hits")
@@ -753,7 +832,17 @@ class PhysicalCompiler:
             _trace.annotate(compile_sig=_trace.sig_hash(key))
         if entry is None:
             try:
-                compiled = build()
+                proto = None if self._shared is None else self._shared.get(key)
+                if proto is not None:
+                    # adopt a same-geometry compiler's build, rebound to
+                    # this compiler's catalog for its data
+                    compiled = dataclasses.replace(proto, catalog=self.catalog)
+                    with self._lock:
+                        self.shared_hits += 1
+                else:
+                    compiled = build()
+                    if self._shared is not None:
+                        self._shared.put(key, compiled)
             except BaseException as e:
                 with self._lock:  # let a later call retry the build
                     if self._cache.get(key) is placeholder:
@@ -841,7 +930,7 @@ class PhysicalCompiler:
         methods = {t: r.method for t, r in runtimes.items()}
         exprs = tuple(None if a.op == "count" else a.expr for a in template.aggs)
         mg = template.max_groups
-        tracer = _Tracer(self.catalog, needed, methods)
+        tracer = _Tracer(needed, methods)
 
         def run(rt):
             tt = tracer.trace(template.child, rt)
@@ -905,11 +994,9 @@ class PhysicalCompiler:
         """The unsampled ungrouped scan: predicates and channels evaluated
         over whole columns in f32 against the device params vector, then
         one ``torch.sum`` per channel."""
-        catalog = self.catalog
-
         def run(rt):
             params = rt["params"]
-            tab = catalog[table]  # the registered table at call time
+            tab = rt["catalog"][table]  # the registered table at call time
             keep = tab.valid
             for p in preds:
                 keep = keep & eval_expr(p, tab.columns, params)
@@ -947,7 +1034,7 @@ class PhysicalCompiler:
             isinstance(p, L.Join) and [s.table for s in p.right.scans()] == [pair_table]
             for p in _walk(plan))
 
-    def _pilot_kernel(self, plan, pilot_table, pair_table):
+    def _pilot_kernel(self, plan, pilot_table, pair_table, batched=False):
         """The kernel lowering of a pilot, or None: the kernels take a pilot
         with one group and no pair statistics over Filter*(Scan)."""
         if plan.max_groups != 1 or self._has_pair(plan, pair_table):
@@ -957,7 +1044,13 @@ class PhysicalCompiler:
             return None
         # one channel per simple aggregate plus the trailing "__rows" channel
         exprs = tuple([None if a.op == "count" else a.expr for a in plan.aggs] + [None])
-        return self._lower_block_stats(pilot_table, preds, exprs)
+        return self._lower_block_stats(pilot_table, preds, exprs, batched=batched)
+
+    @staticmethod
+    def _kernel_pilot_outputs(ch: torch.Tensor):
+        """A kernel-route pilot's (block_sums (n_phys, 1, n_ch), present
+        (1,)) from its (n_phys, n_ch) channel tensor."""
+        return ch[:, None, :], (ch[:, -1].sum() > 0)[None]
 
     def _build_pilot(self, plan, pilot_table, n_phys, pair_table,
                      needed) -> CompiledPilot:
@@ -968,8 +1061,7 @@ class PhysicalCompiler:
 
             def run(rt):
                 ch, _ = stats_fn(rt)               # (n_phys, n_ch)
-                present = (ch[:, -1].sum() > 0)[None]
-                return ch[:, None, :], present, None
+                return (*self._kernel_pilot_outputs(ch), None)
 
             return CompiledPilot(fn=run, catalog=self.catalog, needed=needed,
                                  methods=methods, route=route)
@@ -977,6 +1069,24 @@ class PhysicalCompiler:
                                      needed)
         return CompiledPilot(fn=run, catalog=self.catalog, needed=needed,
                              methods=methods, route="gather")
+
+    def _pilot_lane(self, plan, pilot_table, n_phys, pair_table, needed):
+        """The gather-route pilot's per-row work: rt -> (traced, vals (n_ch,
+        rows) f32, keys (rows,) int64), each row's key its (pilot block,
+        group) segment ``pblock * max_groups + group``."""
+        mg = plan.max_groups
+        exprs = tuple([None if a.op == "count" else a.expr for a in plan.aggs] + [None])
+        tracer = _Tracer(needed, {pilot_table: "block"},
+                         pilot_table=pilot_table, n_phys_pilot=n_phys,
+                         pair_table=pair_table)
+
+        def lane(rt):
+            tt = tracer.trace(plan.child, rt)
+            gid = _group_ids(tt.columns, tt.valid, plan.group_by, mg)
+            vals = channel_matrix(tt.columns, tt.valid, exprs, rt["params"])
+            return tt, vals, tt.pblock * mg + gid
+
+        return lane
 
     def _pilot_tracer_run(self, plan, pilot_table, n_phys, pair_table, needed):
         """The gather-route pilot body: rt -> (block_sums, present, pair).
@@ -993,34 +1103,99 @@ class PhysicalCompiler:
         (the slab claim: key // W == row // block_rows).
         """
         mg = plan.max_groups
-        exprs = tuple([None if a.op == "count" else a.expr for a in plan.aggs] + [None])
         has_pair = self._has_pair(plan, pair_table)
-        tracer = _Tracer(self.catalog, needed, {pilot_table: "block"},
-                         pilot_table=pilot_table, n_phys_pilot=n_phys,
-                         pair_table=pair_table)
+        lane = self._pilot_lane(plan, pilot_table, n_phys, pair_table, needed)
         n_right = self.catalog[pair_table].num_blocks if has_pair else 0
         rcol = f"__rblock_{pair_table}"
-        n_ch = len(exprs)
         slab = _pilot_rows_first(plan.child, pilot_table)
 
         def run(rt):
-            tt = tracer.trace(plan.child, rt)
+            tt, vals, keys = lane(rt)
             claim = lambda width: (dict(slab_rows=tt.block_rows, slab_keys=width)
                                    if slab else {})
-            gid = _group_ids(tt.columns, tt.valid, plan.group_by, mg)
-            vals = channel_matrix(tt.columns, tt.valid, exprs, rt["params"])
-            dense = segment_sum(vals, tt.pblock * mg + gid, n_phys * mg, **claim(mg))
-            block_sums = dense.reshape(n_ch, n_phys, mg).permute(1, 2, 0)
+            dense = segment_sum(vals, keys, n_phys * mg, **claim(mg))
+            block_sums = dense.reshape(vals.shape[0], n_phys, mg).permute(1, 2, 0)
             present = block_sums[:, :, -1].sum(dim=0) > 0
             pair = None
             if has_pair:
                 rb = torch.where(tt.valid, tt.columns[rcol], 0)
                 pdense = segment_sum(vals, tt.pblock * n_right + rb, n_phys * n_right,
                                      **claim(n_right))
-                pair = pdense.reshape(n_ch, n_phys, n_right).permute(1, 2, 0)
+                pair = pdense.reshape(vals.shape[0], n_phys, n_right).permute(1, 2, 0)
             return block_sums, present, pair
 
         return run
+
+    # -- stacked pilots (shared-pilot drain groups) ---------------------------
+    def pilot_stacks(self, plan: L.Aggregate, pilot_table: str) -> bool:
+        """Whether B same-signature pilots of ``plan`` (with no pair table)
+        stack into one call of :meth:`compile_batched_pilot`: its kernel
+        route does, and so does its gather route where the trace's rows are
+        the pilot table's sampled rows and nothing else (``n_phys ·
+        block_rows`` of them, every one in a pilot block), which keeps the
+        slab claim true across the lanes' concatenated rows.  Anything else
+        (a union, the pilot table on a join's right) runs solo."""
+        template = plan_template(plan)
+        return (self._pilot_kernel(template, pilot_table, None) is not None
+                or _row_tables(template.child) == [pilot_table])
+
+    def compile_batched_pilot(self, plan: L.Aggregate, pilot_table: str,
+                              runtime: ScanRuntime,
+                              batch: int) -> CompiledPilotBatch:
+        """One callable running ``batch`` same-signature pilot scans per
+        call (:class:`CompiledPilotBatch`), keyed as the reference keys its
+        batched pilot.  Callers gate on :meth:`pilot_stacks`; pair-table
+        pilots stay solo."""
+        if batch < 2:
+            raise ValueError(f"batch must be >= 2, got {batch}")
+        if not self.pilot_stacks(plan, pilot_table):
+            raise ValueError(f"pilots of this plan over {pilot_table!r} do not stack")
+        needed = _needed_by_table(plan, self.catalog)
+        key = ("pilot_batched", batch, pilot_table,
+               plan_signature(plan, {pilot_table: runtime},
+                              self._geometry_sig(needed)))
+        return self._lookup(key, lambda: self._build_batched_pilot(
+            plan_template(plan), pilot_table, runtime.n_phys, needed, batch))
+
+    def _build_batched_pilot(self, plan, pilot_table, n_phys, needed,
+                             batch) -> CompiledPilotBatch:
+        methods = {pilot_table: "block"}
+        lowered = self._pilot_kernel(plan, pilot_table, None, batched=True)
+        if lowered is not None:
+            lanes_fn, route = lowered
+
+            def run(rt):
+                # each lane's (n_phys, n_ch) channel tensor from the batched
+                # launches, then the solo pilot's own outputs of it
+                outs = [self._kernel_pilot_outputs(ch) for ch, _ in lanes_fn(rt)]
+                return (torch.stack([bs for bs, _ in outs]),
+                        torch.stack([p for _, p in outs]))
+
+            return CompiledPilotBatch(fn=run, catalog=self.catalog, needed=needed,
+                                      methods=methods, route=route, batch=batch)
+
+        mg = plan.max_groups
+        width = n_phys * mg                # one lane's segments
+        lane = self._pilot_lane(plan, pilot_table, n_phys, None, needed)
+
+        def run(rt):
+            vals, keys = [], []
+            for member in _lane_runtimes(rt, batch):
+                tt, v, k = lane(member)
+                vals.append(v)
+                keys.append(k)
+            # each lane traced n_phys * block_rows rows (pilot_stacks), so
+            # lane b's rows start at row b * n_phys * block_rows and its keys
+            # at b * width: key // max_groups == row // block_rows holds
+            # across the lanes, and the slab route sums each pilot block of
+            # its rows alone, as each lane's solo call does
+            dense = segment_sum(torch.cat(vals, dim=1), stack_lane_keys(keys, width),
+                                batch * width, slab_rows=tt.block_rows, slab_keys=mg)
+            block_sums = dense.reshape(-1, batch, n_phys, mg).permute(1, 2, 3, 0)
+            return block_sums, block_sums[..., -1].sum(dim=1) > 0
+
+        return CompiledPilotBatch(fn=run, catalog=self.catalog, needed=needed,
+                                  methods=methods, route="gather_stacked", batch=batch)
 
     # -- fused single-launch TAQA ---------------------------------------------
     def compile_fused(self, plan: L.Aggregate, pilot_table: str,
@@ -1101,8 +1276,7 @@ class PhysicalCompiler:
         a replacement of the same geometry (same cache key) must be read,
         not the old data.
         """
-        catalog = self.catalog
-        br = catalog[table].block_rows   # geometry: part of the cache key
+        br = self.catalog[table].block_rows   # geometry: part of the cache key
         if batched:
             fa, ba, channels = filtered_agg_batched, block_agg_batched, _lane_channels
         else:
@@ -1122,7 +1296,7 @@ class PhysicalCompiler:
                                     for b in range(params.shape[0])])
 
             def stats_fn(rt):
-                tab = catalog[table]  # the registered table at call time
+                tab = rt["catalog"][table]  # the registered table at call time
                 cols = tab.columns
                 ids = rt["ids"][table]
                 bounds = bounds_of(rt["params"])
@@ -1146,7 +1320,7 @@ class PhysicalCompiler:
             return None
 
         def stats_fn(rt):
-            tab = catalog[table]  # the registered table at call time
+            tab = rt["catalog"][table]  # the registered table at call time
             cols = tab.columns
             ids = rt["ids"][table]
             outs = {}

@@ -310,9 +310,8 @@ def register_session_collectors(registry: MetricsRegistry, session) -> None:
             "batched_misses": info.batched_misses,
             "fused_hits": info.fused_hits,
             "fused_misses": info.fused_misses,
-            # the reference's cross-shard build adoptions: the port has no
-            # shared build store (its "compile" builds a closure), so none
-            "shared_hits": 0,
+            # local misses whose build a same-geometry dist shard made
+            "shared_hits": info.shared_hits,
         }
 
     def result_cache() -> Dict:

@@ -12,8 +12,11 @@ optimization from its own ErrorSpec and draws its own final sample from its
 own seed.
 
 Stage 1.  When a group holds two or more pilot subgroups, their pilots run
-through ``PilotDB.run_pilots_batched`` (each a solo pilot); the subgroups'
-stage-2 planning then fans out on the runtime's pilot pool and re-joins here.
+through ``PilotDB.run_pilots_batched``, which stacks the pilots that share a
+signature and a draw size into one call (one kernel launch per channel
+column, or one ``segment_sum`` launch; one host copy) and runs the rest
+solo; the subgroups' stage-2 planning then fans out on the runtime's pilot
+pool and re-joins here.
 
 Batched finals.  Every subgroup first plans its members' finals, then the
 whole group's pending final scans run through ``PilotDB.run_finals_batched``:
@@ -115,10 +118,11 @@ def execute_group(session: "Session", handles: List["QueryHandle"]) -> None:
             continue  # the single-launch program delivered the answer
         shared.append(live)
 
-    # Several pilot subgroups: their pilots run first, one after another on
-    # this worker (PilotDB.run_pilots_batched), with the table generations
-    # snapshotted before them so the mid-flight replacement guard covers the
-    # pilot stage.
+    # Several pilot subgroups: their pilots run first on this worker
+    # (PilotDB.run_pilots_batched: same-shape pilots stacked into one call,
+    # the rest one after another), with the table generations snapshotted
+    # before them so the mid-flight replacement guard covers the pilot
+    # stage.
     pre: List[Optional[object]] = [None] * len(shared)
     gens: List[Optional[tuple]] = [None] * len(shared)
     if len(shared) >= 2:

@@ -267,8 +267,7 @@ class SqlGateway:
           ``pilot_misses`` (solo and batched pilot lowerings),
           ``batched_hits`` / ``batched_misses`` (drain-group batch
           callables), ``fused_hits`` / ``fused_misses`` (single-launch
-          fused TAQA programs), and ``shared_hits`` (0 in the port, which
-          shares no builds between shards; the reference's: local misses whose
+          fused TAQA programs), and ``shared_hits`` (local misses whose
           build was adopted from a same-geometry dist shard);
         * ``result_cache``  — result-cache ``hits`` / ``misses`` /
           ``evictions`` / ``invalidations`` / ``size`` / ``capacity`` AND

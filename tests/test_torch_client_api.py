@@ -161,8 +161,8 @@ def test_failed_handle_matches_reference(catalogs):
 # ---------------------------------------------------------------------------
 
 def test_batching_respects_runtime_feature_toggles(catalog):
-    """batch_finals=False keeps per-member launches; answers stay bitwise
-    equal either way."""
+    """batch_finals=False keeps per-member final launches (the pilots
+    stack either way); answers stay bitwise equal either way."""
     sqls = [("SELECT SUM(l_extendedprice * l_discount) AS rev FROM lineitem "
              f"WHERE l_quantity < {c} ERROR 10% CONFIDENCE 90%")
             for c in (18, 24, 30)]
@@ -176,10 +176,10 @@ def test_batching_respects_runtime_feature_toggles(catalog):
     b1, f1 = filtered_agg_batched.calls, filtered_agg.calls
     off.drain()
     b2, f2 = filtered_agg_batched.calls, filtered_agg.calls
-    assert b1 - b0 == 1          # one batched launch took finals ...
-    assert f1 - f0 < 2 * len(sqls)
-    assert b2 - b1 == 0          # batch_finals=False: none; a solo pilot
-    assert f2 - f1 == 2 * len(sqls)  # and a solo final per member
+    assert b1 - b0 == 2          # one stacked pilot, one batched launch of finals
+    assert f1 - f0 < len(sqls)   # no solo pilot; a final alone in its bucket
+    assert b2 - b1 == 1          # batch_finals=False: the stacked pilot only,
+    assert f2 - f1 == len(sqls)  # and a solo final per member
     for a, b in zip(h_on, h_off):
         assert a.status == b.status == "done"
         assert np.array_equal(a.result().values, b.result().values)

@@ -478,9 +478,9 @@ def test_gather_sessions_on_the_card_match_the_cpu(cuda):
 
 
 def test_cuda_grouped_drain_is_bitwise_the_serial_session(cuda):
-    """A grouped herd on the card: one solo pilot per member, its finals
-    run gather_batched, and every answer is bitwise an equal-seed serial
-    session's Session.sql."""
+    """A grouped herd on the card: the members' pilots stack into one
+    segment_sum launch, its finals run gather_batched, and every answer is
+    bitwise an equal-seed serial session's Session.sql."""
     from repro_torch.api import SessionConfig
     cat = tpch_catalog(200_000, 32, seed=0, device="cuda")
     herd = [f"SELECT SUM(l_quantity) AS qty, COUNT(*) AS n FROM lineitem "
@@ -509,6 +509,79 @@ def test_cuda_grouped_drain_is_bitwise_the_serial_session(cuda):
     finally:
         s.close()
         serial.close()
+
+
+# -- stacked pilots on the card ----------------------------------------------------
+
+def _stacked_against_solo(session, sqls):
+    """``run_pilots_batched`` over ``sqls`` (pilot seeds 100, 101, ...),
+    then each member's solo ``run_pilot``: the stacked outcomes must be
+    bitwise the solo ones.  Returns the executor's dispatches of the
+    stacked call."""
+    ex = session.executor
+    handles = [session.prepare(q) for q in sqls]
+    reqs = [(h.query, h.spec, 100 + i) for i, h in enumerate(handles)]
+    d0 = ex.device_dispatches
+    outs = session.db.run_pilots_batched(reqs)
+    torch.cuda.synchronize()
+    dispatches = ex.device_dispatches - d0
+    for (q, spec, pseed), out in zip(reqs, outs):
+        assert not isinstance(out, Exception), out
+        alone = session.db.run_pilot(q, spec, pseed)
+        assert out.pilot.n_sampled_blocks == alone.pilot.n_sampled_blocks > 0
+        assert np.array_equal(out.pilot.block_sums.view(np.int64),
+                              alone.pilot.block_sums.view(np.int64))
+        assert np.array_equal(out.pilot.group_present, alone.pilot.group_present)
+    return dispatches
+
+
+def test_stacked_q6_pilots_are_one_batched_launch_on_the_card(cuda):
+    """4 constant-varied Q6 pilots: ONE filtered_agg_batched launch, no
+    solo launch, each lane bitwise its solo pilot."""
+    cat = tpch_catalog(200_000, 32, seed=0, device="cuda")
+    s = Session(cat, seed=3, config=SessionConfig(result_cache_size=0))
+    sqls = [f"SELECT SUM(l_extendedprice * l_discount) AS rev FROM lineitem "
+            f"WHERE l_shipdate BETWEEN {100 + 50 * i} AND {1500 + 30 * i} AND "
+            f"l_discount BETWEEN 0.02 AND 0.08 ERROR 8% CONFIDENCE 95%" for i in range(4)]
+    handles = [s.prepare(q) for q in sqls]
+    reqs = [(h.query, h.spec, 100 + i) for i, h in enumerate(handles)]
+    before = (filtered_agg.launches, filtered_agg_batched.launches)
+    s.db.run_pilots_batched(reqs)
+    torch.cuda.synchronize()
+    assert (filtered_agg.launches - before[0],
+            filtered_agg_batched.launches - before[1]) == (0, 1)
+    try:
+        assert _stacked_against_solo(s, sqls) == 1
+    finally:
+        s.close()
+
+
+def test_stacked_grouped_pilots_are_one_slab_segment_sum_on_the_card(cuda, monkeypatch):
+    """4 constant-varied grouped pilots: ONE segment_sum launch, on the
+    slab route, each lane bitwise its solo pilot."""
+    from repro_torch.engine import physical
+    calls = []
+
+    def recording(vals, seg, num_segments, **kw):
+        calls.append(segment_ops.launch_plan(vals.shape[0], vals.shape[1],
+                                             num_segments, kw.get("slab_rows"),
+                                             kw.get("slab_keys")))
+        return segment_sum(vals, seg, num_segments, **kw)
+
+    monkeypatch.setattr(physical, "segment_sum", recording)
+    cat = tpch_catalog(200_000, 32, seed=0, device="cuda")
+    s = Session(cat, seed=7, config=SessionConfig(result_cache_size=0))
+    sqls = [f"SELECT SUM(l_quantity) AS qty, COUNT(*) AS n FROM lineitem "
+            f"WHERE l_shipdate < {x} GROUP BY l_returnflag ERROR 15% CONFIDENCE 90%"
+            for x in (1800, 2000, 2200, 2400)]
+    before = segment_sum.launches
+    try:
+        assert _stacked_against_solo(s, sqls) == 1
+    finally:
+        s.close()
+    # the stacked call, then the four solo pilots
+    assert segment_sum.launches - before == 1 + len(sqls)
+    assert [c.route for c in calls] == ["slab"] * (1 + len(sqls))
 
 
 # -- staged ladders and shards on the card -----------------------------------------

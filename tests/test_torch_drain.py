@@ -121,16 +121,20 @@ def test_drain_matches_reference(catalogs, port_drain, kernel_mode):
 
 
 def test_drain_takes_the_batched_kernel_routes(port_drain):
-    """Two Q6 buckets and one SUM/COUNT bucket each ran as one batched call;
-    pilots took the solo kernels; on the CPU nothing launched a CUDA kernel
-    (the wrappers ran their plain versions)."""
+    """Two Q6 buckets and one SUM/COUNT bucket each ran as one batched call,
+    and the six Q6 pilots as one stacked call of the batched kernel; the
+    SUM/COUNT pilot took the solo kernel; on the CPU nothing launched a CUDA
+    kernel (the wrappers ran their plain versions)."""
     s, _, _, moved = port_drain
     fa, ba, fab, bab = moved
-    assert (fab, bab) == (2, 1)
-    assert fa >= 6 and ba >= 1           # the solo pilots (and solo finals)
+    assert (fab, bab) == (3, 1)          # two Q6 final buckets + the Q6 pilots
+    assert fa == 2 and ba >= 1           # solo Q6 finals; the SUM/COUNT pilot
     routes = {c.route for c in s.executor.physical._cache.values()}
     assert {"filtered_agg_batched", "block_agg_batched", "filtered_agg",
             "block_agg", "torch_scan"} <= routes
+    stacked = [c for k, c in s.executor.physical._cache.items()
+               if k[0] == "pilot_batched"]
+    assert [(c.route, c.batch) for c in stacked] == [("filtered_agg_batched", 6)]
     info = s.compile_cache_info()
     assert info.batched_misses == 3
     assert (filtered_agg_batched.launches, block_agg_batched.launches) == (0, 0)

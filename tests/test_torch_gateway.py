@@ -258,7 +258,7 @@ def test_gateway_stats_payload_one_stop(sessions):
         "batched_hits": info.batched_hits,
         "batched_misses": info.batched_misses,
         "fused_hits": info.fused_hits, "fused_misses": info.fused_misses,
-        "shared_hits": 0}  # the reference's counter; the port shares no builds
+        "shared_hits": info.shared_hits}
     rc = ps.result_cache_info()
     assert payload["result_cache"]["hits"] == rc.hits >= 2
     assert payload["result_cache"]["bytes_used"] == rc.bytes_used > 0

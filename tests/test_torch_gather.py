@@ -812,21 +812,26 @@ JOIN_HERD = [f"SELECT SUM(l_extendedprice) AS rev FROM lineitem JOIN orders "
 @pytest.mark.parametrize("kind", ["grouped", "join"])
 def test_grouped_herd_drain_matches_reference_and_solo(catalogs, kind):
     """A drain herd against the reference's drain and against solo runs:
-    each member runs its solo pilot (a join's with pair statistics) and the
-    finals batch on gather_batched (a join's with ``orders`` scanned
-    whole)."""
+    the grouped members' pilots stack into one call, a join's each run solo
+    with pair statistics, and the finals batch on gather_batched (a join's
+    with ``orders`` scanned whole)."""
     herd = HERD if kind == "grouped" else JOIN_HERD
     ref, port = catalogs
     ts = Session(port, seed=SEED, device="cpu",
                  config=SessionConfig(async_workers=0, result_cache_size=0))
     ex = ts.executor
-    pilots, routes = [], []
+    pilots, stacks, routes = [], [], []
     execute_pilot, compile_batched = ex.execute_pilot, \
         ex.physical.compile_batched_query
+    execute_stacked = ex.execute_pilots_batched
 
     def spy_pilot(plan, table, theta_p, seed, pair_tables=()):
         pilots.append(tuple(pair_tables))
         return execute_pilot(plan, table, theta_p, seed, pair_tables=pair_tables)
+
+    def spy_stacked(plans, *a):
+        stacks.append(len(plans))
+        return execute_stacked(plans, *a)
 
     def spy_compile(*a, **kw):
         c = compile_batched(*a, **kw)
@@ -834,13 +839,18 @@ def test_grouped_herd_drain_matches_reference_and_solo(catalogs, kind):
         return c
 
     ex.execute_pilot = spy_pilot
+    ex.execute_pilots_batched = spy_stacked
     ex.physical.compile_batched_query = spy_compile
     hs = _drain(ts, herd)
     rs = ref_api.Session(ref, seed=SEED, config=ref_api.SessionConfig(
         kernel_mode="xla", async_workers=0, result_cache_size=0))
     rhs = _drain(rs, herd)
-    # one solo pilot per member; a join's carries its pair table
-    assert pilots == [(() if kind == "grouped" else ("orders",))] * len(herd)
+    # the grouped pilots as one stacked call; a join's solo, each with its
+    # pair table
+    if kind == "grouped":
+        assert (pilots, stacks) == ([], [len(herd)])
+    else:
+        assert (pilots, stacks) == ([("orders",)] * len(herd), [])
     assert routes and set(routes) == {"gather_batched"}
     solo = Session(port, seed=SEED, device="cpu",
                    config=SessionConfig(result_cache_size=0))
@@ -855,18 +865,19 @@ def test_grouped_herd_drain_matches_reference_and_solo(catalogs, kind):
 
 def test_a_failing_pilot_fails_only_its_own_member(catalogs):
     """``run_pilots_batched`` captures a member's pilot failure on that
-    member alone: its siblings finish, bitwise their solo runs."""
+    member alone: its siblings (stacked without it) finish, bitwise their
+    solo runs."""
     _, port = catalogs
     ts = Session(port, seed=SEED, device="cpu",
                  config=SessionConfig(async_workers=0, result_cache_size=0))
-    execute_pilot = ts.executor.execute_pilot
+    prelude = ts.db._pilot_prelude
 
-    def broken(plan, *a, **kw):
-        if "2000" in repr(plan):
+    def broken(q, spec):
+        if "2000" in repr(q):
             raise RuntimeError("pilot refused")
-        return execute_pilot(plan, *a, **kw)
+        return prelude(q, spec)
 
-    ts.executor.execute_pilot = broken
+    ts.db._pilot_prelude = broken
     hs = _drain(ts)
     solo = Session(port, seed=SEED, device="cpu",
                    config=SessionConfig(result_cache_size=0))
