@@ -3924,12 +3924,15 @@ def run_remat_groups(torch, np, smi):
 # layers on a one-rank NCCL (1, 1) host mesh, TRAIN_BATCH x TRAIN_SEQ tokens
 # in the dry run's microbatches; (d) production cells of the dry run on the
 # fake (16, 16) mesh, one process each, started with (a) (they trace on the
-# host: fake tensors, no kernel)
+# host: fake tensors, no kernel); (e) olmoe-1b-7b at full width cut to 2
+# layers on the host mesh, its MoE FFN on the expert-parallel route
 MESH_LAYERS, MESH_STEPS, MESH_CKPT_AT = 2, 3, 2
 MESH_PEAK_TOL = 0.15             # the dry run's peak against the card's
 MESH_CELLS = (("internlm2-1.8b", "train_4k"), ("internlm2-1.8b", "decode_32k"),
-              ("mistral-large-123b", "train_4k"))
+              ("mistral-large-123b", "train_4k"), ("olmoe-1b-7b", "train_4k"),
+              ("granite-moe-1b-a400m", "decode_32k"))
 MESH_CELL_TIMEOUT = 900
+MESH_MOE_ARCH = "olmoe-1b-7b"
 
 
 def start_mesh_cells(out_dir):
@@ -3980,11 +3983,98 @@ def finish_mesh_cells(cells, smi):
     for line in lines[:2]:
         print(f"[mesh] (d) {line}")
     for key, line in zip(table, lines[2:]):
-        m = merged[key]["memory"]
+        m, prof = merged[key]["memory"], merged[key]["hlo_profile"]
+        by_kind = ", ".join(f"{k} {v / 2**30:.3f} GiB ({prof['collective_counts'].get(k, 0)})"
+                            for k, v in sorted(prof.get("collective_bytes_by_kind", {}).items()))
         print(f"[mesh] (d) {line} dry run wall {walls[key]:.1f} s (trace {merged[key]['trace_s']:.1f} s, "
               f"{len(merged[key]['traced'])} traces); per device: args "
-              f"{m['argument_bytes'] / 2**30:.3f} GiB, peak {m['peak_bytes'] / 2**30:.2f} GiB  [{smi}]")
+              f"{m['argument_bytes'] / 2**30:.3f} GiB, peak {m['peak_bytes'] / 2**30:.2f} GiB, "
+              f"FLOPs {prof['flops_per_device']:.4e}, HBM bytes {prof['hbm_bytes_per_device']:.4e}, "
+              f"collective {prof['collective_bytes_per_device'] / 2**30:.3f} GiB [{by_kind}], "
+              f"MODEL/traced {table[key]['useful_ratio']:.4f}  [{smi}]")
     return {"cells": merged, "roofline": table, "wall_s": walls}
+
+
+def host_mesh_runs(torch, cfg, shape, batches, opt, mesh, seed, after_step=None):
+    """The same MESH_STEPS training steps of ``cfg`` twice, from the same
+    weights (``seed``) and batches: unsharded, then with the state sharded
+    on ``mesh`` by ``params_shardings`` with the dry run's hints.  For
+    each: losses, step walls, peak memory over the state's start, flash
+    launches forward and backward, MoE calls by route (the counts set to
+    0 before each run and read after it), and the full parameters on the
+    host.  ``after_step(i, state)`` runs after each sharded step."""
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.launch import dryrun
+    from repro_torch.models import Model, moe
+    from repro_torch.train import sharding
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.step import TrainState, init_train_state, make_train_step
+
+    mbs = dryrun.microbatches(shape, mesh)
+    runs = {}
+    for sharded in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        model = Model(cfg)
+        state = init_train_state(model, torch.Generator(device="cuda").manual_seed(seed))
+        if sharded:
+            sharding.shard_model(model, mesh)
+            model.shard_hints = dryrun.shard_hints(cfg, shape, mesh, "baseline")
+            params = dict(model.named_parameters())
+            state = TrainState(params, init_opt_state(params), None)
+        fn = make_train_step(model, opt, microbatches=mbs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = flash_attention.bwd_launches = 0
+        moe.routes.clear()
+        losses, walls = [], []
+        for i, b in enumerate(batches):
+            t0 = time.perf_counter()
+            state, m = fn(state, b)
+            losses.append(float(full_tensor(m["loss"])))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if sharded and after_step is not None:
+                after_step(i, state)
+        peak = torch.cuda.max_memory_allocated() - base
+        launches = flash_attention.launches, flash_attention.bwd_launches
+        routes = {k: moe.routes[k] for k in ("local", "expert_parallel")}
+        params = {n: full_tensor(p).detach().to("cpu", copy=True)
+                  for n, p in model.named_parameters()}
+        runs[sharded] = {"losses": losses, "walls": walls, "peak": peak, "launches": launches,
+                         "moe_routes": routes, "params": params, "microbatches": mbs}
+        del model, state, fn
+    return runs
+
+
+def full_tensor(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def report_host_mesh_runs(torch, runs, cfg, what, smi):
+    """Prints both runs of ``host_mesh_runs``; fails unless losses and
+    parameters are bitwise equal and flash launched alike (and at all)."""
+    for sharded, r in runs.items():
+        where = "sharded, (1, 1) host mesh" if sharded else "unsharded"
+        print(f"[mesh] {what} {cfg.name} full width, {cfg.num_layers} layers, {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ} tokens, {r['microbatches']} microbatches, {where}: losses "
+              f"{r['losses']}; step {statistics.median(r['walls']) * 1e3:.2f} ms median of "
+              f"{len(r['walls'])} ({', '.join(f'{w * 1e3:.2f}' for w in r['walls'])}); peak "
+              f"device memory {r['peak'] / 1e9:.3f} GB over the state's start; flash launches "
+              f"{r['launches'][0]} forward, {r['launches'][1]} backward; MoE calls by route "
+              f"{r['moe_routes']}  [{smi}]")
+    a, b = runs[False], runs[True]
+    check(b["losses"] == a["losses"], f"{what} sharded losses {b['losses']} != {a['losses']}")
+    same = [n for n in a["params"] if torch.equal(a["params"][n], b["params"][n])]
+    check(len(same) == len(a["params"]),
+          f"{what} sharded parameters differ bitwise: {sorted(set(a['params']) - set(same))}")
+    check(b["launches"] == a["launches"] and min(a["launches"]) > 0,
+          f"{what} flash launches sharded {b['launches']} against unsharded {a['launches']}")
+    print(f"[mesh] {what} losses and parameters bitwise equal; flash launches equal; "
+          f"sharded / unsharded step {statistics.median(b['walls']) / statistics.median(a['walls']):.3f}x, "
+          f"peak {b['peak'] / 1e9:.3f} / {a['peak'] / 1e9:.3f} GB  [{smi}]")
+
 
 
 def run_mesh(torch, np, smi):
@@ -3998,13 +4088,16 @@ def run_mesh(torch, np, smi):
     unsharded one: step 3 bitwise the uninterrupted run's.  (c) the dry
     run's host-mesh cell of (a)'s configuration: its FLOPs equal to
     ``TraceAnalysis`` over the card's restored step 3, its peak within
-    MESH_PEAK_TOL of (a)'s.  (d) the production cells (started first)."""
+    MESH_PEAK_TOL of (a)'s.  (d) the production cells (started first).
+    (e) as (a) for olmoe-1b-7b (64 experts top-8, bf16) cut to 2 layers:
+    bitwise, and every MoE call of the sharded run on the expert-parallel
+    route (``moe.routes``), every one of the unsharded run on the local
+    one."""
     import shutil
 
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attn import flash_attention
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import fake_world, make_host_mesh
     from repro_torch.launch.specs import ShapeSpec
@@ -4046,59 +4139,22 @@ def run_mesh(torch, np, smi):
                 state = TrainState(params, init_opt_state(params), None)
             return model, state
 
-        def full(t):
-            return t.full_tensor() if hasattr(t, "full_tensor") else t
+        full = full_tensor
 
-        def step(fn, state, b, walls=None):
-            t0 = time.perf_counter()
+        def step(fn, state, b):
             state, m = fn(state, b)
             loss = float(full(m["loss"]))
             torch.cuda.synchronize()
-            if walls is not None:
-                walls.append(time.perf_counter() - t0)
             return state, loss
 
         # -- (a) sharded against unsharded, same weights and batches ----------
-        runs = {}
-        for sharded in (False, True):
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            base = torch.cuda.memory_allocated()
-            model, state = fresh(sharded)
-            fn = make_train_step(model, opt, microbatches=mbs)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            before = flash_attention.launches, flash_attention.bwd_launches
-            losses, walls = [], []
-            for i, b in enumerate(batches):
-                state, loss = step(fn, state, b, walls)
-                losses.append(loss)
-                if sharded and i + 1 == MESH_CKPT_AT:
-                    ckpt.save(ck_dir, MESH_CKPT_AT, state, extra={"step": MESH_CKPT_AT})
-            peak = torch.cuda.max_memory_allocated() - base
-            launches = (flash_attention.launches - before[0],
-                        flash_attention.bwd_launches - before[1])
-            params = {n: full(p).detach().to("cpu", copy=True) for n, p in model.named_parameters()}
-            runs[sharded] = {"losses": losses, "walls": walls, "peak": peak,
-                             "launches": launches, "params": params}
-            what = "sharded, (1, 1) host mesh" if sharded else "unsharded"
-            print(f"[mesh] (a) {TRAIN_ARCH} full width, {MESH_LAYERS} layers, {TRAIN_BATCH} x "
-                  f"{TRAIN_SEQ} tokens, {mbs} microbatches, {what}: losses {losses}; step "
-                  f"{statistics.median(walls) * 1e3:.2f} ms median of {len(walls)} "
-                  f"({', '.join(f'{w * 1e3:.2f}' for w in walls)}); peak device memory "
-                  f"{peak / 1e9:.3f} GB over the state's start; flash launches {launches[0]} "
-                  f"forward, {launches[1]} backward  [{smi}]")
-            del model, state, fn
-        a, b_ = runs[False], runs[True]
-        check(b_["losses"] == a["losses"], f"sharded losses {b_['losses']} != {a['losses']}")
-        same = [n for n in a["params"] if torch.equal(a["params"][n], b_["params"][n])]
-        check(len(same) == len(a["params"]),
-              f"sharded parameters differ bitwise: {sorted(set(a['params']) - set(same))}")
-        check(b_["launches"] == a["launches"] and min(a["launches"]) > 0,
-              f"flash launches sharded {b_['launches']} against unsharded {a['launches']}")
-        print(f"[mesh] (a) losses and parameters bitwise equal; flash launches equal; "
-              f"sharded / unsharded step {statistics.median(b_['walls']) / statistics.median(a['walls']):.3f}x, "
-              f"peak {b_['peak'] / 1e9:.3f} / {a['peak'] / 1e9:.3f} GB  [{smi}]")
+        def checkpoint_at(i, state):
+            if i + 1 == MESH_CKPT_AT:
+                ckpt.save(ck_dir, MESH_CKPT_AT, state, extra={"step": MESH_CKPT_AT})
+
+        runs = host_mesh_runs(torch, cfg, shape, batches, opt, mesh, 7, checkpoint_at)
+        report_host_mesh_runs(torch, runs, cfg, "(a)", smi)
+        b_ = runs[True]
 
         # -- (b) the elastic restore, onto the mesh and onto no mesh ----------
         restored = {}
@@ -4129,6 +4185,23 @@ def run_mesh(torch, np, smi):
               f"on disk, the single-process layout) restored into a fresh sharded state (with "
               f"shardings) and into an unsharded one: step {MESH_CKPT_AT + 1} bitwise the "
               f"uninterrupted run's (loss {restored['sharded']})  [{smi}]")
+
+        # -- (e) olmoe on the host mesh: the MoE FFN expert-parallel ----------
+        moe_cfg = dataclasses.replace(get_config(MESH_MOE_ARCH), num_layers=MESH_LAYERS)
+        moe_pipe = TokenPipeline(moe_cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=29)
+        moe_batches = [{k: torch.from_numpy(v).to(dev) for k, v in moe_pipe.next_batch().items()}
+                       for _ in range(MESH_STEPS)]
+        moe_runs = host_mesh_runs(torch, moe_cfg, shape, moe_batches, opt, mesh, 11)
+        report_host_mesh_runs(torch, moe_runs, moe_cfg, "(e)", smi)
+        # each layer's MoE FFN once a microbatch, and again in the remat backward
+        calls = MESH_LAYERS * mbs * MESH_STEPS * (2 if moe_cfg.remat else 1)
+        check(moe_runs[True]["moe_routes"] == {"local": 0, "expert_parallel": calls}
+              and moe_runs[False]["moe_routes"] == {"local": calls, "expert_parallel": 0},
+              f"(e) MoE calls by route: sharded {moe_runs[True]['moe_routes']}, unsharded "
+              f"{moe_runs[False]['moe_routes']}; {calls} expected on each run's own route")
+        print(f"[mesh] (e) every MoE call of the sharded run took the expert-parallel route "
+              f"({calls}), every one of the unsharded run the local route  [{smi}]")
+        del moe_batches
         dist.destroy_process_group()
 
         # -- (c) the dry run's host-mesh cell against the card -----------------
@@ -4158,6 +4231,9 @@ def run_mesh(torch, np, smi):
     summary = {"runs": {("sharded" if k else "unsharded"): {kk: vv for kk, vv in v.items()
                                                            if kk != "params"}
                         for k, v in runs.items()},
+               "moe_runs": {("sharded" if k else "unsharded"): {kk: vv for kk, vv in v.items()
+                                                               if kk != "params"}
+                            for k, v in moe_runs.items()},
                "restored": restored, "checkpoint_gb": ck_gb,
                "host_cell": {"flops": fake_flops, "card_flops": real_flops,
                              "peak_bytes": fake_peak, "card_peak_bytes": b_["peak"]},
@@ -4782,7 +4858,10 @@ def main() -> int:
                           "hymba-1.5b": training["hymba"]["launches"][k]},
                 "families_train": {arch: families[arch]["launches"].get(k, 0)
                                    for arch in FAMILY_TEXT},
-                "reduced": {arch: reduced[arch]["launches"][k] for arch in REDUCED_ARCHS}},
+                "reduced": {arch: reduced[arch]["launches"][k] for arch in REDUCED_ARCHS},
+                **({"mesh_sharded": {TRAIN_ARCH: mesh["runs"]["sharded"]["launches"][0],
+                                     MESH_MOE_ARCH: mesh["moe_runs"]["sharded"]["launches"][0]}}
+                   if k == "flash_attention" else {})},
             "launches_per_forward": evaluation["launches_per_forward"][k],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -4847,7 +4926,11 @@ def main() -> int:
                                  "families_train": {arch: families[arch]["launches"].get(k, 0)
                                                     for arch in FAMILY_TEXT},
                                  "reduced": {arch: reduced[arch]["launches"][k]
-                                             for arch in REDUCED_ARCHS}},
+                                             for arch in REDUCED_ARCHS},
+                                 **({"mesh_sharded": {
+                                     TRAIN_ARCH: mesh["runs"]["sharded"]["launches"][1],
+                                     MESH_MOE_ARCH: mesh["moe_runs"]["sharded"]["launches"][1]}}
+                                    if k == "flash_attention_bwd" else {})},
             "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "floor_ms": t["floor_ms"], "shape": t["shape"],

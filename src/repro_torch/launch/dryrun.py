@@ -212,7 +212,8 @@ def _trace(cfg, shape: ShapeSpec, mesh, variant: str, device: str) -> Dict[str, 
             "output_bytes": local_bytes(out), "peak_bytes": peak.peak,
             **{k: prof[k] for k in ("flops_per_device", "hbm_bytes_per_device",
                                     "collective_bytes_per_device")},
-            **{f"count:{k}": v for k, v in prof["collective_counts"].items()}}
+            **{f"count:{k}": v for k, v in prof["collective_counts"].items()},
+            **{f"bytes:{k}": v for k, v in prof["collective_bytes_by_kind"].items()}}
 
 
 def _depths(cfg) -> Dict[str, int]:
@@ -299,6 +300,8 @@ def lower_cell(arch: str, shape_name: str, mesh, variant: str = "baseline", *,
             "collective_bytes_per_device": num["collective_bytes_per_device"],
             "collective_counts": {k[6:]: exact(v) for k, v in num.items()
                                   if k.startswith("count:") and exact(v)},
+            "collective_bytes_by_kind": {k[6:]: v for k, v in num.items()
+                                         if k.startswith("bytes:") and exact(v)},
             "num_partitions": mesh.size(),
         },
     }

@@ -24,7 +24,11 @@ Semantics, the reference's where they carry over:
   reference's rule for an aliased update.
 * Collective wire bytes per device, ring formulas with n the group size:
   all-gather out (n-1)/n, reduce-scatter in (n-1)/n, all-reduce 2 in
-  (n-1)/n, all-to-all in (n-1)/n; counted under the reference's names.
+  (n-1)/n, all-to-all in (n-1)/n; counted under the reference's names,
+  in all and by kind.  An all-to-all counts as one wherever the caller
+  issues the functional op (the MoE route does, on any group); DTensor's
+  own shard-to-shard moves on a CPU mesh fall back to an all-gather and
+  count as that.
 """
 
 from __future__ import annotations
@@ -101,6 +105,7 @@ class TraceAnalysis(TorchDispatchMode):
         self.hbm_bytes = 0.0
         self.coll_bytes = 0.0
         self.coll_counts: Dict[str, int] = {}
+        self.coll_bytes_by_kind: Dict[str, float] = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if any(issubclass(t, DTensor) for t in types):
@@ -122,6 +127,7 @@ class TraceAnalysis(TorchDispatchMode):
             o = sum(_nbytes(t) for t in _tensors(out))
             self.coll_bytes += wire(i, o, n)
             self.coll_counts[name] = self.coll_counts.get(name, 0) + 1
+            self.coll_bytes_by_kind[name] = self.coll_bytes_by_kind.get(name, 0.0) + wire(i, o, n)
         if func in _NO_BYTES or func.is_view:
             return
         schema = func._schema
@@ -140,4 +146,5 @@ class TraceAnalysis(TorchDispatchMode):
                 "hbm_bytes_per_device": self.hbm_bytes,
                 "collective_bytes_per_device": self.coll_bytes,
                 "collective_counts": dict(self.coll_counts),
+                "collective_bytes_by_kind": dict(self.coll_bytes_by_kind),
                 "num_partitions": self.num_partitions}

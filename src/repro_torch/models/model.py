@@ -38,8 +38,9 @@ counterpart: the layers run in a Python loop.
 
 The model runs on a device mesh too: with its parameters DTensors
 (``train.sharding.shard_model``), every op is DTensor's, the flash and GLA
-kernels run on each rank's shard (their sharding rules), the MoE FFN runs on
-replicas of its inputs, and the decode cache is made and written as DTensors
+kernels run on each rank's shard (their sharding rules), the MoE FFN runs
+expert-parallel (each rank its own experts and capacity rows: ``moe.py``),
+and the decode cache is made and written as DTensors
 (``train.sharding.cache_pspecs``).  ``shard_hints`` is the reference's
 counterpart: with it set (``dp``, ``tp``, ``dp_ok``, ``sp``), the hidden
 states at block boundaries and the logits are redistributed to the
@@ -373,13 +374,14 @@ class Model(nn.Module):
             y = moe_ffn_dense(flat, *experts, top_k=cfg.top_k, mlp_kind=cfg.mlp)
             return y.view(b, s, d), None
         t, chunk = b * s, cfg.moe_chunk
-        if not (chunk and t > chunk and t % chunk == 0):
-            chunk = t
+        # one chunk is the tokens as placed: on a mesh a split or a cat of
+        # the rows would gather them onto every rank
+        chunks = flat.split(chunk) if chunk and t > chunk and t % chunk == 0 else [flat]
         outs = [moe_ffn(c, *experts, top_k=cfg.top_k,
                         capacity_factor=cfg.capacity_factor, mlp_kind=cfg.mlp)
-                for c in flat.split(chunk)]
-        y = torch.cat([o for o, _ in outs]).view(b, s, d)
-        return y, torch.stack([a for _, a in outs]).mean()
+                for c in chunks]
+        y = torch.cat([o for o, _ in outs]) if len(outs) > 1 else outs[0][0]
+        return y.view(b, s, d), torch.stack([a for _, a in outs]).mean()
 
     def _decoder_block(self, p, x, enc=None):
         """(x out, (k, v) or None, final SSM state or None, aux or None,

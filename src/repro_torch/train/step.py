@@ -45,7 +45,14 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int) -
         keep = torch.arange(vpad, device=logits.device) < vocab_size
         logits = torch.where(like(keep, logits), logits, -1e30)
     m = logits.amax(dim=-1, keepdim=True).detach()
-    lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
+    total = torch.sum(torch.exp(logits - m), dim=-1)
+    if isinstance(total, DTensor):
+        # a vocab-sharded sum is a partial sum: reduce it before the log
+        # (torch 2.11's DTensor, left to reduce it inside the log, gives a
+        # wrong gradient when another mesh dim shards the rows)
+        total = total.redistribute(total.device_mesh, [Replicate() if p.is_partial() else p
+                                                       for p in total.placements])
+    lse = torch.log(total) + m[..., 0]
     if isinstance(logits, DTensor):
         # on a mesh, the label's logit by a select and a sum over the
         # (vocab-sharded) last dim: elementwise on each shard, forward and

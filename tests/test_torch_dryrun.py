@@ -164,9 +164,25 @@ def test_host_mesh_trace_flops_equal_the_real_step():
 
 
 def test_fake_collective_counts_equal_a_real_gloo_run(tmp_path):
-    arch, seq, batch = "internlm2-1.8b", 32, 4
-    with fake_world(2):
-        fake = dryrun.lower_cell(arch, "cell", _mesh(2, 1), device="cpu",
+    _fake_counts_equal_real(tmp_path, "internlm2-1.8b", (2, 1))
+
+
+def test_fake_moe_collective_counts_equal_a_real_gloo_run(tmp_path):
+    """Reduced olmoe on (2, 2): the expert-parallel route's all-to-alls,
+    gathers and reduce-scatters, counted alike on the fake and the real
+    group, and equal in bytes by kind."""
+    fake, real = _fake_counts_equal_real(tmp_path, "olmoe-1b-7b", (2, 2))
+    assert fake["hlo_profile"]["collective_counts"]["all-to-all"] > 0
+    got = fake["hlo_profile"]["collective_bytes_by_kind"]
+    assert got.keys() == real["collective_bytes_by_kind"].keys()
+    for k, v in real["collective_bytes_by_kind"].items():
+        assert got[k] == pytest.approx(v, rel=1e-9), k
+
+
+def _fake_counts_equal_real(tmp_path, arch, mesh_shape, seq=32, batch=4):
+    world = mesh_shape[0] * mesh_shape[1]
+    with fake_world(world):
+        fake = dryrun.lower_cell(arch, "cell", _mesh(*mesh_shape), device="cpu",
                                  cfg=worker.reduced(arch),
                                  shape=ShapeSpec("cell", "train", seq, batch))
     assert not dist.is_initialized()
@@ -174,8 +190,9 @@ def test_fake_collective_counts_equal_a_real_gloo_run(tmp_path):
     out = str(tmp_path / "counts.json")
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     procs = [ctx.Process(target=worker.trace_step,
-                         args=(r, 2, str(tmp_path / "store"), (2, 1), out, arch, seq, batch))
-             for r in range(2)]
+                         args=(r, world, str(tmp_path / "store"), mesh_shape, out, arch, seq,
+                               batch))
+             for r in range(world)]
     for p in procs:
         p.start()
     for p in procs:
@@ -184,3 +201,4 @@ def test_fake_collective_counts_equal_a_real_gloo_run(tmp_path):
     real = json.load(open(out))
     assert fake["hlo_profile"]["collective_counts"] == real["collective_counts"]
     assert sum(real["collective_counts"].values()) > 0
+    return fake, real

@@ -52,3 +52,51 @@ def _cells(arch, mesh):
     return out
 
 
+
+
+def test_moe_expert_products_split_over_the_mesh(monkeypatch):
+    """Reduced olmoe x train_4k cut to 8 x 32 tokens, traced whole: the
+    per-device FLOPs of the expert products (the cell's only ``bmm`` s) on
+    the fake (4, 2) mesh are 1/8 of the same cell's on a (1, 1) mesh,
+    within the capacity padding.  (4, 2): 2 microbatches of 128 tokens,
+    capacity 80 padded to 4 x 20, 2 experts a rank; (1, 1): 8 of 32,
+    capacity 20, all 4 experts."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.utils.flop_counter import flop_registry
+
+    from repro_torch.launch.trace_analysis import TraceAnalysis
+    from repro_torch.models import moe
+
+    class Products(TraceAnalysis):
+        runs = []
+
+        def __init__(self, n):
+            super().__init__(n)
+            self.expert_flops = 0.0
+            Products.runs.append(self)
+
+        def _count(self, func, args, kwargs, out):
+            super()._count(func, args, kwargs, out)
+            if func is torch.ops.aten.bmm.default:
+                self.expert_flops += float(flop_registry[func._overloadpacket](
+                    *args, **kwargs, out_val=out))
+
+    monkeypatch.setattr(dryrun, "TraceAnalysis", Products)
+    cfg = get_config("olmoe-1b-7b").reduced()
+    shape = _cut("train_4k")
+    flops = {}
+    for mesh_shape in ((1, 1), (4, 2)):
+        before = moe.routes["expert_parallel"]
+        with fake_world(mesh_shape[0] * mesh_shape[1]):
+            mesh = init_device_mesh("cpu", mesh_shape, mesh_dim_names=("data", "model"))
+            dryrun._trace(cfg, shape, mesh, "baseline", "cpu")
+        flops[mesh_shape] = Products.runs[-1].expert_flops
+        # every layer, each microbatch's forward and its remat forward
+        calls = 2 * cfg.num_layers * dryrun.microbatches(shape, mesh)
+        assert moe.routes["expert_parallel"] - before == calls
+    tokens = shape.global_batch // 2 * shape.seq_len     # a (4, 2) microbatch
+    cap = max(int(tokens * cfg.top_k * cfg.capacity_factor / cfg.num_experts), cfg.top_k)
+    padded = -(-cap // 4) * 4
+    ratio = flops[(4, 2)] / flops[(1, 1)]
+    assert flops[(1, 1)] > 0 and 1 / 8 <= ratio <= padded / cap / 8, ratio

@@ -1,8 +1,9 @@
 """The port's training step on a device mesh (``train/sharding.py``,
 DTensor parameters and moments, the kernels' sharding rules), on the CPU:
 gloo process groups of 2 and 4 ranks on (2, 1), (1, 2) and (2, 2) meshes,
-reduced internlm2 (flash), hymba (GLA) and olmoe (MoE), and internlm2 with
-one kv head (its heads repeated where a mesh axis does not divide them).
+reduced internlm2 (flash), hymba (GLA) and olmoe (MoE, expert-parallel;
+also on (1, 4), one expert a rank), and internlm2 with one kv head (its
+heads repeated where a mesh axis does not divide them).
 
 Two sharded steps match the unsharded port step from the same seed (which
 ``test_torch_train.py`` holds to the reference) within rtol 1e-5, in loss and
@@ -28,16 +29,18 @@ from repro_torch.train.optimizer import init_opt_state
 from repro_torch.train.step import TrainState
 
 MESHES = [(2, 1), (1, 2), (2, 2)]
+MOE_ARCH = "olmoe-1b-7b"
 JOIN_S = 240
 
 
-def _spawn(shape, out_dir, restore_from=None):
+def _spawn(shape, out_dir, restore_from=None, archs=worker.ARCHS):
     """Runs one gloo group of prod(shape) ranks to its end (or fails)."""
     ctx = multiprocessing.get_context("spawn")
     world = shape[0] * shape[1]
     store = os.path.join(out_dir, "store_" + "x".join(map(str, shape)))
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
-    procs = [ctx.Process(target=worker.run, args=(r, world, store, shape, out_dir, restore_from))
+    procs = [ctx.Process(target=worker.run,
+                         args=(r, world, store, shape, out_dir, restore_from, archs))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -57,11 +60,12 @@ def _join(procs):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Every mesh's results: (2, 2) and (1, 2) at once, then (2, 1), which
-    also restores the (2, 2) checkpoint."""
+    also restores the (2, 2) checkpoint, beside olmoe alone on (1, 4)."""
     out = str(tmp_path_factory.mktemp("mesh"))
     first = _spawn((2, 2), out) + _spawn((1, 2), out)
     _join(first)
-    _join(_spawn((2, 1), out, restore_from=os.path.join(out, "ckpt_2x2")))
+    _join(_spawn((2, 1), out, restore_from=os.path.join(out, "ckpt_2x2"))
+          + _spawn((1, 4), out, archs=(MOE_ARCH,)))
     return out
 
 
@@ -74,9 +78,7 @@ def unsharded():
     return out
 
 
-@pytest.mark.parametrize("shape", MESHES, ids=lambda s: "x".join(map(str, s)))
-@pytest.mark.parametrize("arch", worker.ARCHS)
-def test_sharded_steps_match_the_unsharded_step(runs, unsharded, arch, shape):
+def _check_steps(runs, unsharded, arch, shape):
     got = np.load(os.path.join(runs, f"{'x'.join(map(str, shape))}_{arch.replace('/', '_')}.npz"))
     losses, params = unsharded[arch]
     np.testing.assert_allclose(got["losses"], losses, rtol=1e-5)
@@ -86,6 +88,18 @@ def test_sharded_steps_match_the_unsharded_step(runs, unsharded, arch, shape):
     for n, want in params.items():
         np.testing.assert_allclose(got[f"param/{n}"], want, rtol=1e-5,
                                    atol=1e-5 * float(np.abs(want).max()), err_msg=n)
+
+
+@pytest.mark.parametrize("shape", MESHES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("arch", worker.ARCHS)
+def test_sharded_steps_match_the_unsharded_step(runs, unsharded, arch, shape):
+    _check_steps(runs, unsharded, arch, shape)
+
+
+def test_moe_steps_on_a_model_axis_of_four_match_the_unsharded_step(runs, unsharded):
+    """Reduced olmoe's 4 experts over a model axis of 4: each rank one
+    expert, the tokens' rows split four ways to route and combine."""
+    _check_steps(runs, unsharded, MOE_ARCH, (1, 4))
 
 
 def test_elastic_restore_across_meshes_is_bitwise(runs):
@@ -169,6 +183,23 @@ def test_one_rank_mesh_training_is_bitwise_the_plain_training():
     moments DTensors and the dry run's hints set, against the plain steps
     from the same seed: losses and parameters bitwise (every op a local
     one, as on the card's host mesh)."""
+    _one_rank_training_is_bitwise("internlm2-1.8b")
+
+
+def test_one_rank_mesh_moe_training_is_bitwise_the_plain_training():
+    """The same for reduced olmoe: on the (1, 1) mesh every MoE call takes
+    the expert-parallel route (one data rank, one expert group), bitwise
+    the plain route's."""
+    from repro_torch.models import moe
+
+    before = dict(moe.routes)
+    _one_rank_training_is_bitwise(MOE_ARCH)
+    # 3 steps x 2 microbatches x 2 layers, forward and remat forward
+    assert moe.routes["expert_parallel"] - before.get("expert_parallel", 0) == 24
+    assert moe.routes["local"] - before.get("local", 0) == 24
+
+
+def _one_rank_training_is_bitwise(arch):
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.launch import dryrun
@@ -177,7 +208,7 @@ def test_one_rank_mesh_training_is_bitwise_the_plain_training():
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.step import make_train_step
 
-    cfg = get_config("internlm2-1.8b").reduced()
+    cfg = get_config(arch).reduced()
     shape = ShapeSpec("host", "train", 32, 4)
     batches = [{k: torch.from_numpy(v) for k, v in b.items()}
                for b in worker.batches(cfg, seed=8)] * 2

@@ -71,7 +71,7 @@ def full(t):
     return (t.full_tensor() if hasattr(t, "full_tensor") else t).detach().numpy()
 
 
-def run(rank, world, store_path, shape, out_dir, restore_from=None):
+def run(rank, world, store_path, shape, out_dir, restore_from=None, archs=ARCHS):
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -88,7 +88,7 @@ def run(rank, world, store_path, shape, out_dir, restore_from=None):
 
         mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
         tag = "x".join(map(str, shape))
-        for arch in ARCHS:
+        for arch in archs:
             cfg = reduced(arch)
             model, state, losses = train(cfg, mesh)
             arrays = {f"param/{n}": full(p) for n, p in state.params.items()}

@@ -8,9 +8,11 @@ Builds every kernel (``repro_torch.kernels._build.build``), then runs
 one-rank NCCL (1, 1) host mesh with its state sharded against the unsharded
 steps (bitwise), the elastic restore of the sharded checkpoint onto the mesh
 and onto no mesh, the dry run's host-mesh cell against the card's step
-(FLOPs equal, peak within 15 %), and three production cells of the dry run
-on the fake (16, 16) mesh; the same checks as in ``chip_smoke.py``, which
-fail the script.  Prints the phase's lines, one JSON line of its summary,
+(FLOPs equal, peak within 15 %), five production cells of the dry run on
+the fake (16, 16) mesh (two of them MoE), and olmoe-1b-7b at full width, 2
+layers, on the host mesh with its MoE FFN expert-parallel, bitwise the
+unsharded steps; the same checks as in ``chip_smoke.py``, which fail the
+script.  Prints the phase's lines, one JSON line of its summary,
 and the card's name and power limit last.
 """
 
