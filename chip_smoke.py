@@ -131,9 +131,13 @@ Phases, each printing its own lines:
              after its rungs are dropped (mono and 4 shards); 1 / 2 / 4 / 7
              shards bitwise one answer, within rtol 1e-5 of the monolithic
              session's; every answer within 5% of exact or a fallback; the
-             herd's answers bitwise their Session.sql.  Prints the ladder's
+             herd's answers bitwise their Session.sql.  Shards go
+             round-robin over every visible card (shard i on cuda:{i % k});
+             each registration's bytes are accounted per card: the views on
+             lineitem's card allocate nothing, every other card exactly its
+             shard copies.  Prints the ladder's
              build seconds and bytes, each sharded registration's seconds and
-             device bytes, the host draw a staged pilot no longer pays beside
+             device bytes per card, the host draw a staged pilot no longer pays beside
              the memo hit, the walls of plain, staged and 4-shard sessions
              (median of 5 warm runs, in turns) beside their device idle
              share, and the card's peak memory.  Every kernel input of the
@@ -1317,13 +1321,21 @@ def run_staged_shards(torch, np, li, Session, SessionConfig, kernels, recorder, 
     names = {fn.__name__ for fn in kernels}
     summary = {"sessions": {}, "calls": {}}
 
+    cards = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+             if li.device.type == "cuda" else [li.device])
+
     def register(**kw):
-        torch.cuda.synchronize()
-        mem0, t0 = torch.cuda.memory_allocated(), time.perf_counter()
+        """(session, seconds, bytes allocated on lineitem's card, bytes
+        allocated on each card)."""
+        for c in cards:
+            torch.cuda.synchronize(c)
+        mem0, t0 = [torch.cuda.memory_allocated(c) for c in cards], time.perf_counter()
         s = Session(seed=42, config=cfg)
         s.register_table("lineitem", li, **kw)
-        torch.cuda.synchronize()
-        return s, time.perf_counter() - t0, torch.cuda.memory_allocated() - mem0
+        for c in cards:
+            torch.cuda.synchronize(c)
+        per_card = {c: torch.cuda.memory_allocated(c) - m for c, m in zip(cards, mem0)}
+        return s, time.perf_counter() - t0, per_card[li.device], per_card
 
     def evicted_answers(s):
         """The queries again after the session's rungs are dropped (all
@@ -1363,11 +1375,11 @@ def run_staged_shards(torch, np, li, Session, SessionConfig, kernels, recorder, 
               f"{summary['sessions'][tag]['fallbacks']}")
         return out
 
-    plain, _, _ = register()
+    plain, _, _, _ = register()
     exact = {qn: run_sql(torch, plain, sql)[0] for qn, sql in STAGED_QUERIES.items()}
     answers = {"plain": first_pass("plain", plain)}
 
-    staged, secs, nbytes = register(staged_rates=True)
+    staged, secs, nbytes, _ = register(staged_rates=True)
     info = staged.executor.staged_info()
     summary["ladder"] = {"seconds": secs, "device_bytes": nbytes,
                          "resident_bytes": info["resident_bytes"],
@@ -1389,20 +1401,32 @@ def run_staged_shards(torch, np, li, Session, SessionConfig, kernels, recorder, 
 
     shard_runs = {}
     for n in (1, 2, 7, SHARDS):
-        s, secs, nbytes = register(shards=n)
+        s, secs, nbytes, per_card = register(shards=n)
         shard_runs[n] = first_pass(f"shards={n}", s)
+        # shards go round-robin over every card (shard i on cuda:{i % k}):
+        # those on lineitem's own card are views of its tensors, each other
+        # card holds copies of its own shards and nothing else
+        placed = s.executor._sharded["lineitem"].shards
+        check([sh.table.device for sh in placed] == [cards[i % len(cards)] for i in range(n)],
+              f"shards={n}: placed on {[str(sh.table.device) for sh in placed]}")
+        want = {c: sum(sh.table.padded_rows * (sh.table.row_bytes() + 5)
+                       for sh in placed if sh.table.device == c and c != li.device)
+                for c in cards}
         summary.setdefault("shard_registration", {})[n] = {
-            "seconds": secs, "device_bytes": nbytes}
+            "seconds": secs, "device_bytes": nbytes,
+            "per_card": {str(c): (per_card[c], want[c]) for c in cards}}
         print(f"[staged] shards={n}: registered in {secs:.3f} s; device allocation "
-              f"+{nbytes:,} B (lineitem {li.total_bytes():,} B)  [{smi}]")
-        # shards on the table's own card are views of its tensors
-        check(nbytes < li.total_bytes() // 100,
-              f"shards={n} allocated {nbytes:,} B on the table's own card")
+              f"+{nbytes:,} B on lineitem's card (lineitem {li.total_bytes():,} B); per card "
+              f"(allocated, shard copies) {summary['shard_registration'][n]['per_card']}  [{smi}]")
+        for c in cards:
+            check(abs(per_card[c] - want[c]) < li.total_bytes() // 100,
+                  f"shards={n} allocated {per_card[c]:,} B on {c}, its shard copies "
+                  f"hold {want[c]:,} B")
         if n == SHARDS:
             sharded = s
         else:
             s.close()
-    both, secs, nbytes = register(shards=SHARDS, staged_rates=True)
+    both, secs, nbytes, _ = register(shards=SHARDS, staged_rates=True)
     print(f"[staged] shards={SHARDS} + ladder: registered in {secs:.3f} s; device "
           f"allocation +{nbytes:,} B  [{smi}]")
     answers["shards+staged"] = first_pass(f"shards={SHARDS}+staged", both)

@@ -561,12 +561,17 @@ class Session:
         ladder first, so staged tensors never outlive their data.
 
         ``shards=N`` registers the table partitioned into N disjoint block
-        ranges: block-sampled scans then run one dispatch per shard, merged
-        through per-block statistics (:mod:`repro_torch.dist`), and answers
-        are bitwise equal for EVERY shard count.  ``None`` (default)
-        registers it whole.  A sharded registration keeps the whole table
-        (exact, row-sample and multi-table paths run on it) AND a copy of
-        every shard's slice: about twice the table's bytes on the device.
+        ranges, placed round-robin over every visible card (shard i on
+        ``cuda:{i % k}``, as the reference places them over
+        ``jax.devices()``; a CPU table's stay on the CPU): block-sampled
+        scans then run one dispatch per shard, each on its shard's card,
+        merged through per-block statistics (:mod:`repro_torch.dist`), and
+        answers are bitwise equal for EVERY shard count and placement.
+        ``None`` (default) registers it whole.  A sharded registration
+        keeps the whole table where it was registered (exact, row-sample
+        and multi-table paths run on it); shards on the table's own card
+        are views of it, and a shard on another card is a copy, beside a
+        copy of every other registered table there.
 
         Registering ``name`` evicts the cached MAXGROUPS statistics of its
         columns and every result-cache entry whose plan scanned it.  A query

@@ -17,6 +17,7 @@ reduces through one ``segment_sum`` call per query.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 
@@ -29,6 +30,26 @@ from repro_torch.core.taqa import ApproxAnswer, PilotDB, Query, TaqaReport, _com
 from repro_torch.engine import cost as cost_mod
 from repro_torch.engine import logical as L
 from repro_torch.engine.executor import EmptySampleError
+
+
+@dataclasses.dataclass
+class RowPilot:
+    n_rows: int
+    mean: dict      # (group, channel) -> sample mean
+    var: dict       # (group, channel) -> sample variance
+
+
+def _row_pilot_stats(pilot_block_sums: np.ndarray, pilot_sq_sums: np.ndarray,
+                     pilot_counts: np.ndarray):
+    """Row-level mean / variance per (group, channel) from block channels
+    (the reference's, in f64 on the host)."""
+    tot = pilot_block_sums.sum(axis=0)          # (groups, ch)
+    tot_sq = pilot_sq_sums.sum(axis=0)
+    n = pilot_counts.sum(axis=0)                # (groups,)
+    mean = np.where(n[:, None] > 0, tot / np.maximum(n[:, None], 1), 0.0)
+    var = np.where(n[:, None] > 1,
+                   tot_sq / np.maximum(n[:, None], 1) - mean ** 2, 0.0)
+    return mean, np.maximum(var, 0.0), n
 
 
 class RowSamplingAQP(PilotDB):

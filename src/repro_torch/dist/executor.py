@@ -41,6 +41,7 @@ import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.dist import merge
 from repro_torch.dist.shard import ShardedTable, shard_block_ids
@@ -81,9 +82,12 @@ class DistExecutor(Executor):
     # -- catalog management ---------------------------------------------------
     def register_sharded(self, name: str, table: BlockTable, shards: int,
                          devices=None) -> ShardedTable:
-        """Register ``table`` partitioned into ``shards`` block ranges (on
-        the table's device, or round-robin over ``devices`` when it names
-        more than one).
+        """Register ``table`` partitioned into ``shards`` block ranges,
+        round-robin over ``devices`` (default: every visible card for a
+        table on one, the table's device for a CPU table:
+        :func:`repro_torch.dist.shard.default_devices`).  A shard on another
+        card gets its own executor there, with every other table of the
+        catalog copied to that card.
 
         The monolithic tensors stay in the catalog (metadata / exact /
         fallback paths); block-sampled scans of ``name`` route per shard.
@@ -91,10 +95,15 @@ class DistExecutor(Executor):
         """
         sharded = ShardedTable.from_table(table, shards, devices=devices)
         super().register_table(name, table)
+        # one copy of the other tables a card, whatever its count of shards
+        replicas: Dict[torch.device, Dict[str, BlockTable]] = {}
         executors = []
         for s in sharded.shards:
             dev = s.table.device
-            cat = {t: v.to(dev) for t, v in self.catalog.items() if t != name}
+            if dev not in replicas:
+                replicas[dev] = {t: v.to(dev) for t, v in self.catalog.items()
+                                 if t != name}
+            cat = dict(replicas[dev])
             cat[name] = s.table
             executors.append(Executor(cat, device=dev,
                                       shared_builds=self._shared_builds))
@@ -133,9 +142,13 @@ class DistExecutor(Executor):
         keep those views current when it is (re-)registered."""
         with self._shard_lock:
             items = [exs for t, exs in self._shard_executors.items() if t != name]
+        copies = {}
         for executors in items:
             for ex in executors:
-                ex.register_table(name, table.to(ex.device))
+                dev = torch.device(ex.device)
+                if dev not in copies:
+                    copies[dev] = table.to(dev)
+                ex.register_table(name, copies[dev])
 
     def sharded_tables(self) -> Dict[str, int]:
         with self._shard_lock:

@@ -8,12 +8,16 @@ selection / join / union (Props. 4.4-4.6), so pilot and final aggregation
 state computed per shard combines by concatenation and summation without
 weakening the a-priori error guarantees.
 
-Placement.  Shards stay on the table's device unless the caller names more
-than one device, in which case they go round-robin over those devices.  A
-shard on the table's own device is a set of contiguous views of the table's
-tensors and takes no more device memory; a shard on another device is a
-copy.  Shard rows keep their GLOBAL origin ``block_id`` labels, so merged
-per-block statistics index the same block space as the monolithic table.
+Placement.  As the reference places them (``jax.devices()`` round-robin):
+with no devices named, a table on a CUDA card shards over every visible
+card, shard i on ``cuda:{i % k}`` (:func:`default_devices`); a CPU table's
+shards stay on the CPU.  Named devices take the shards round-robin the same
+way.  Where the list holds one device, every shard stays on the table's
+device.  A shard on the table's own device is a set of contiguous views of
+the table's tensors and takes no more device memory; a shard on another
+device is a copy.  The whole table stays where it was registered.  Shard
+rows keep their GLOBAL origin ``block_id`` labels, so merged per-block
+statistics index the same block space as the monolithic table.
 
 Sampling.  ``shard_block_ids`` restricts the table's ONE content-derived
 Bernoulli realization (``sampling.draw_block_ids``) to each shard's block
@@ -28,9 +32,20 @@ import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.engine.sampling import draw_block_ids, restrict_block_ids
 from repro_torch.engine.table import BlockTable
+
+
+def default_devices(table: BlockTable) -> List[torch.device]:
+    """The devices a table's shards go to when none are named: every
+    visible card, ``cuda:0`` ... ``cuda:{k-1}`` in index order, for a table
+    on a card (the reference's ``jax.devices()``); the table's own device
+    otherwise."""
+    if table.device.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [table.device]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,10 +88,11 @@ class ShardedTable:
                    devices: Optional[Sequence] = None) -> "ShardedTable":
         """Partition ``table`` into ``num_shards`` contiguous block ranges.
 
-        ``devices`` (default: the table's own device) receive the shard
-        tensors round-robin when more than one is given; otherwise every
+        ``devices`` (default: :func:`default_devices`, every visible card
+        for a table on one) receive the shard tensors round-robin, shard i
+        on ``devices[i % k]``, when it holds more than one; otherwise every
         shard stays on the table's device and "distribution" is independent
-        dispatches over disjoint tensors — the semantics (and the
+        dispatches over disjoint tensors.  The semantics (and the
         bit-identity guarantees) do not depend on placement.
         """
         if num_shards < 1:
@@ -86,7 +102,7 @@ class ShardedTable:
             raise ValueError(
                 f"cannot split {n_blocks} blocks into {num_shards} shards "
                 "(blocks are the atomic placement unit)")
-        devices = list(devices) if devices is not None else [table.device]
+        devices = list(devices) if devices is not None else default_devices(table)
         shards: List[Shard] = []
         for i, (lo, hi) in enumerate(_shard_bounds(n_blocks, num_shards)):
             dev = devices[i % len(devices)] if len(devices) > 1 else None

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.engine.expr import Expr, eval_expr
-from repro_torch.engine.physical import _group_ids, channel_matrix
+from repro_torch.engine.physical import _clamp_groups, _group_ids, channel_matrix
 from repro_torch.engine.table import BlockTable
 from repro_torch.kernels.segment_sum import segment_sum
 
@@ -88,6 +88,21 @@ def union_all(tables: List[BlockTable]) -> BlockTable:
 # ---------------------------------------------------------------------------
 # Aggregation
 # ---------------------------------------------------------------------------
+
+def group_ids(table: BlockTable, group_by: Optional[str],
+              max_groups: int) -> torch.Tensor:
+    """Each row's group, int32 in ``[0, max_groups)``, valid or not (the
+    reference's; the executors' own key puts invalid rows in group 0)."""
+    if group_by is None:
+        return torch.zeros(table.padded_rows, dtype=torch.int32, device=table.device)
+    return _clamp_groups(table.columns[group_by], max_groups)
+
+
+def grouped_counts(table: BlockTable, group_by: Optional[str],
+                   max_groups: int) -> torch.Tensor:
+    """(max_groups,) f32 count of valid rows per group."""
+    return grouped_sums(table, [None], group_by, max_groups)[0]
+
 
 def grouped_sums(table: BlockTable, exprs: Sequence[Optional[Expr]],
                  group_by: Optional[str], max_groups: int) -> torch.Tensor:

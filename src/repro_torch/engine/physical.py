@@ -244,6 +244,11 @@ def channel_matrix(columns: Dict[str, torch.Tensor], valid: torch.Tensor,
     return torch.stack(outs)
 
 
+def _clamp_groups(column: torch.Tensor, max_groups: int) -> torch.Tensor:
+    """A group column cut to int32 and clipped to ``[0, max_groups)``."""
+    return column.to(torch.int32).clamp(0, max_groups - 1)
+
+
 def _group_ids(columns: Dict[str, torch.Tensor], valid: torch.Tensor,
                group_by: Optional[str], max_groups: int) -> torch.Tensor:
     """Each row's group id in ``[0, max_groups)`` (int64): the group
@@ -253,8 +258,7 @@ def _group_ids(columns: Dict[str, torch.Tensor], valid: torch.Tensor,
     draw, position 0 of the rung on a staged one."""
     if group_by is None:
         return torch.zeros(valid.shape[0], dtype=torch.int64, device=valid.device)
-    gid = columns[group_by].to(torch.int32).clamp(0, max_groups - 1).to(torch.int64)
-    return torch.where(valid, gid, 0)
+    return torch.where(valid, _clamp_groups(columns[group_by], max_groups).to(torch.int64), 0)
 
 
 @dataclasses.dataclass

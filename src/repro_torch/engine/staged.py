@@ -202,13 +202,17 @@ class SampleCatalog:
         tables exactly as dist shard executors do)."""
         with self._lock:
             ladders = [lad for t, lad in self._ladders.items() if t != name]
+        copies = {}
         for lad in ladders:
             for rung in lad.rungs:
                 compilers = ([rung.compiler] if rung.compiler else []) + \
                     [p.compiler for p in rung.parts or [] if p.compiler]
                 for c in compilers:
                     if name in c.catalog:
-                        c.catalog[name] = table.to(c.catalog[lad.name].device)
+                        dev = c.catalog[lad.name].device
+                        if dev not in copies:
+                            copies[dev] = table.to(dev)
+                        c.catalog[name] = copies[dev]
 
     # -- lookup ---------------------------------------------------------------
     def ladder(self, name: str) -> Optional[StagedLadder]:

@@ -81,6 +81,10 @@ class BlockTable:
     def device(self) -> torch.device:
         return next(iter(self.columns.values())).device
 
+    @property
+    def column_names(self):
+        return list(self.columns.keys())
+
     def row_bytes(self) -> int:
         return sum(int(c.element_size()) for c in self.columns.values())
 
@@ -88,6 +92,12 @@ class BlockTable:
         return self.row_bytes() * self.padded_rows
 
     # -- derived tables -----------------------------------------------------
+    def with_valid(self, valid: torch.Tensor) -> "BlockTable":
+        return dataclasses.replace(self, valid=valid)
+
+    def with_columns(self, columns: Dict[str, torch.Tensor]) -> "BlockTable":
+        return dataclasses.replace(self, columns=columns)
+
     def gather_blocks(self, block_indices: np.ndarray) -> "BlockTable":
         """Materialize only the given blocks, on this table's device.
 
@@ -144,6 +154,11 @@ class BlockTable:
             block_id=self.block_id.to(dev),
             num_origin_blocks=self.num_origin_blocks,
         )
+
+    def to_numpy(self) -> Dict[str, np.ndarray]:
+        """Every column's valid rows, on the host, in their stored dtypes."""
+        mask = self.valid.cpu().numpy()
+        return {c: v.cpu().numpy()[mask] for c, v in self.columns.items()}
 
     # -- constructors --------------------------------------------------------
     @staticmethod

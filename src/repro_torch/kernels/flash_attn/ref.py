@@ -94,3 +94,23 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
         return acc
 
     return dq.to(q.dtype), per_kv_head(dk_h).to(k.dtype), per_kv_head(dv_h).to(v.dtype)
+
+
+def attention_ref(q, k, v, *, scale: float, causal: bool, kv_len=None):
+    """q (Sq, d), k / v (Skv, d): attention with every score materialized,
+    one head, in f32; keys at or past ``kv_len`` are masked.  The
+    reference's dense oracle (``kernels/flash_attn/ref.py``), independent of
+    :func:`flash_attention_ref`'s batched GQA form; returns q's dtype."""
+    qf, kf, vf = (x.to(torch.float32) for x in (q, k, v))
+    s = (qf @ kf.T) * scale
+    sq, skv = q.shape[0], k.shape[0]
+    cols = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if kv_len is not None:
+        mask = mask & (cols < kv_len)
+    if causal:
+        mask = mask & (cols <= torch.arange(sq, device=q.device)[:, None])
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - s.amax(dim=1, keepdim=True))
+    p = p / p.sum(dim=1, keepdim=True)
+    return (p @ vf).to(q.dtype)

@@ -62,6 +62,22 @@ def gla_chunked_ref(q, k, v, g, *, chunk: int = CHUNK):
     return o, state
 
 
+def gla_recurrent_ref(q, k, v, g, *, initial_state=None):
+    """q, k, g (T, dk); v (T, dv): the recurrence ``S_t = diag(e^{g_t})
+    S_{t-1} + k_t v_t^T``, ``o_t = S_t^T q_t`` one step at a time in f32,
+    from ``initial_state`` (dk, dv) or zeros; g as given (no clamp).  The
+    reference's sequential oracle (``kernels/gla_chunk/ref.py``), independent
+    of chunking.  Returns (o (T, dv) in q's dtype, final state f32)."""
+    qf, kf, vf, gf = (x.to(torch.float32) for x in (q, k, v, g))
+    S = (torch.zeros((q.shape[1], v.shape[1]), dtype=torch.float32, device=q.device)
+         if initial_state is None else initial_state.to(torch.float32))
+    outs = []
+    for t in range(q.shape[0]):
+        S = S * torch.exp(gf[t])[:, None] + kf[t][:, None] * vf[t][None, :]
+        outs.append(S.T @ qf[t])
+    return torch.stack(outs).to(q.dtype), S
+
+
 def clamp_grad(g: torch.Tensor) -> torch.Tensor:
     """d clamp(g, -8, 0) / dg in f32 as the reference's ``jnp.clip``
     differentiates it: 1 inside, 0 outside, and 0.5 on either bound, where

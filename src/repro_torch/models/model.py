@@ -67,7 +67,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (decode_attention, heads, like, mea_attention,
+from repro_torch.models.layers import (decode_attention, heads, like, mea_attention, roll,
                                        mlp_block, rms_norm, rope)
 from repro_torch.models.linear_attn import gla_chunked, gla_decode_step
 from repro_torch.models.moe import moe_ffn, moe_ffn_dense
@@ -529,7 +529,7 @@ class Model(nn.Module):
                     elif n <= store:
                         cache[name][i, :, :, :n] = t
                     else:
-                        cache[name][i] = torch.roll(t[:, :, -store:], s % store, dims=2)
+                        cache[name][i] = roll(t[:, :, -store:], s % store, 2)
             if state is not None:
                 cache["ssm"][i] = state
             if enc_kv is not None:
@@ -592,7 +592,11 @@ class Model(nn.Module):
                     kc[rows, :, slot] = k
                     vc[rows, :, slot] = v
                 o = decode_attention(q, kc, vc, pos=seen, window=0)
-                attn_out = o.reshape(b, cfg.q_dim) @ p["wo"]
+                # on a mesh each branch's output is placed as the residual
+                # stream before it is added: for a batch the data axes do
+                # not divide, torch 2.11's DTensor otherwise picks a
+                # redistribution it cannot run (Shard to Partial)
+                attn_out = self._c(o.reshape(b, cfg.q_dim) @ p["wo"], "hidden2")
             if cfg.has_ssm:
                 nh, dk, dv = cfg.num_ssm_heads, cfg.ssm_state, _ssm_dv(cfg)
                 sq = heads(hn @ p["s_wq"], b, nh, dk)
@@ -601,7 +605,7 @@ class Model(nn.Module):
                 sg = heads(-F.softplus((hn @ p["s_wg"]) + p["s_gbias"]), b, nh, dk)
                 so, state = gla_decode_step(sq, sk, sv, sg, cache["ssm"][i])
                 cache["ssm"][i] = state
-                ssm_out = so.reshape(b, nh * dv) @ p["s_wo"]
+                ssm_out = self._c(so.reshape(b, nh * dv) @ p["s_wo"], "hidden2")
             if cfg.family == "hybrid":
                 x = x + (attn_out + ssm_out) / 2.0
             elif cfg.has_ssm:
@@ -613,7 +617,7 @@ class Model(nn.Module):
                 q = heads(hx @ p["xwq"], b, cfg.num_heads, cfg.head_dim)
                 xk, xv = cache["cross_k"][i], cache["cross_v"][i]
                 o = decode_attention(q, xk, xv, pos=enc_pos, window=0)
-                x = x + o.reshape(b, cfg.q_dim) @ p["xwo"]
+                x = x + self._c(o.reshape(b, cfg.q_dim) @ p["xwo"], "hidden2")
             hf = self._norm(x, p["ln2"], "norm2")
             if cfg.is_moe:
                 # dropless dense combine: exact routing, no sort or scatter
@@ -621,7 +625,13 @@ class Model(nn.Module):
                                   p["e_w2"], top_k=cfg.top_k, mlp_kind=cfg.mlp)
             else:
                 y = mlp_block(hf, p["w1"], p["w2"], p["w3"], cfg.mlp)
-            x = self._c(x + y, "hidden2")
+            x = self._c(x + self._c(y, "hidden2"), "hidden2")
         pos.add_(1)
         x = self._norm(x, self.final_norm, "norm2")
         return self._c(x @ self.head, "logits2"), cache
+
+
+def build_model(cfg: ModelConfig, device="cuda") -> Model:
+    """The reference's ``build_model``: a :class:`Model` of the validated
+    ``cfg`` on ``device``, allocated empty (call :meth:`Model.init`)."""
+    return Model(cfg.validate(), device=device)

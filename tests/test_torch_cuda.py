@@ -709,38 +709,67 @@ def test_shard_counts_answer_bitwise_on_the_card(cuda):
         np.testing.assert_allclose(first[0], want, rtol=1e-5)
 
 
-def test_shards_round_robin_over_cards_answer_bitwise(cuda):
-    """Shards placed round-robin over every visible card (it needs two or
-    more): each shard's tensors and its executor's replicated tables on its
-    own card, and the answers and pilot statistics bitwise those of the
-    same shard count on one card, fresh and staged."""
-    from repro_torch.dist import DistExecutor
+def test_shards_round_robin_over_cards_answer_bitwise(cuda, monkeypatch):
+    """With no devices named, shards go round-robin over every visible card
+    (it needs two or more), shard i on ``cuda:{i % k}``: each shard's
+    tensors and its executor's replicated tables on its own card, and the
+    answers and pilot statistics bitwise those of the same shard count
+    pinned to one card, fresh and staged; through ``DistExecutor`` and
+    through ``Session.register_table(shards=)`` (pinned there by standing
+    in for ``dist.shard.default_devices``: the session names no devices)."""
+    from repro_torch.dist import DistExecutor, shard
     n_cards = torch.cuda.device_count()
     if n_cards < 2:
         pytest.skip("needs two or more CUDA cards; one card is covered by "
                     "test_shard_counts_answer_bitwise_on_the_card")
     cards = [torch.device("cuda", i) for i in range(n_cards)]
+    one_card = [torch.device("cuda", 0)]
     cat = tpch_catalog(200_000, 32, seed=0, device="cuda:0")
     plans, sample, strip = _staged_plans()
     out = {}
-    for devices in (None, cards):
+    for devices in (None, one_card):
         for rates in ([1e-9], [0.04]):
             ex = DistExecutor(dict(cat), device="cuda:0")
             st = ex.register_sharded("lineitem", cat["lineitem"], 2 * n_cards,
                                      devices=devices)
             ex.register_staged("lineitem", rates, seed=9)
-            if devices is not None:
-                assert [s.table.device for s in st.shards] == \
-                    [cards[i % n_cards] for i in range(2 * n_cards)]
+            want_cards = (one_card * (2 * n_cards) if devices else
+                          [cards[i % n_cards] for i in range(2 * n_cards)])
+            assert [s.table.device for s in st.shards] == want_cards
+            for e, card in zip(ex._shard_executors["lineitem"], want_cards):
+                assert e.catalog["orders"].device == card
             for name, plan in plans.items():
                 p = sample(plan, 0.03)
                 out[(devices is None, rates[0], name)] = (
                     ex.execute(p).values,
                     ex.execute_pilot(strip(p), "lineitem", 0.03, 1).block_sums)
-    for (one_card, rate, name), (v, bs) in out.items():
-        want = out[(True, 1e-9, name)]
-        assert np.array_equal(_bits64(v), _bits64(want[0])), (one_card, rate, name)
-        assert np.array_equal(_bits64(bs), _bits64(want[1])), (one_card, rate, name)
+    for (spread, rate, name), (v, bs) in out.items():
+        want = out[(False, 1e-9, name)]
+        assert np.array_equal(_bits64(v), _bits64(want[0])), (spread, rate, name)
+        assert np.array_equal(_bits64(bs), _bits64(want[1])), (spread, rate, name)
+    answers = {}
+    for devices in (None, one_card):
+        s = Session(seed=42, config=SessionConfig(result_cache_size=0))
+        try:
+            s.register_table("orders", cat["orders"])
+            with monkeypatch.context() as m:
+                if devices:
+                    m.setattr(shard, "default_devices", lambda table: one_card)
+                s.register_table("lineitem", cat["lineitem"], shards=n_cards + 1,
+                                 staged_rates=True)
+            placed = [sh.table.device for sh in s.executor._sharded["lineitem"].shards]
+            assert placed == (one_card * (n_cards + 1) if devices else
+                              [cards[i % n_cards] for i in range(n_cards + 1)])
+            answers[devices is None] = [
+                s.sql(q + " ERROR 5% CONFIDENCE 95%").answer.values
+                for q in ("SELECT SUM(l_extendedprice * l_discount) AS r FROM lineitem "
+                          "WHERE l_shipdate BETWEEN 100 AND 1500 AND l_discount "
+                          "BETWEEN 0.02 AND 0.08",
+                          "SELECT SUM(l_extendedprice) AS s, COUNT(*) AS n FROM lineitem")]
+        finally:
+            s.close()
+    for a, b in zip(answers[True], answers[False]):
+        assert np.array_equal(_bits64(a), _bits64(b))
 
 
 def test_sharded_join_pilot_pair_sums_merge_bitwise_on_the_card(cuda):

@@ -142,3 +142,78 @@ def trace_step(rank, world, store_path, shape, out_path, arch, seq, batch):
                 json.dump(trace.result(), f)
     finally:
         dist.destroy_process_group()
+
+
+# decode_attention's placements on a mesh: (q, cache) per mesh dim, as
+# (data, model); the second is cache_pspecs' (batch on data, slots on model)
+DECODE_PLACEMENTS = {
+    "batch_heads": (("S0", "S1"), ("S0", "S1")),
+    "batch_slots": (("S0", "S1"), ("S0", "S2")),
+    "replicated_q": (("R", "R"), ("S0", "S2")),
+    "heads_slots": (("R", "S1"), ("S1", "S2")),
+}
+DECODE_ARCHS = ("internlm2-1.8b", "olmoe-1b-7b", "hymba-1.5b")
+DECODE_STEPS = 4
+PROMPT, CACHE_LEN = 20, 16      # a prompt longer than the cache: the ring's roll
+
+
+def decode(rank, world, store_path, shape, out_dir):
+    """``layers.decode_attention`` on DTensors of each placement of
+    ``DECODE_PLACEMENTS``, and a ``Model.prefill`` of PROMPT tokens into a
+    CACHE_LEN cache then DECODE_STEPS ``decode_step`` s of each
+    ``DECODE_ARCHS`` reduced config, sharded on a gloo (data, model) mesh;
+    rank 0 writes the whole outputs and the logits (``decode.npz``)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.models import Model
+    from repro_torch.models.layers import decode_attention
+    from repro_torch.train.sharding import shard_model
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    try:
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+        out = {}
+        q, k, v, pos = (torch.from_numpy(a) for a in decode_inputs())
+        pl = lambda names: [Replicate() if n == "R" else Shard(int(n[1])) for n in names]
+        for name, (q_pl, c_pl) in DECODE_PLACEMENTS.items():
+            for window in (0, 5):
+                o = decode_attention(distribute_tensor(q, mesh, pl(q_pl)),
+                                     distribute_tensor(k, mesh, pl(c_pl)),
+                                     distribute_tensor(v, mesh, pl(c_pl)),
+                                     pos=pos, window=window)
+                out[f"attn/{name}/{window}"] = full(o)
+        for arch in DECODE_ARCHS:
+            model = Model(reduced(arch), device="cpu").init(torch.Generator().manual_seed(0))
+            shard_model(model, mesh)
+            prompt, steps = decode_tokens(model.cfg)
+            lg, cache = model.prefill({"tokens": torch.from_numpy(prompt)}, cache_len=CACHE_LEN)
+            out[f"prefill/{arch}"] = full(lg)
+            for t, tok in enumerate(steps):
+                lg, cache = model.decode_step(cache, torch.from_numpy(tok))
+                out[f"logits/{arch}/{t}"] = full(lg)
+        if rank == 0:
+            np.savez(os.path.join(out_dir, "decode.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def decode_inputs():
+    """(q (4, 8, 16), caches (4, 4, 12, 16), pos (4,)) f32 / int32 numpy."""
+    rng = np.random.default_rng(3)
+    q = rng.standard_normal((4, 8, 16)).astype(np.float32)
+    k = rng.standard_normal((4, 4, 12, 16)).astype(np.float32)
+    v = rng.standard_normal((4, 4, 12, 16)).astype(np.float32)
+    return q, k, v, np.array([0, 4, 7, 11], np.int32)
+
+
+def decode_tokens(cfg):
+    """(a (4, PROMPT) prompt, DECODE_STEPS (4,) tokens), int32."""
+    rng = np.random.default_rng(9)
+    prompt = rng.integers(0, cfg.vocab_size, (4, PROMPT)).astype(np.int32)
+    return prompt, [rng.integers(0, cfg.vocab_size, 4).astype(np.int32)
+                    for _ in range(DECODE_STEPS)]
