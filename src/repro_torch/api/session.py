@@ -310,9 +310,7 @@ class QueryHandle:
                 self._frames.push(final_frame_for(
                     self.query_id, answer, cached=cached))
         if self._trace is not None:
-            self._trace.finish(
-                "ok", cached=cached,
-                fallback=answer.report.fallback if answer is not None else None)
+            self._trace.finish("ok")
         self._done_event.set()
         self._fire_on_complete()
 
@@ -752,8 +750,9 @@ class Session:
         shared = bool(rep.pilot_shared) if rep is not None else False
         staged = False
         if handle._trace is not None:  # staged rungs tag scan spans only
-            staged = any(sp.attrs.get("staged")
-                         for sp in handle._trace.find("scan"))
+            # a drain group's shared work is no one member's scan
+            staged = any(sp.attrs.get("staged") for sp in handle._trace.find(
+                "scan", skip=_trace.GROUP_SPANS))
         if self.timeseries is not None:
             self.timeseries.record_delivery(
                 key, sql=handle.sql, latency_s=latency,
@@ -1149,8 +1148,9 @@ class Session:
                         scanned_bytes=rep.pilot_scanned_bytes,
                         wall_s=round(rep.pilot_time_s, 6),
                         fallback=rep.fallback)
-                    pilot_est = advisory_estimate(handle.query, outcome,
-                                                  handle.spec.confidence)
+                    with _trace.span("advisory"):
+                        pilot_est = advisory_estimate(handle.query, outcome,
+                                                      handle.spec.confidence)
                     if pilot_est is not None:
                         handle._emit(pilot_frame_for(handle.query_id,
                                                      pilot_est))

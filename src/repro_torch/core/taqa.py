@@ -34,7 +34,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.core import bsap, propagation
-from repro_torch.core.allocation import ChannelBudget, allocate
+from repro_torch.core.allocation import allocate
 from repro_torch.core.planner import Constraint, pick_plan, solve_candidates
 from repro_torch.core.spec import CompositeAgg, ErrorSpec, SamplingPlan
 from repro_torch.engine import cost as cost_mod
@@ -43,7 +43,8 @@ from repro_torch.engine.executor import (EmptySampleError, Executor, PilotStats,
                                          QueryResult)
 from repro_torch.engine.physical import ScanRuntime
 from repro_torch.engine.sampling import draw_block_ids, pad_block_ids
-from repro_torch.stats import chi2_ppf, normal_ppf, student_t_ppf
+from repro_torch.obs import trace as _trace
+from repro_torch.stats import chi2_ppf, normal_ppf, ppf_calls, student_t_ppf
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,7 +64,6 @@ class TaqaReport:
     n_pilot_blocks: int = 0
     plan: Optional[SamplingPlan] = None
     fallback: Optional[str] = None        # reason, if exact execution was used
-    num_channels: int = 0
     exact_cost: float = 0.0
     pilot_time_s: float = 0.0
     plan_time_s: float = 0.0
@@ -72,6 +72,9 @@ class TaqaReport:
     final_scanned_bytes: int = 0
     exact_scanned_bytes: int = 0
     candidates: int = 0
+    # percentile evaluations (normal, t, chi-squared) of this query's rate
+    # solve, counted on its thread
+    ppf_calls: int = 0
     group_coverage_guaranteed: bool = True
     # True when a pilot stage actually executed for this query (False for
     # pre-pilot fallbacks: no large table, strict-coverage violation).
@@ -739,55 +742,59 @@ class PilotDB:
 
         # --- budgets & constraints -------------------------------------------
         t0 = time.perf_counter()
+        calls0 = ppf_calls()
         present = np.nonzero(pilot.group_present)[0]
 
-        channel_budgets: List[Tuple[int, ChannelBudget]] = []
         n_constraints = 0
         for comp, idxs in zip(q.aggs, comp_channels):
             n_constraints += len(idxs) * len(present)
-        report.num_channels = n_constraints
 
         constraints: List[Constraint] = []
         infeasible_reason = None
-        for comp, idxs in zip(q.aggs, comp_channels):
-            e_part = propagation.split_budget(comp.kind, spec.error)
-            for ch in idxs:
-                budget = allocate(spec.confidence, n_constraints, e_part)
-                for g in present:
-                    y = pilot.block_sums[:, g, ch]
-                    # L_μ of the population total: N · (block-mean lower bound)
-                    L_mu = pilot.n_total_blocks * bsap.block_mean_lower(y, budget.delta1)
-                    if not np.isfinite(L_mu) or L_mu <= 0.0:
-                        infeasible_reason = (
-                            f"non-positive aggregate lower bound (agg={comp.name}, group={g})")
+        with _trace.span("bounds"):
+            for comp, idxs in zip(q.aggs, comp_channels):
+                e_part = propagation.split_budget(comp.kind, spec.error)
+                for ch in idxs:
+                    budget = allocate(spec.confidence, n_constraints, e_part)
+                    for g in present:
+                        y = pilot.block_sums[:, g, ch]
+                        # L_μ of the population total: N · (block-mean lower bound)
+                        L_mu = pilot.n_total_blocks * bsap.block_mean_lower(y, budget.delta1)
+                        if not np.isfinite(L_mu) or L_mu <= 0.0:
+                            infeasible_reason = (
+                                f"non-positive aggregate lower bound (agg={comp.name}, group={g})")
+                            break
+                        z = bsap.z_for(budget.p_prime)
+                        var_fn = self._make_var_fn(pilot, pilot_table, pair_tables,
+                                                   ch, g, theta_p, budget.delta2)
+                        constraints.append(Constraint(
+                            label=f"{comp.name}[g{g}]ch{ch}", z=z, L_mu=L_mu,
+                            error=budget.error, var_fn=var_fn))
+                    if infeasible_reason:
                         break
-                    z = bsap.z_for(budget.p_prime)
-                    var_fn = self._make_var_fn(pilot, pilot_table, pair_tables,
-                                               ch, g, theta_p, budget.delta2)
-                    constraints.append(Constraint(
-                        label=f"{comp.name}[g{g}]ch{ch}", z=z, L_mu=L_mu,
-                        error=budget.error, var_fn=var_fn))
                 if infeasible_reason:
                     break
-            if infeasible_reason:
-                break
         if infeasible_reason:
             report.plan_time_s = time.perf_counter() - t0
+            report.ppf_calls = ppf_calls() - calls0
             stage.answer = self._exact(q, plan, comp_channels, report,
                                        infeasible_reason)
             return stage
 
         # --- Stage 2: plan optimization ----------------------------------------
         sampleable = [pilot_table] + [t for t in pair_tables]
-        candidates = solve_candidates(constraints, sampleable,
-                                      max_rate=spec.max_final_rate)
+        with _trace.span("solve"):
+            candidates = solve_candidates(constraints, sampleable,
+                                          max_rate=spec.max_final_rate)
         report.candidates = len(candidates)
-        chosen = pick_plan(
-            candidates,
-            cost_fn=lambda rates: cost_mod.plan_cost(plan, self.ex.catalog, rates),
-            exact_cost=report.exact_cost,
-        )
+        with _trace.span("pick"):
+            chosen = pick_plan(
+                candidates,
+                cost_fn=lambda rates: cost_mod.plan_cost(plan, self.ex.catalog, rates),
+                exact_cost=report.exact_cost,
+            )
         report.plan_time_s = time.perf_counter() - t0
+        report.ppf_calls = ppf_calls() - calls0
         if chosen is None:
             stage.answer = self._exact(q, plan, comp_channels, report,
                                        "no feasible plan cheaper than exact")

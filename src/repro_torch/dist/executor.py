@@ -46,6 +46,7 @@ import torch
 from repro_torch.dist import merge
 from repro_torch.dist.shard import ShardedTable, shard_block_ids
 from repro_torch.engine import logical as L
+from repro_torch.engine import syncs
 from repro_torch.engine.executor import (EmptySampleError, Executor,
                                          PilotStats, QueryResult)
 from repro_torch.engine.physical import (ScanRuntime, SharedBuildStore,
@@ -371,12 +372,18 @@ class DistExecutor(Executor):
         for index, start, local_ids, n_real, (bs_d, _present, pair_d) in raw:
             nbytes = n_real * sharded.block_rows * sharded.row_bytes
             self._note_shard_scan(table, index, nbytes)
+            bs_d = bs_d.double()
+            with syncs.host_read(bs_d):
+                block_sums = bs_d.cpu().numpy()[:n_real]
+            pair_sums = None
+            if pair_d is not None:
+                pair_d = pair_d[:n_real]
+                with syncs.host_read(pair_d):
+                    pair_sums = pair_d.cpu().double().numpy()
             parts.append(merge.ShardPart(
                 shard_index=index,
                 global_ids=local_ids.astype(np.int64) + start,
-                block_sums=bs_d.double().cpu().numpy()[:n_real],
-                pair_sums=(None if pair_d is None
-                           else pair_d[:n_real].cpu().double().numpy()),
+                block_sums=block_sums, pair_sums=pair_sums,
                 scanned_bytes=nbytes))
         return parts
 

@@ -48,7 +48,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.engine import logical as L
-from repro_torch.engine import ops
+from repro_torch.engine import ops, syncs
 from repro_torch.engine.physical import (PhysicalCompiler, ScanRuntime,
                                          SharedBuildStore,
                                          plan_constants, scan_cost_bytes)
@@ -340,8 +340,9 @@ class Executor:
         table = self._run_relational(plan.child, infos)
         # every channel and, last, the row count: one segmented sum
         exprs = [None if a.op == "count" else a.expr for a in plan.aggs] + [None]
-        out = ops.grouped_sums(table, exprs, plan.group_by, plan.max_groups)
-        out = out.double().cpu().numpy()
+        out = ops.grouped_sums(table, exprs, plan.group_by, plan.max_groups).double()
+        with syncs.host_read(out):
+            out = out.cpu().numpy()
         sums, counts = out[:-1], out[-1]
         self._check_empty(infos)
         values = self._compose_values(plan, sums, counts, self._upscale(infos))
@@ -437,14 +438,18 @@ class Executor:
                        compiler: PhysicalCompiler) -> QueryResult:
         """The device half of :meth:`execute`, on a sample already drawn
         (through ``compiler``, a staged rung's, or the executor's own)."""
-        compiled = compiler.compile_query(plan, runtimes)
-        # Predicate/expression constants ride as a runtime operand: the
-        # compiled callable is shared across every constant variant.
-        self._count("device_dispatches")
-        sums_d, counts_d = compiled(runtimes, plan_constants(plan))
-        # the single device→host boundary of the query
-        sums = sums_d.double().cpu().numpy()
-        counts = counts_d.double().cpu().numpy()
+        with _trace.span("dispatch"):
+            compiled = compiler.compile_query(plan, runtimes)
+            # Predicate/expression constants ride as a runtime operand: the
+            # compiled callable is shared across every constant variant.
+            self._count("device_dispatches")
+            sums_d, counts_d = compiled(runtimes, plan_constants(plan))
+        # the query's device→host boundary: its sums, then its counts
+        sums_d, counts_d = sums_d.double(), counts_d.double()
+        with syncs.host_read(sums_d):
+            sums = sums_d.cpu().numpy()
+        with syncs.host_read(counts_d):
+            counts = counts_d.cpu().numpy()
         values = self._compose_values(plan, sums, counts, self._upscale(infos))
         return QueryResult(
             agg_names=[a.name for a in plan.aggs],
@@ -544,15 +549,20 @@ class Executor:
     def _run_bucket(self, plans, idxs, drawn, results) -> None:
         """One batched launch for members ``idxs`` of one bucket."""
         t0 = time.perf_counter()
-        compiled = self.physical.compile_batched_query(
-            plans[idxs[0]], drawn[idxs[0]][0], len(idxs))
-        self._count("device_dispatches")
-        sums_d, counts_d = compiled.call_batch(
-            [drawn[i][0] for i in idxs],
-            [plan_constants(plans[i]) for i in idxs])
+        with _trace.span("dispatch"):
+            compiled = self.physical.compile_batched_query(
+                plans[idxs[0]], drawn[idxs[0]][0], len(idxs))
+            self._count("device_dispatches")
+            sums_d, counts_d = compiled.call_batch(
+                [drawn[i][0] for i in idxs],
+                [plan_constants(plans[i]) for i in idxs])
+        _trace.note_lanes(len(idxs))
         # one device→host boundary for the whole bucket
-        sums_b = sums_d.double().cpu().numpy()
-        counts_b = counts_d.double().cpu().numpy()
+        sums_d, counts_d = sums_d.double(), counts_d.double()
+        with syncs.host_read(sums_d):
+            sums_b = sums_d.cpu().numpy()
+        with syncs.host_read(counts_d):
+            counts_b = counts_d.cpu().numpy()
         wall = time.perf_counter() - t0
         for k, i in enumerate(idxs):
             self._count("queries_run")
@@ -593,8 +603,7 @@ class Executor:
         """
         # One "scan" span per attempt: a stage's undershoot retries show as
         # sibling spans under the handle's "pilot" span.
-        with _trace.span("scan", pilot=True, table=pilot_table,
-                         theta_pilot=theta_p) as sp:
+        with _trace.span("scan", pilot=True) as sp:
             if self.use_compiled:
                 stats = self._execute_pilot_compiled(
                     plan, pilot_table, theta_p, seed, pair_tables)
@@ -653,19 +662,25 @@ class Executor:
             runtime = ScanRuntime("block", n_real, n_phys, phys)
             compiler = self.physical
         pair_table = pair_tables[0] if pair_tables else None
-        compiled = compiler.compile_pilot(plan, pilot_table, runtime,
-                                          pair_table)
-        self._count("device_dispatches")
-        bs_d, present_d, pair_d = compiled({pilot_table: runtime},
-                                           plan_constants(plan))
+        with _trace.span("dispatch"):
+            compiled = compiler.compile_pilot(plan, pilot_table, runtime,
+                                              pair_table)
+            self._count("device_dispatches")
+            bs_d, present_d, pair_d = compiled({pilot_table: runtime},
+                                               plan_constants(plan))
         # the pilot's device→host boundary; the pair sums are sliced to the
         # real blocks on the device, then widened on the host
-        block_sums = bs_d.double().cpu().numpy()[:n_real]
-        present = present_d.cpu().numpy().astype(bool)
+        bs_d = bs_d.double()
+        with syncs.host_read(bs_d):
+            block_sums = bs_d.cpu().numpy()[:n_real]
+        with syncs.host_read(present_d):
+            present = present_d.cpu().numpy().astype(bool)
         pair_sums: Dict[str, np.ndarray] = {}
         right_total: Dict[str, int] = {}
         if pair_d is not None:
-            pair_sums[pair_table] = pair_d[:n_real].cpu().double().numpy()
+            pair_d = pair_d[:n_real]
+            with syncs.host_read(pair_d):
+                pair_sums[pair_table] = pair_d.cpu().double().numpy()
             right_total[pair_table] = self.catalog[pair_table].num_blocks
         return PilotStats(
             table=pilot_table,
@@ -748,20 +763,23 @@ class Executor:
         reach here: the caller sends them solo.
         """
         batch = len(plans)
-        compiled = self.physical.compile_batched_pilot(
-            plans[0], pilot_table, runtimes_list[0][pilot_table], batch)
-        t0 = time.perf_counter()
-        with _trace.span("scan", pilot=True, table=pilot_table,
-                         batched=batch) as sp:
-            self._count("device_dispatches")
-            bs_d, present_d = compiled.call_batch(
-                runtimes_list, [plan_constants(p) for p in plans])
+        with _trace.span("scan", pilot=True, batched=batch) as sp:
+            with _trace.span("dispatch"):
+                compiled = self.physical.compile_batched_pilot(
+                    plans[0], pilot_table, runtimes_list[0][pilot_table], batch)
+                t0 = time.perf_counter()
+                self._count("device_dispatches")
+                bs_d, present_d = compiled.call_batch(
+                    runtimes_list, [plan_constants(p) for p in plans])
+            _trace.note_lanes(batch)
             # the group's one device->host copy: block sums and presence
             # side by side (f32 -> f64 is exact, so the bits are the solo
             # pilot's)
             width = bs_d[0].numel()
-            host = torch.cat([bs_d.reshape(batch, width),
-                              present_d.to(bs_d.dtype)], dim=1).double().cpu().numpy()
+            both = torch.cat([bs_d.reshape(batch, width),
+                              present_d.to(bs_d.dtype)], dim=1).double()
+            with syncs.host_read(both):
+                host = both.cpu().numpy()
             bs_b = host[:, :width].reshape(bs_d.shape)
             present_b = host[:, width:] > 0
             sp.set(n_blocks=sum(r[pilot_table].n_real for r in runtimes_list))
@@ -804,25 +822,26 @@ class Executor:
         ``padded`` comes back cut to its nsel real ids; ``sums`` and
         ``counts`` are None where nsel is 0.
         """
-        compiled = self.physical.compile_fused(plan, pilot_table, runtimes,
-                                               tuple(solve_channels))
-        with _trace.span("scan", fused=True, table=pilot_table) as sp:
-            self._count("device_dispatches")
-            bs_d, present_d, theta_d, flags, nsel, padded_d, sums_d, counts_d = \
-                compiled.call_fused(runtimes, plan_constants(plan), solve, scal, u)
-            # the program's device→host boundary
-            theta, theta_eff = theta_d.tolist()
-            out = {
-                "block_sums": bs_d.double().cpu().numpy(),
-                "present": present_d.cpu().numpy().astype(bool),
-                "theta": theta,
-                "theta_eff": theta_eff,
-                "flags": flags,
-                "nsel": nsel,
-                "padded": padded_d[:nsel].cpu().numpy(),
-                "sums": None if sums_d is None else sums_d.double().cpu().numpy(),
-                "counts": None if counts_d is None else counts_d.double().cpu().numpy(),
-            }
+        with _trace.span("scan", fused=True) as sp:
+            with _trace.span("dispatch"):
+                compiled = self.physical.compile_fused(
+                    plan, pilot_table, runtimes, tuple(solve_channels))
+                self._count("device_dispatches")
+                bs_d, present_d, theta_d, flags, nsel, padded_d, sums_d, counts_d = \
+                    compiled.call_fused(runtimes, plan_constants(plan), solve, scal, u)
+            # the program's device→host boundary, one read an output
+            with syncs.host_read(theta_d):
+                theta, theta_eff = theta_d.tolist()
+            out = {"theta": theta, "theta_eff": theta_eff, "flags": flags,
+                   "nsel": nsel, "sums": None, "counts": None}
+            reads = [("block_sums", bs_d.double()), ("present", present_d),
+                     ("padded", padded_d[:nsel])]
+            if sums_d is not None:
+                reads += [("sums", sums_d.double()), ("counts", counts_d.double())]
+            for key, t in reads:
+                with syncs.host_read(t):
+                    out[key] = t.cpu().numpy()
+            out["present"] = out["present"].astype(bool)
             sp.set(n_blocks=runtimes[pilot_table].n_real,
                    theta_final=theta, fused_flags=int(flags))
         return out, compiled

@@ -16,6 +16,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.engine import syncs
 from repro_torch.engine.expr import Expr, eval_expr
 from repro_torch.engine.physical import _clamp_groups, _group_ids, channel_matrix
 from repro_torch.engine.table import BlockTable
@@ -131,7 +132,9 @@ def block_group_sums(table: BlockTable, exprs: Sequence[Optional[Expr]],
     dense = segment_sum(vals, seg, n_origin * max_groups)
     stacked = dense.reshape(len(exprs), n_origin, max_groups).permute(1, 2, 0)
     idx = torch.as_tensor(np.asarray(block_ids, np.int64), device=table.device)
-    return stacked[idx].double().cpu().numpy()
+    out = stacked[idx].double()
+    with syncs.host_read(out):
+        return out.cpu().numpy()
 
 
 def block_pair_sums(table: BlockTable, exprs: Sequence[Optional[Expr]],
@@ -154,4 +157,6 @@ def block_pair_sums(table: BlockTable, exprs: Sequence[Optional[Expr]],
     vals = channel_matrix(table.columns, table.valid, exprs)
     dense = segment_sum(vals, seg, (n_p + 1) * n_right_blocks)
     out = dense.reshape(len(exprs), n_p + 1, n_right_blocks)[:, :n_p]
-    return out.permute(1, 2, 0).double().cpu().numpy()
+    out = out.permute(1, 2, 0).double()
+    with syncs.host_read(out):
+        return out.cpu().numpy()

@@ -87,6 +87,7 @@ import numpy as np
 import torch
 
 from repro_torch.engine import logical as L
+from repro_torch.engine import syncs
 from repro_torch.engine.expr import And, Between, BinOp, Cmp, Col, Expr, eval_expr
 from repro_torch.engine.table import BlockTable
 from repro_torch.kernels.block_agg import block_agg, block_agg_batched
@@ -145,6 +146,17 @@ class ScanRuntime:
         if self.method == "block":
             return ("block", self.n_phys)
         return (self.method,)
+
+
+def to_device(a: np.ndarray, dev) -> torch.Tensor:
+    """A host array copied to ``dev``.  From pageable host memory the copy
+    returns once the stream has run up to it, so it is a ``host_read``;
+    an empty array copies nothing."""
+    t = torch.from_numpy(a)
+    if not t.numel():
+        return t.to(dev)
+    with syncs.host_read(a):
+        return t.to(dev)
 
 
 # ---------------------------------------------------------------------------
@@ -521,7 +533,7 @@ class _CompiledBase:
         they were made and are used as they are."""
         dev = self._device()
         rt = {"catalog": self.catalog, "ids": {}, "nreal": {}, "mask": {},
-              "params": torch.as_tensor(np.asarray(params, np.float32), device=dev)}
+              "params": to_device(np.asarray(params, np.float32), dev)}
         for name in self.needed:
             method = self.methods.get(name, "none")
             r = runtimes.get(name)
@@ -538,7 +550,7 @@ class _CompiledBase:
                         ids.min() < 0 or ids.max() >= nb)):
                     raise ValueError(
                         f"block ids of {name!r} must be ({r.n_phys},) in [0, {nb})")
-                rt["ids"][name] = torch.from_numpy(ids).to(dev)
+                rt["ids"][name] = to_device(ids, dev)
                 rt["nreal"][name] = r.n_real
             elif method == "row":
                 rt["mask"][name] = self._mask(name, r.keep_mask, dev)
@@ -549,7 +561,9 @@ class _CompiledBase:
         mask = torch.as_tensor(keep_mask)
         if mask.dtype != torch.bool or tuple(mask.shape) != (rows,):
             raise ValueError(f"row mask of {name!r} must be ({rows},) bool")
-        return mask.to(dev)
+        if mask.device.type != "cpu":  # already on a card: no host wait
+            return mask.to(dev)
+        return to_device(mask.numpy(), dev)
 
     def __call__(self, runtimes: Dict[str, ScanRuntime], params=()):
         return self.fn(self._runtime_args(runtimes, params))
@@ -600,8 +614,8 @@ class CompiledBatch(_CompiledBase):
                 f"{len(runtimes_list)} runtimes and {len(params_list)} params")
         dev = self._device()
         rt = {"catalog": self.catalog, "ids": {}, "nreal": {}, "mask": {},
-              "params": torch.as_tensor(np.asarray(params_list, np.float32)
-                                        .reshape(self.batch, -1), device=dev)}
+              "params": to_device(np.asarray(params_list, np.float32)
+                                  .reshape(self.batch, -1), dev)}
         for name in self.needed:
             method = self.methods.get(name, "none")
             if method == "none":
@@ -621,7 +635,7 @@ class CompiledBatch(_CompiledBase):
             if ids is None or (ids.size and (ids.min() < 0 or ids.max() >= nb)):
                 raise ValueError(f"block ids of {name!r} must be "
                                  f"({self.batch}, {n_phys}) in [0, {nb})")
-            rt["ids"][name] = torch.from_numpy(ids).to(dev)
+            rt["ids"][name] = to_device(ids, dev)
             rt["nreal"][name] = [r.n_real for r in rows]
         return self.fn(rt)
 
@@ -708,11 +722,11 @@ class CompiledFused(_CompiledBase):
         rt = self._runtime_args(runtimes, params)
         dev = self._device()
         solve = np.asarray(solve, np.float32).reshape(-1, 5)
-        packed = torch.from_numpy(np.concatenate(
-            [solve.ravel(), np.asarray(scal, np.float32)])).to(dev)
+        packed = to_device(np.concatenate(
+            [solve.ravel(), np.asarray(scal, np.float32)]), dev)
         rt["solve"] = packed[:solve.size].view(-1, 5)
         rt["scal"] = packed[solve.size:]
-        rt["u"] = torch.from_numpy(np.asarray(u, np.float32)).to(dev)
+        rt["u"] = to_device(np.asarray(u, np.float32), dev)
         return self.fn(rt)
 
 
@@ -844,7 +858,10 @@ class PhysicalCompiler:
                     with self._lock:
                         self.shared_hits += 1
                 else:
-                    compiled = build()
+                    # a miss builds: this span shows a build where the
+                    # stage's hits and misses alone could only hint at one
+                    with _trace.span("compile"):
+                        compiled = build()
                     if self._shared is not None:
                         self._shared.put(key, compiled)
             except BaseException as e:
@@ -1239,8 +1256,8 @@ class PhysicalCompiler:
         pilot_run = self._build_pilot(template, pilot_table,
                                       runtimes[pilot_table].n_phys, None, needed).fn
         final_run, route = self._query_run(template, runtimes, needed)
-        ch_idx = torch.tensor(solve_channels, dtype=torch.int32,
-                              device=self.catalog[pilot_table].device)
+        ch_idx = to_device(np.asarray(solve_channels, np.int32),
+                           self.catalog[pilot_table].device)
 
         def run(rt):
             bs, present, _ = pilot_run(rt)   # (n_phys_p, 1, n_ch), (1,)
@@ -1249,7 +1266,9 @@ class PhysicalCompiler:
                                            rt["solve"], rt["scal"])
             nsel_d, padded = taqa_draw_compact(rt["u"], theta[1:])
             # the program's one host read before the final
-            nsel, flag_bits = torch.cat((nsel_d, flags)).tolist()
+            both = torch.cat((nsel_d, flags))
+            with syncs.host_read(both):
+                nsel, flag_bits = both.tolist()
             sums = counts = None
             if nsel > 0:
                 b = buckets[sum(nsel > x for x in buckets[:-1])]

@@ -20,7 +20,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.engine import syncs
 from repro_torch.engine.table import BlockTable
+from repro_torch.obs import trace as _trace
 
 
 @dataclasses.dataclass
@@ -49,7 +51,17 @@ def bucket_blocks(k: int) -> int:
 
 
 def draw_block_ids(num_blocks: int, rate: float, seed: int) -> np.ndarray:
-    """The host-side Bernoulli block draw — the TABLESAMPLE SYSTEM decision."""
+    """The host-side Bernoulli block draw — the TABLESAMPLE SYSTEM decision —
+    in a ``draw`` span (every block draw of a query is one of these)."""
+    with _trace.span("draw", n_blocks=num_blocks, rate=rate) as sp:
+        ids = _bernoulli_block_ids(num_blocks, rate, seed)
+        sp.set(n_drawn=len(ids))
+    return ids
+
+
+def _bernoulli_block_ids(num_blocks: int, rate: float, seed: int) -> np.ndarray:
+    """:func:`draw_block_ids` without its span, for a caller whose own
+    ``draw`` span covers it (the staged sub-draw)."""
     rng = np.random.default_rng(seed)
     keep = rng.random(num_blocks) < rate
     return np.nonzero(keep)[0].astype(np.int32)
@@ -79,7 +91,7 @@ def subdraw_positions(rung_ids: np.ndarray, num_blocks: int, rate: float,
     ``positions`` (both ascending, so ``searchsorted`` is exact) addresses
     each sub-drawn block within the rung (``repro_torch.engine.staged``).
     """
-    sub_ids = draw_block_ids(num_blocks, rate, seed)
+    sub_ids = _bernoulli_block_ids(num_blocks, rate, seed)
     positions = np.searchsorted(np.asarray(rung_ids), sub_ids).astype(np.int32)
     return sub_ids, positions
 
@@ -133,10 +145,14 @@ def draw_row_sample(table: BlockTable, rate: float,
     rows are counted on the device; the full scan is paid."""
     from repro_torch.engine.physical import scan_cost_bytes
 
-    keep = torch.from_numpy(draw_row_mask(table.padded_rows, rate, seed)).to(table.device)
+    mask = draw_row_mask(table.padded_rows, rate, seed)
+    with syncs.host_read(mask):
+        keep = torch.from_numpy(mask).to(table.device)
     info = SampleInfo("row", rate, seed, None, table.num_blocks, None,
                       scanned_bytes=scan_cost_bytes(table, "row"))
-    info.n_sampled_rows = int((table.valid & keep).sum())
+    kept = (table.valid & keep).sum()
+    with syncs.host_read(kept):
+        info.n_sampled_rows = int(kept)
     info.n_total_rows = table.num_rows
     return keep, info
 

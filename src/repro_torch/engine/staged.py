@@ -43,7 +43,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.engine.physical import PhysicalCompiler
+from repro_torch.engine.physical import PhysicalCompiler, to_device
 from repro_torch.engine.sampling import (bucket_blocks, draw_block_ids,
                                          restrict_block_ids, subdraw_positions)
 from repro_torch.engine.table import BlockTable
@@ -376,8 +376,8 @@ def _padded_on(table: Optional[BlockTable], positions: np.ndarray,
         return phys, None, None
     if len(phys) and (phys.min() < 0 or phys.max() >= table.num_blocks):
         raise ValueError(f"rung positions must lie in [0, {table.num_blocks})")
-    return (phys, torch.from_numpy(phys).to(table.device),
-            torch.tensor(n_real, dtype=torch.int32, device=table.device))
+    return (phys, to_device(phys, table.device),
+            to_device(np.asarray(n_real, np.int32), table.device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -408,7 +408,9 @@ def prepare_mono_subdraw(ladder: StagedLadder, rung: StagedRung,
                          rate: float) -> Optional[MonoSubdraw]:
     """The memoized sub-draw of ``rung`` at ``rate``, or None when the
     budget dropped the rung after ``rung_for`` returned it (a miss: the
-    caller draws fresh under the pinned seed)."""
+    caller draws fresh under the pinned seed).  Its ``draw`` span stands
+    where a fresh draw's would, with ``staged`` True where a rung served
+    it."""
     def build() -> Optional[MonoSubdraw]:
         if not rung.resident:
             return None
@@ -420,7 +422,12 @@ def prepare_mono_subdraw(ladder: StagedLadder, rung: StagedRung,
                                                n_real, n_phys)
         return MonoSubdraw(sub_ids, phys, n_real, n_phys, rung.compiler,
                            phys_dev=phys_dev, nreal_dev=nreal_dev)
-    return ladder.memo(("mono", rung.rate, float(rate)), build)
+    with _trace.span("draw", staged=True, n_blocks=ladder.num_blocks,
+                     rate=rate) as sp:
+        sub = ladder.memo(("mono", rung.rate, float(rate)), build)
+        # no sub-draw: the rung is gone and the caller draws fresh
+        sp.set(**({"staged": False} if sub is None else {"n_drawn": sub.n_real}))
+    return sub
 
 
 @dataclasses.dataclass(frozen=True)

@@ -26,7 +26,10 @@ every stage of the port ends in a host read of its outputs; no span adds a
 synchronization of its own.
 
 See ``docs/observability.md`` for the span vocabulary, metric names, the
-event-record schema, and the non-perturbation contract all six share.
+event-record schema, and the non-perturbation contract all six share, and
+``docs/torch_observability.md`` for the spans the port adds (the host draw,
+the dispatch, compilations and host reads of each scan, the advisory
+estimate, the rate solve's parts, a drain group's shared work).
 """
 
 from repro_torch.obs.trace import QueryTrace, span, annotate, annotate_count  # noqa: F401

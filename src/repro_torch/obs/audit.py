@@ -34,6 +34,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from repro_torch.obs.trace import GROUP_SPANS
+
 __all__ = ["AuditRecord", "GuaranteeAuditor", "explain", "provenance_of"]
 
 
@@ -83,7 +85,9 @@ def provenance_of(handle) -> str:
             if sp.name == "fused" and sp.attrs.get("engaged"):
                 tags.append("fused")
             for c in sp.children:
-                walk(c)
+                # a drain group's shared work is no one member's provenance
+                if c.name not in GROUP_SPANS:
+                    walk(c)
 
         walk(trace.root)
     if not handle.cached and getattr(handle, "_fused", False):

@@ -130,9 +130,11 @@ def execute_group(session: "Session", handles: List["QueryHandle"]) -> None:
             for h in live:
                 h._mark_running()
         gens = [session._scan_generations(live[0].query) for live in shared]
-        pre = session.db.run_pilots_batched(
-            [(live[0].query, live[0].spec, session._pilot_seed_for(live[0]))
-             for live in shared])
+        with _trace.group_span("group_pilots",
+                               [h._trace for live in shared for h in live]):
+            pre = session.db.run_pilots_batched(
+                [(live[0].query, live[0].spec, session._pilot_seed_for(live[0]))
+                 for live in shared])
 
     # Stage-2 planning per subgroup, fanned out on the pilot pool; results
     # come back in submission order and every seed is content-derived, so
@@ -174,8 +176,10 @@ def execute_group(session: "Session", handles: List["QueryHandle"]) -> None:
             p, box = by_stage[id(stage)]
             _complete_one(session, p, box)
 
-        session.db.run_finals_batched(
-            [pb[0].stage for pb in by_stage.values()], on_answer=on_answer)
+        with _trace.group_span("group_finals", [p.handle._trace
+                                                for p, _ in by_stage.values()]):
+            session.db.run_finals_batched(
+                [pb[0].stage for pb in by_stage.values()], on_answer=on_answer)
 
     for pend, box in zip(subgroups, boxes):
         for p in pend:
@@ -239,9 +243,9 @@ def _pilot_and_prepare(session: "Session", live: List["QueryHandle"],
                 scanned_bytes=rep.pilot_scanned_bytes,
                 fallback=rep.fallback)
     else:
-        # the shared pilot runs ONCE, on the leader's trace: deep tags
-        # (staged rung, shard fan-out, compile hit/miss) annotate the
-        # leader's open "pilot" span; members get a summary span below
+        # the shared pilot runs ONCE, on the leader's trace: its scans (and
+        # their draws, dispatches and reads, staged and shard tags) nest in
+        # the leader's "pilot" span; members get a summary span below
         token = _trace.activate(leader._trace)
         try:
             with _trace.span("pilot", shared=shared, owner=True,
@@ -279,13 +283,26 @@ def _pilot_and_prepare(session: "Session", live: List["QueryHandle"],
     # fan the pilot's advisory estimate out to EVERY member the moment
     # stage 1 returns, before any stage-2 planning or launch.  Members share
     # pilot statistics but not necessarily confidence, so the t-interval is
-    # computed per distinct confidence level.  The estimate is host numpy
+    # computed per distinct confidence level, each on the leader's trace;
+    # the other members get a summary span.  The estimate is host numpy
     # over block sums already on the host; the result cache records it.
     ests: Dict[float, Optional[object]] = {}
+    spent: Dict[float, Tuple[float, float]] = {}
     for h in live:
         conf = h.spec.confidence
         if conf not in ests:
-            ests[conf] = advisory_estimate(h.query, outcome, conf)
+            t0 = time.perf_counter()
+            token = _trace.activate(leader._trace)
+            try:
+                with _trace.span("advisory"):
+                    ests[conf] = advisory_estimate(h.query, outcome, conf)
+            finally:
+                _trace.deactivate(token)
+            spent[conf] = (t0, time.perf_counter())
+        if h is not leader and h._trace is not None:
+            t0, t1 = spent[conf]
+            h._trace.record("advisory", duration_s=t1 - t0, t_end=t1,
+                            shared=True)
         if ests[conf] is not None:
             h._emit(pilot_frame_for(h.query_id, ests[conf], shared=shared))
     pend: List[_Pending] = []

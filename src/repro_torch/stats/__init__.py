@@ -2,6 +2,7 @@ from repro_torch.stats.distributions import (
     normal_ppf,
     student_t_ppf,
     chi2_ppf,
+    ppf_calls,
     binomial_lower_bound,
     population_lower_bound,
 )
@@ -10,6 +11,7 @@ __all__ = [
     "normal_ppf",
     "student_t_ppf",
     "chi2_ppf",
+    "ppf_calls",
     "binomial_lower_bound",
     "population_lower_bound",
 ]

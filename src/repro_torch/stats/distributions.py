@@ -11,11 +11,16 @@ Accuracy of the fallbacks (validated in tests/test_distributions.py):
   * student_t_ppf: Hill (1970) Cornish-Fisher expansion, rel err < 1e-3 for
     df >= 5 (TAQA requires pilot samples of n >= 30, see §3.1).
   * chi2_ppf: Wilson–Hilferty cube approximation, rel err < 1e-2 for df >= 20.
+
+Each of the three percentile functions counts its calls per thread
+(:func:`ppf_calls`), so a rate solve can report how many it made however
+many solves run on other threads.
 """
 
 from __future__ import annotations
 
 import math
+import threading
 
 import numpy as np
 
@@ -26,6 +31,21 @@ try:  # pragma: no cover - environment dependent
 except Exception:  # pragma: no cover
     _sps = None
     _HAVE_SCIPY = False
+
+_CALLS = threading.local()
+
+
+def ppf_calls() -> int:
+    """Percentile evaluations made so far on the calling thread (a running
+    count: callers read it before and after the work they measure)."""
+    return getattr(_CALLS, "n", 0)
+
+
+def _count() -> None:
+    try:
+        _CALLS.n += 1
+    except AttributeError:  # the thread's first percentile call
+        _CALLS.n = 1
 
 
 # ---------------------------------------------------------------------------
@@ -63,6 +83,7 @@ def _acklam(p: float) -> float:
 
 def normal_ppf(p: float) -> float:
     """Percentile of the standard normal distribution (z_{p})."""
+    _count()
     if _HAVE_SCIPY:
         return float(_sps.norm.ppf(p))
     return _acklam(p)
@@ -74,6 +95,7 @@ def normal_ppf(p: float) -> float:
 
 def student_t_ppf(p: float, df: float) -> float:
     """Percentile t_{df, p} of Student's t distribution."""
+    _count()
     if df <= 0:
         raise ValueError("df must be positive")
     if _HAVE_SCIPY:
@@ -93,6 +115,7 @@ def student_t_ppf(p: float, df: float) -> float:
 
 def chi2_ppf(p: float, df: float) -> float:
     """Percentile chi2_{df, p}."""
+    _count()
     if df <= 0:
         raise ValueError("df must be positive")
     if _HAVE_SCIPY:

@@ -14,10 +14,14 @@ staged, sharded, fused — and every completed, fallback or failed query ends
 with a closed span tree.
 
 Where a case compares two runs, the port is also held to the reference:
-the span-name trees (names and nesting only) equal; the flight recorder's
-event-type sequence for one herd equal; the Prometheus metric names equal.
-Span attributes are not compared: ``compile_sig`` hashes the port's compile
-keys, which hold torch devices and dtypes.
+the span-name trees (names and nesting only, the port's own spans taken
+out) equal; the flight recorder's event-type sequence for one herd equal;
+the Prometheus metric names equal.  Span attributes are not compared:
+``compile_sig`` hashes the port's compile keys, which hold torch devices and
+dtypes.  The port's own spans (the host draw, the dispatch, compilations
+and host reads under each scan, the advisory estimate, the rate solve's
+parts, a drain group's shared work) and ``TaqaReport.ppf_calls`` are held
+to their own contracts below.
 
 Left out until the port's serving gateway lands (ROADMAP queue 1 item 10
 (c)): ``test_gateway_metrics_text_includes_gateway_counters``,
@@ -83,11 +87,28 @@ def _assert_bitwise(a, b):
     assert list(a.names) == list(b.names)
 
 
+# the spans the port adds to the reference's vocabulary
+# (docs/torch_observability.md)
+PORT_SPANS = {"draw", "dispatch", "compile", "host_read", "advisory",
+              "bounds", "solve", "pick", "group_pilots", "group_finals"}
+
+
 def _tree(trace):
-    """A span tree as names and nesting only."""
-    def walk(sp):
-        return (sp.name, [walk(c) for c in sp.children])
-    return walk(trace.root)
+    """A span tree as names and nesting only, without the port's own spans:
+    each gives its place to its children, but for ``group_pilots``, which
+    goes whole, since the group's stage-1 scans under it belong to no
+    member's tree in the reference."""
+    def kids(sp):
+        out = []
+        for c in sp.children:
+            if c.name == "group_pilots":
+                continue
+            if c.name in PORT_SPANS:
+                out.extend(kids(c))
+            else:
+                out.append((c.name, kids(c)))
+        return out
+    return (trace.root.name, kids(trace.root))
 
 
 def _ref_session(ref_cat, seed, **cfg):
@@ -258,13 +279,208 @@ def test_solo_span_vocabulary_and_attrs(catalog):
     assert final.attrs["scanned_bytes"] > 0
     lower, = tr.find("lower")
     assert lower.attrs["seed"] == h.seed
-    # nested engine scans attach under their stages, tagged with the
-    # physical layer's compile hits / misses
+    # nested engine scans attach under their stages; each scan's dispatch
+    # is tagged with the physical layer's compile hits / misses
     assert any(c.name == "scan" for c in pilot.children)
     scan = [c for c in pilot.children if c.name == "scan"][0]
-    assert scan.attrs.get("compile_hits", 0) \
-        + scan.attrs.get("compile_misses", 0) >= 1
-    assert isinstance(scan.attrs["compile_sig"], str)
+    dispatch, = [c for c in scan.children if c.name == "dispatch"]
+    assert dispatch.attrs.get("compile_hits", 0) \
+        + dispatch.attrs.get("compile_misses", 0) >= 1
+    assert isinstance(dispatch.attrs["compile_sig"], str)
+
+
+# ---------------------------------------------------------------------------
+# The port's own spans and counter (no counterpart in the reference)
+# ---------------------------------------------------------------------------
+
+def _kids(sp, name):
+    return [c for c in sp.children if c.name == name]
+
+
+def _within(child, parent):
+    return parent.t0 <= child.t0 <= child.t1 <= parent.t1
+
+
+def test_solo_stages_draw_dispatch_advisory_and_rate_solve_parts(catalog):
+    s = Session(catalog, seed=3, config=TRACE_SERIAL)
+    h = s.sql(HERD_SQL)
+    tr = h._trace
+    assert h.fallback is None
+    # every sampled scan (the pilot's, the final's) draws its blocks on the
+    # host, then dispatches its compiled callable, then reads its sums
+    scans = tr.find("scan")
+    assert len(scans) >= 2
+    for scan in scans:
+        draw, = _kids(scan, "draw")
+        dispatch, = _kids(scan, "dispatch")
+        assert draw.attrs["n_blocks"] == catalog["lineitem"].num_blocks
+        assert 0.0 < draw.attrs["rate"] < 1.0 and draw.attrs["n_drawn"] > 0
+        assert draw.t1 <= dispatch.t0
+        reads = _kids(scan, "host_read") + _kids(dispatch, "host_read")
+        assert reads and all(r.attrs["bytes"] > 0 for r in reads)
+        assert all(_within(c, scan) for c in scan.children)
+    # the advisory estimate runs after the pilot and before the rate solve,
+    # whose three parts run in order inside it
+    top = [c.name for c in tr.root.children]
+    assert top.index("pilot") < top.index("advisory") < top.index("rate_solve")
+    pilot, = tr.find("pilot")
+    advisory, = tr.find("advisory")
+    rate_solve, = tr.find("rate_solve")
+    assert pilot.t1 <= advisory.t0 and advisory.t1 <= rate_solve.t0
+    parts = rate_solve.children
+    assert [c.name for c in parts] == ["bounds", "solve", "pick"]
+    assert all(_within(c, rate_solve) for c in parts)
+    assert all(a.t1 <= b.t0 for a, b in zip(parts, parts[1:]))
+    # the tree's zero on the span clock, for placing it on a device trace
+    assert h.trace()["t0_perf_s"] == tr.t0 == h.t_submit
+
+
+def test_compile_span_on_a_cache_miss_only(catalog):
+    s = Session(catalog, seed=3, config=TRACE_SERIAL)
+    first, again = s.sql(HERD_SQL), s.sql(HERD_SQL)  # no result cache
+    for h in (first, again):
+        for d in h._trace.find("dispatch"):
+            assert len(_kids(d, "compile")) == d.attrs.get("compile_misses", 0)
+            assert d.attrs.get("compile_misses", 0) \
+                + d.attrs.get("compile_hits", 0) == 1
+    assert first._trace.find("compile")
+    assert not again._trace.find("compile")
+    assert all(d.attrs["compile_hits"] == 1
+               for d in again._trace.find("dispatch"))
+
+
+def _drain_shapes(shape):
+    """(session config, queries, drained?) of a shape of the query path."""
+    cuts = [TEMPLATE_SQL.format(c) for c in (18, 24, 30, 36, 40)]
+    return {
+        "solo": (dict(SERIAL), [HERD_SQL, GROUPED_SQL], False),
+        "exact": (dict(SERIAL), ["SELECT SUM(l_quantity) AS q FROM lineitem"],
+                  False),
+        "fused": (dict(SERIAL, fused_taqa=True), [HERD_SQL], False),
+        "staged": (dict(SERIAL), [HERD_SQL, HERD_SQL], False),
+        "drain": (dict(NOCACHE), cuts + [HERD_SQL] * 3, True),
+    }[shape]
+
+
+@pytest.mark.parametrize("shape", ["solo", "exact", "fused", "staged", "drain"])
+def test_host_read_spans_count_the_helper_calls(catalog, monkeypatch, shape):
+    """One ``host_read`` span a call of the one helper every wait of the
+    host on the device goes through, on every path: a drain group's shared
+    work lands on its first member's tree, after that member's delivery
+    too."""
+    from repro_torch.engine import syncs
+    real, calls = syncs.host_read, []
+
+    def counted(*arrays):
+        calls.append(sum(int(a.nbytes) for a in arrays if a is not None))
+        return real(*arrays)
+
+    cfg, sqls, drained = _drain_shapes(shape)
+    s = Session(seed=3, config=SessionConfig(**cfg, tracing=True))
+    for name, tab in catalog.items():
+        s.register_table(name, tab, staged_rates=(
+            True if shape == "staged" and name == "lineitem" else None))
+    monkeypatch.setattr(syncs, "host_read", counted)
+    if drained:
+        handles = [s.submit(q) for q in sqls]
+        s.drain()
+    else:
+        handles = [s.sql(q) for q in sqls]
+    s.close()
+    assert all(h.status == "done" for h in handles)
+    assert (s.executor.staged_info()["hits"] > 0) == (shape == "staged")
+    reads = [sp for h in handles for sp in h._trace.find("host_read")]
+    assert calls and len(reads) == len(calls)
+    assert sorted(sp.attrs["bytes"] for sp in reads) == sorted(calls)
+    assert all(h._trace.open_spans() == [] for h in handles)
+
+
+def test_drain_group_spans_on_every_member(catalog):
+    """Two or more pilot subgroups: the stacked pilots and the batched
+    finals are one span each on every member, with the same start and the
+    lanes of their stacked launches, after every member's wait in the
+    queue; the first member's holds the work's draws, dispatches and
+    reads."""
+    cuts = (18, 24, 30, 36)
+    s = Session(catalog, seed=9, config=TRACE_HERD)
+    handles = [s.submit(TEMPLATE_SQL.format(c)) for c in cuts]
+    s.drain()
+    s.close()
+    for name in trace_mod.GROUP_SPANS:
+        spans = [h._trace.find(name) for h in handles]
+        assert all(len(sp) == 1 for sp in spans), name
+        spans = [sp for sp, in spans]
+        assert len({sp.t0 for sp in spans}) == 1
+        assert len({sp.t1 for sp in spans}) == 1
+        for h, sp in zip(handles, spans):
+            assert sp.attrs["members"] == len(cuts)
+            lanes = sp.attrs["lanes"]
+            assert sum([lanes] if isinstance(lanes, int) else lanes) <= len(cuts)
+            sched, = h._trace.find("schedule")
+            assert sched.t1 <= sp.t0
+            assert sp in h._trace.root.children
+    lead = handles[0]._trace
+    pilots, = lead.find("group_pilots")
+    assert pilots.attrs["lanes"] == len(cuts)  # one stacked launch
+    assert {c.name for c in pilots.children} >= {"draw", "scan"}
+    finals, = lead.find("group_finals")
+    assert {"draw", "dispatch", "host_read"} <= {c.name for c in finals.children}
+    for h in handles[1:]:
+        for name in trace_mod.GROUP_SPANS:
+            sp, = h._trace.find(name)
+            assert sp.children == []
+    # a member's telemetry reads its own scans, not the group's
+    assert handles[0]._trace.find("scan", skip=trace_mod.GROUP_SPANS) == []
+
+
+def test_ppf_calls_count_each_rate_solve(catalog):
+    """``TaqaReport.ppf_calls``: the rate solve's percentile evaluations,
+    counted on its own thread, so a threaded drain counts what a serial
+    one does; 0 where no rate solve ran."""
+    sqls = [TEMPLATE_SQL.format(c) for c in (18, 24, 30)] + [GROUPED_SQL]
+    serial = Session(catalog, seed=9, config=SERIAL_CFG)
+    want = [serial.sql(q).report.ppf_calls for q in sqls]
+    assert all(n > 0 for n in want)
+    assert serial.sql("SELECT SUM(l_quantity) AS q FROM lineitem"
+                      ).report.ppf_calls == 0
+    for cfg in (NOCACHE_CFG, SessionConfig(**NOCACHE, tracing=True)):
+        s = Session(catalog, seed=9, config=cfg)
+        handles = [s.submit(q) for q in sqls]
+        s.drain()
+        s.close()
+        assert [h.report.ppf_calls for h in handles] == want
+
+
+def test_group_span_mechanics():
+    """A held group span outlives its member's delivery; with no member
+    traced it does nothing; lanes noted outside one go nowhere."""
+    lead, other = QueryTrace(0), QueryTrace(1)
+    trace_mod.note_lanes(3)  # no group open: a no-op
+    with trace_mod.group_span("group_finals", [lead, None, other]):
+        assert trace_mod.active() is lead
+        trace_mod.note_lanes(2)
+        with trace_mod.span("dispatch"):
+            pass
+        lead.finish("ok")   # delivered inside the group's work
+        other.finish("ok")
+        with trace_mod.span("host_read"):  # still lands on the lead
+            pass
+        trace_mod.note_lanes(1)
+    assert trace_mod.active() is None
+    sp, = lead.find("group_finals")
+    copy, = other.find("group_finals")
+    assert (sp.t0, sp.t1) == (copy.t0, copy.t1) and sp.t1 >= lead.root.t1
+    assert sp.attrs == copy.attrs == {"members": 3, "lanes": [2, 1]}
+    assert [c.name for c in sp.children] == ["dispatch", "host_read"]
+    assert lead.open_spans() == [] and other.open_spans() == []
+    with trace_mod.group_span("group_pilots", [None, None]):
+        assert trace_mod.active() is None
+    with pytest.raises(RuntimeError):
+        tr = QueryTrace(2)
+        with trace_mod.group_span("group_pilots", [tr]):
+            raise RuntimeError("stacked launch failed")
+    sp, = tr.find("group_pilots")
+    assert sp.status == "error" and "stacked launch failed" in sp.attrs["error"]
 
 
 def test_traced_threads_stress_no_misattributed_spans(catalog):
