@@ -37,7 +37,14 @@ Phases, each printing its own lines:
              both kernels must have launched, every query must finish, and
              each approximate answer must lie within 5% of the exact one
              (or carry a fallback).  The exact Q6 answer is checked against
-             an f64 numpy sum of the same data.  Prints the pilot, rate-solve,
+             an f64 numpy sum of the same data.  Every sampled scan draws
+             its blocks on the card: one block_draw launch a pilot draw and
+             a final, and each final's ids bitwise draw_block_ids; then
+             the draw at 1,875,000 and 9,375,000 blocks and those runs'
+             rates, bitwise the host draw at three seeds, one graph node a
+             call, timed beside its issue bound, its launch floor, its
+             plain version, the host draw and the whole device draw (the
+             kernels line's block_draw row).  Prints the pilot, rate-solve,
              final and exact wall times (median of 5 warm runs), the scanned
              fraction, and the exact/approx wall ratio.  The session's result
              cache is off (seeds derive from query content, so every warm
@@ -384,6 +391,14 @@ K_SWEEP_BATCH_N_PHYS = (512, 4_096, SCALE_N_PHYS)
 # the solo kernels at every blocks-per-warp k, on this many sampled blocks
 K_SWEEP_N_PHYS = (1_024, 2_048, 4_096, 8_192, 16_384, 32_768, SCALE_N_PHYS, 262_144)
 WARM_RUNS = 5
+# the block draw at the benchmark's block counts (SF10, and the SF100 cell's
+# half table), at seeds above 2**31 as the benchmark's are
+SF100_BLOCKS = 9_375_000
+DRAW_SEEDS = (3_500_000_001, 2 ** 31 + 7, 4_100_000_019)
+# block_draw's issue bound (csrc/block_draw.cu): a step of its chunk loop is
+# 36 SASS instructions, issued at 4 warp-instructions a clock an SM
+DRAW_STEP_INSTRUCTIONS = 36
+SM_CLOCK_HZ = 1.98e9             # H100 SXM boost clock
 
 Q6 = ("SELECT SUM(l_extendedprice * l_discount) AS revenue FROM lineitem "
       "WHERE l_shipdate BETWEEN 100 AND 1500 AND l_discount BETWEEN 0.02 AND 0.08")
@@ -756,8 +771,9 @@ def k_sweep(torch, name, launch, args_at, sizes, ks, choose, smi, lanes=None):
 # ---------------------------------------------------------------------------
 
 def spy(session):
-    """Record the pilot draws and final block ids a session's executor runs."""
-    seen = {"pilots": [], "final_ids": []}
+    """Record the pilot draws, the final block ids and the block-sampled
+    finals' SampleInfos a session's executor runs."""
+    seen = {"pilots": [], "final_ids": [], "finals": []}
     ex = session.executor
     execute, execute_pilot = ex.execute, ex.execute_pilot
 
@@ -769,6 +785,7 @@ def spy(session):
         res = execute(plan)
         seen["final_ids"].append({t: i.sampled_block_ids
                                   for t, i in res.sample_infos.items()})
+        seen["finals"] += [i for i in res.sample_infos.values() if i.method == "block"]
         return res
 
     ex.execute_pilot, ex.execute = spy_pilot, spy_execute
@@ -782,6 +799,69 @@ def run_sql(torch, session, sql):
     wall = time.perf_counter() - t0
     check(h.status == "done", f"query failed: {h.error}\n{sql}")
     return h, wall
+
+
+def check_block_draw(torch, np, rates, dev, launch_floor, smi):
+    """The block draw on the card at SF10's and SF100's block counts, at the
+    main path's own pilot and final ``rates``: the main path's entry
+    (``draw_block_ids_device``) bitwise ``pad_block_ids(draw_block_ids(...))``
+    at every seed of DRAW_SEEDS, ids, count and padded length; the kernel a
+    single node in a CUDA graph of a call.  Then, at the first seed, the
+    kernel timed (CUDA events, L2 flushed) beside its issue bound, the launch
+    floor of its grid, its plain version and the host draw it replaces, and
+    the entry's whole wall (state, launch, count read, copy).  Returns the
+    rows of the ``kernels`` line."""
+    from repro_torch.engine.sampling import (draw_block_ids, draw_block_ids_device,
+                                             pad_block_ids)
+    from repro_torch.kernels.block_draw import block_draw, block_draw_ref, pcg64_state
+    from repro_torch.kernels.block_draw import ops as draw_ops
+    from repro_torch.kernels.graph_nodes import captured_node_types
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = []
+    for n in (SF10_ROWS // BLOCK_ROWS, SF100_BLOCKS):
+        for rate in rates:
+            for seed in DRAW_SEEDS:
+                phys, n_real, n_phys = pad_block_ids(draw_block_ids(n, rate, seed), n)
+                d = draw_block_ids_device(n, rate, seed, dev)
+                check((d.n_real, d.n_phys) == (n_real, n_phys)
+                      and np.array_equal(d.ids_dev.cpu().numpy(), phys),
+                      f"block_draw {n:,} blocks at rate {rate} seed {seed}: count "
+                      f"{d.n_real} / {n_real} or ids differ from the host draw")
+            state, inc = pcg64_state(DRAW_SEEDS[0])
+            launch = lambda: block_draw(n, rate, state, inc, dev)
+            nodes = captured_node_types(launch)
+            check(nodes == ["kernel"], f"block_draw: a call enqueues {nodes}")
+            tiles = -(-n // draw_ops.TILE)
+            t0 = time.perf_counter()
+            ref_count, _ = block_draw_ref(n, rate, state, inc)
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            host, entry = [], []
+            for _ in range(WARM_RUNS):
+                t0 = time.perf_counter()
+                draw_block_ids(n, rate, DRAW_SEEDS[0])
+                host.append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                draw_block_ids_device(n, rate, DRAW_SEEDS[0], dev)
+                entry.append((time.perf_counter() - t0) * 1e3)
+            bound_ms = (n / 32 * DRAW_STEP_INSTRUCTIONS / (4 * sms * SM_CLOCK_HZ)) * 1e3
+            row = {"n_blocks": n, "rate": rate, "n_real": int(ref_count),
+                   "seeds": list(DRAW_SEEDS), "bitwise": True, "max_abs_err": 0.0,
+                   "graph_nodes": nodes, "ms": time_cold(torch, launch),
+                   "bound_ms": bound_ms, "bound_by": "instruction issue",
+                   "floor_ms": time_cold(torch, lambda: launch_floor(tiles, 1)),
+                   "plain_ms": plain_ms, "library_ms": None,
+                   "host_draw_ms": statistics.median(host),
+                   "entry_wall_ms": statistics.median(entry)}
+            rows.append(row)
+            print(f"[kernels] block_draw {n:,} blocks at rate {rate:.6g} (n_real "
+                  f"{row['n_real']:,}): bitwise the host draw at {len(DRAW_SEEDS)} seeds, "
+                  f"one kernel node; kernel {row['ms'] * 1e3:.2f} us, issue bound "
+                  f"{bound_ms * 1e3:.2f} us ({bound_ms / row['ms']:.1%} reached), launch "
+                  f"floor (1 x {tiles:,} CTAs) {row['floor_ms'] * 1e3:.2f} us; the entry's "
+                  f"wall {row['entry_wall_ms']:.3f} ms; host draw_block_ids "
+                  f"{row['host_draw_ms']:.2f} ms; plain version (CPU) {plain_ms:.1f} ms  "
+                  f"[{smi}]")
+    return rows
 
 
 def zero_counters(wrappers):
@@ -4282,7 +4362,9 @@ def main() -> int:
     from repro_torch.engine import physical
     from repro_torch.engine.datagen import tpch_catalog
     from repro_torch.kernels import _build, column_launch, sass
+    from repro_torch.engine.sampling import draw_block_ids
     from repro_torch.kernels.block_agg import ops as block_agg_ops
+    from repro_torch.kernels.block_draw import block_draw
     from repro_torch.kernels.block_agg import (block_agg, block_agg_batched,
                                                block_agg_batched_ref,
                                                block_agg_ref)
@@ -4480,15 +4562,35 @@ def main() -> int:
 
     session = Session(catalog, seed=42, config=no_cache)
     queries = {"q6": Q6, "sum_count": SUM_COUNT}
-    zero_counters(wrappers)
+    drawn = spy(session)
+    zero_counters(wrappers + (block_draw,))
     recorder.active = {"filtered_agg", "block_agg"}
     first = {}
     for qn, sql in queries.items():
         first[qn] = (run_sql(torch, session, sql),
                      run_sql(torch, session, sql + GUARANTEE))
     recorder.active = set()
-    launches = read_counters(wrappers)
+    launches = read_counters(wrappers + (block_draw,))
     print(f"[main] kernel launches on the main path: {launches}")
+    # every sampled scan draws on the card: one block_draw a pilot draw
+    # (retries included) and a final, two or more a solo approximate query
+    # (one where it fell back to exact)
+    n_draws = len(drawn["pilots"]) + len(drawn["finals"])
+    least = sum(1 if ah.report.fallback else 2 for _, (ah, _) in first.values())
+    check(launches["block_draw"] == n_draws >= least,
+          f"block_draw launched {launches['block_draw']} times for {len(drawn['pilots'])} "
+          f"pilot draws and {len(drawn['finals'])} sampled finals; at least {least} "
+          f"for {len(queries)} approximate queries")
+    for info in drawn["finals"]:
+        check(np.array_equal(info.sampled_block_ids,
+                             draw_block_ids(info.n_total_blocks, info.rate, info.seed)),
+              f"a final's ids at rate {info.rate} seed {info.seed} are not the host draw's")
+    draw_rates = sorted({theta for _, theta, _ in drawn["pilots"]}
+                        | {info.rate for info in drawn["finals"]})
+    print(f"[main] block draws on the card: {launches['block_draw']} launches for "
+          f"{len(drawn['pilots'])} pilots and {len(drawn['finals'])} finals; the finals' "
+          f"ids bitwise draw_block_ids; rates {draw_rates}")
+    draw_rows = check_block_draw(torch, np, draw_rates, dev, launch_floor, smi)
     check(launches["filtered_agg"] > 0, "the Q6 path never launched filtered_agg")
     check(launches["block_agg"] > 0, "the SUM/COUNT path never launched block_agg")
     print(f"[main] solo launches' ids (n_phys,): "
@@ -4578,17 +4680,15 @@ def main() -> int:
               f"scanned {scanned:.4%} of the exact bytes; exact/approx wall "
               f"{exact_ms / approx_ms:.3f}x  [{smi}]")
     # where an approximate query's time goes: device busy share under the
-    # profiler, and the host Bernoulli draw over every block (done twice per
-    # query, pilot and final)
-    from repro_torch.engine.sampling import draw_block_ids
-    draws = []
-    for i in range(WARM_RUNS):
-        t0 = time.perf_counter()
-        draw_block_ids(li.num_blocks, 0.0005, i)
-        draws.append((time.perf_counter() - t0) * 1e3)
-    draw_ms = statistics.median(draws)
-    print(f"[main] host draw_block_ids over {li.num_blocks:,} blocks: "
-          f"{draw_ms:.2f} ms (median of {WARM_RUNS})")
+    # profiler, and the main path's block draw over every block (done twice
+    # per query, pilot and final): the entry's wall, the kernel its part
+    sf10_draw = [r for r in draw_rows if r["n_blocks"] == li.num_blocks]
+    draw_ms = statistics.median(r["entry_wall_ms"] for r in sf10_draw)
+    print(f"[main] the card's block draw over {li.num_blocks:,} blocks: "
+          f"{draw_ms:.3f} ms a draw (median over rates {draw_rates}; the kernel "
+          f"{statistics.median(r['ms'] for r in sf10_draw) * 1e3:.2f} us; the host "
+          f"draw_block_ids it replaced "
+          f"{statistics.median(r['host_draw_ms'] for r in sf10_draw):.2f} ms)")
     for qn, sql in queries.items():
         for kind, text in (("approx", sql + GUARANTEE), ("exact", sql)):
             busy, wall = device_busy_ms(torch, lambda: session.sql(text))
@@ -4598,7 +4698,7 @@ def main() -> int:
             print(f"[main] {qn} {kind} under torch.profiler: device kernels "
                   f"{busy if busy is None else round(busy, 4)} ms of {wall:.2f} ms "
                   f"wall; device idle share {share}  [{smi}]")
-    summary["draw_block_ids_ms"] = draw_ms
+    summary["block_draw_ms"] = draw_ms
     session.close()
 
     # -- 6. the serving path: submit + drain -----------------------------------
@@ -4863,6 +4963,23 @@ def main() -> int:
         "main_path": gather["segment_sum"],
         "sorted_route_point": gather["segment_sum_sorted_point"],
         "staged_shards": staged["kernels"]["segment_sum"],
+    })
+    # the block draw: no Pallas original (the reference draws on the host
+    # with numpy); its headline is SF10 at the main path's smallest rate
+    head = min(sf10_draw, key=lambda r: r["rate"])
+    kernels.append({
+        "name": "block_draw", "route": "cuda",
+        "source": "src/repro_torch/kernels/block_draw/csrc/block_draw.cu",
+        "replaces": "src/repro/engine/sampling.py:55",
+        "replaces_note": "the reference's host numpy block draw "
+                         "(default_rng(seed).random(N) < rate, nonzero); no Pallas original",
+        "launches": launches["block_draw"],
+        "launches_by_path": {"sql": launches["block_draw"]},
+        "max_abs_err": 0.0, "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None, "floor_ms": head["floor_ms"],
+        "host_draw_ms": head["host_draw_ms"], "n_blocks": head["n_blocks"],
+        "rate": head["rate"], "main_path": draw_rows,
     })
     model_sources = {
         "flash_attention": ("src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",

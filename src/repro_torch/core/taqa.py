@@ -40,7 +40,7 @@ from repro_torch.core.spec import CompositeAgg, ErrorSpec, SamplingPlan
 from repro_torch.engine import cost as cost_mod
 from repro_torch.engine import logical as L
 from repro_torch.engine.executor import (EmptySampleError, Executor, PilotStats,
-                                         QueryResult)
+                                         QueryResult, draw_blocks)
 from repro_torch.engine.physical import ScanRuntime
 from repro_torch.engine.sampling import draw_block_ids, pad_block_ids
 from repro_torch.obs import trace as _trace
@@ -477,11 +477,12 @@ class PilotDB:
         exception it would have raised (captured per member, so one failing
         subgroup cannot sink its siblings).
 
-        Undershoot retries are a host computation, so each member's draw is
-        resolved here with the solo loop's seeds and x4 bumps, and members
-        agreeing on (pilot table, query signature) stack: one call, one
-        device->host copy, lane k bitwise member k's solo pilot.  The
-        prelude's fallbacks, the eager executor, pair tables, a staged
+        Undershoot retries need only each draw's count, so each member's
+        draw is resolved here with the solo loop's seeds and x4 bumps (on
+        the table's card where it has one, each retry reading its count),
+        and members agreeing on (pilot table, query signature) stack: one
+        call, one device->host copy, lane k bitwise member k's solo pilot.
+        The prelude's fallbacks, the eager executor, pair tables, a staged
         ladder on the pilot table (its solo pilot pins the ladder's seed and
         serves a rung), a sharded pilot table (its solo pilot fans out over
         the shards), a plan whose pilots do not stack
@@ -519,16 +520,16 @@ class PilotDB:
             need = min(spec.min_pilot_blocks, n_blocks)
             th = drawn_th = theta_p
             for attempt in range(3):
-                ids = draw_block_ids(n_blocks, th, pseed + 101 * attempt)
+                d = draw_blocks(ex.catalog[pt], th, pseed + 101 * attempt)
                 drawn_th = th
-                if len(ids) >= need:
+                if d.n_real >= need:
                     break
                 th = min(th * 4.0, 1.0)
-            if len(ids) == 0:
+            if d.n_real == 0:
                 solo.append(i)  # the solo path owns the empty draw's stats
                 continue
-            phys, n_real, n_phys = pad_block_ids(ids, n_blocks)
-            runtime = ScanRuntime("block", n_real, n_phys, phys)
+            runtime = ScanRuntime("block", d.n_real, d.n_phys, d.phys,
+                                  ids_dev=d.ids_dev)
             key = ex.physical.query_signature(outcome.plan, {pt: runtime})
             groups.setdefault((pt, key), []).append((i, runtime, th, drawn_th))
 
@@ -691,6 +692,8 @@ class PilotDB:
         t1 = time.perf_counter()
         ex._count("queries_run")
         runtimes_f, infos = ex._scan_runtimes(stage.final_plan)
+        for info in infos.values():
+            info.settle()
         sums, counts = out["sums"], out["counts"]
         values = Executor._compose_values(stage.final_plan, sums, counts,
                                           Executor._upscale(infos))

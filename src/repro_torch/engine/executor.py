@@ -52,12 +52,26 @@ from repro_torch.engine import ops, syncs
 from repro_torch.engine.physical import (PhysicalCompiler, ScanRuntime,
                                          SharedBuildStore,
                                          plan_constants, scan_cost_bytes)
-from repro_torch.engine.sampling import (SampleInfo, block_sample, draw_block_ids,
+from repro_torch.engine.sampling import (BlockDraw, SampleInfo, block_sample,
+                                         draw_block_ids, draw_block_ids_device,
                                          draw_row_sample, pad_block_ids, row_sample)
 from repro_torch.engine.staged import (DEFAULT_STAGED_RATES, SampleCatalog,
                                        build_ladder, prepare_mono_subdraw)
 from repro_torch.engine.table import BlockTable
 from repro_torch.obs import trace as _trace
+
+
+def draw_blocks(table: BlockTable, rate: float, seed: int) -> BlockDraw:
+    """One compiled scan's block draw where its table lies: on its CUDA card
+    (:func:`sampling.draw_block_ids_device`, whose ids the compiled
+    callables take as they are), else on the host, padded by
+    :func:`sampling.pad_block_ids`.  The executor and ``PilotDB``'s stacked
+    pilots draw through this one function."""
+    if table.device.type == "cuda":
+        return draw_block_ids_device(table.num_blocks, rate, seed, table.device)
+    ids = draw_block_ids(table.num_blocks, rate, seed)
+    phys, n_real, n_phys = pad_block_ids(ids, table.num_blocks)
+    return BlockDraw(n_real, n_phys, ids=ids, phys=phys)
 
 
 class EmptySampleError(RuntimeError):
@@ -213,16 +227,19 @@ class Executor:
         """Staged-catalog serving counters and per-table ladder state."""
         return self.staged.info()
 
-    # -- host-side sampling decisions ---------------------------------------
+    # -- sampling decisions -------------------------------------------------
     def _scan_runtimes(
         self, plan: L.Plan, exclude: Optional[str] = None,
     ) -> Tuple[Dict[str, ScanRuntime], Dict[str, SampleInfo]]:
-        """Draw every scan's TABLESAMPLE decision (host RNG, as a DBMS picks
-        pages before scanning) and package it as compiled-callable inputs —
-        the reference's draw bit for bit.  A table with a staged ladder
-        draws from its pinned staging seed (hits and misses agree bitwise);
-        ``exclude`` skips the one table whose runtime the staged route
-        supplies itself."""
+        """Draw every scan's TABLESAMPLE decision (as a DBMS picks pages
+        before scanning; a block draw on the table's card where it has one,
+        :func:`draw_blocks`) and package it as compiled-callable
+        inputs — the reference's draw bit for bit.  A table with a staged
+        ladder draws from its pinned staging seed (hits and misses agree
+        bitwise); ``exclude`` skips the one table whose runtime the staged
+        route supplies itself.  A card's ids reach the host's
+        :class:`SampleInfo` only at :meth:`SampleInfo.settle`, after the
+        query's sums."""
         runtimes: Dict[str, ScanRuntime] = {}
         infos: Dict[str, SampleInfo] = {}
         for s in plan.scans():
@@ -243,13 +260,12 @@ class Executor:
                     # rung tensors evicted, or a plan the staged route
                     # does not take
                     self.staged.note_miss()
-                ids = draw_block_ids(table.num_blocks, s.sample.rate, seed)
-                phys, n_real, n_phys = pad_block_ids(ids, table.num_blocks)
-                runtimes[s.table] = ScanRuntime("block", n_real, n_phys, phys)
-                infos[s.table] = SampleInfo(
-                    "block", s.sample.rate, seed, n_real,
-                    table.num_blocks, ids,
-                    scanned_bytes=scan_cost_bytes(table, "block", n_real))
+                d = draw_blocks(table, s.sample.rate, seed)
+                runtimes[s.table] = ScanRuntime("block", d.n_real, d.n_phys, d.phys,
+                                                ids_dev=d.ids_dev)
+                infos[s.table] = d.sample_info(
+                    s.sample.rate, seed, table.num_blocks,
+                    scan_cost_bytes(table, "block", d.n_real))
             else:
                 keep, infos[s.table] = draw_row_sample(
                     table, s.sample.rate, s.sample.seed)
@@ -450,6 +466,8 @@ class Executor:
             sums = sums_d.cpu().numpy()
         with syncs.host_read(counts_d):
             counts = counts_d.cpu().numpy()
+        for info in infos.values():
+            info.settle()  # the card's ids, read on a drained stream
         values = self._compose_values(plan, sums, counts, self._upscale(infos))
         return QueryResult(
             agg_names=[a.name for a in plan.aggs],
@@ -567,6 +585,8 @@ class Executor:
         for k, i in enumerate(idxs):
             self._count("queries_run")
             runtimes, infos = drawn[i]
+            for info in infos.values():
+                info.settle()
             sums, counts = sums_b[k], counts_b[k]
             results[i] = QueryResult(
                 agg_names=[a.name for a in plans[i].aggs],
@@ -635,8 +655,8 @@ class Executor:
         else:
             if lad is not None:
                 self.staged.note_miss()
-            ids = draw_block_ids(table.num_blocks, theta_p, seed)
-            n_real = int(len(ids))
+            drawn = draw_blocks(table, theta_p, seed)
+            n_real = drawn.n_real
         names = [a.name for a in plan.aggs] + ["__rows"]
 
         if n_real == 0:
@@ -658,8 +678,8 @@ class Executor:
                                   ids_dev=sub.phys_dev, nreal_dev=sub.nreal_dev)
             compiler = sub.compiler
         else:
-            phys, n_real, n_phys = pad_block_ids(ids, table.num_blocks)
-            runtime = ScanRuntime("block", n_real, n_phys, phys)
+            runtime = ScanRuntime("block", n_real, drawn.n_phys, drawn.phys,
+                                  ids_dev=drawn.ids_dev)
             compiler = self.physical
         pair_table = pair_tables[0] if pair_tables else None
         with _trace.span("dispatch"):

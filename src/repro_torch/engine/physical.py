@@ -126,12 +126,13 @@ class ScanRuntime:
     one cache entry.  ``keep_mask`` is a row-sampled scan's draw over every
     padded row, on the host or already on the table's device.
 
-    ``ids_dev`` / ``nreal_dev`` are device copies of ``ids`` / ``n_real``
-    made once by whoever memoizes the draw (a staged sub-draw,
-    :mod:`repro_torch.engine.staged`, which range-checks the ids when it
-    makes them): a call then uses them as they are, with no host check and
-    no host-to-device copy.  They must hold the values of ``ids`` /
-    ``n_real``.
+    ``ids_dev`` is the same padded draw on the table's device, in place of
+    ``ids``: the card's own draw (:func:`sampling.draw_block_ids_device`,
+    in range by construction), or a copy made once by whoever memoizes the
+    draw (a staged sub-draw, :mod:`repro_torch.engine.staged`, which
+    range-checks the ids when it makes them, with ``nreal_dev`` beside it).  A call then
+    uses them as they are, with no host check and no host-to-device copy.
+    They must hold the values of the draw and of ``n_real``.
     """
 
     method: str                             # "none" | "block" | "row"
@@ -527,10 +528,10 @@ class _CompiledBase:
         return next(iter(self.catalog[t] for t in self.needed)).device
 
     def _runtime_args(self, runtimes: Dict[str, ScanRuntime], params=()) -> dict:
-        """Host draws and constants as device tensors.  Fresh block ids are
+        """Host draws and constants as device tensors.  Host block ids are
         range checked here, on the host, because the kernels and the gather
-        index with them; memoized device ids (``ids_dev``) were checked when
-        they were made and are used as they are."""
+        index with them; device ids (``ids_dev``), drawn on the card or
+        memoized and checked when they were made, are used as they are."""
         dev = self._device()
         rt = {"catalog": self.catalog, "ids": {}, "nreal": {}, "mask": {},
               "params": to_device(np.asarray(params, np.float32), dev)}
@@ -626,6 +627,16 @@ class CompiledBatch(_CompiledBase):
                     [self._mask(name, r.keep_mask, dev) for r in rows])
                 continue
             n_phys = rows[0].n_phys
+            rt["nreal"][name] = [r.n_real for r in rows]
+            if all(r.ids_dev is not None for r in rows):
+                # drawn or memoized on the card and checked there, as
+                # _runtime_args takes them: stacked on the card
+                if any(tuple(r.ids_dev.shape) != (n_phys,) or r.ids_dev.device != dev
+                       for r in rows):
+                    raise ValueError(f"device block ids of {name!r} must be "
+                                     f"({n_phys},) on {dev}")
+                rt["ids"][name] = torch.stack([r.ids_dev for r in rows])
+                continue
             nb = self.catalog[name].num_blocks
             # range-checked on the host, as _runtime_args does: the kernels
             # and the gather index the table with these ids
@@ -636,7 +647,6 @@ class CompiledBatch(_CompiledBase):
                 raise ValueError(f"block ids of {name!r} must be "
                                  f"({self.batch}, {n_phys}) in [0, {nb})")
             rt["ids"][name] = to_device(ids, dev)
-            rt["nreal"][name] = [r.n_real for r in rows]
         return self.fn(rt)
 
 

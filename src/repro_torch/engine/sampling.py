@@ -1,15 +1,21 @@
-"""Bernoulli block-sampling decisions (host numpy, as in the reference).
+"""Bernoulli block-sampling decisions: numpy's stream, on the host or on the
+card.
 
-Sampling *decisions* are host-side (numpy RNG) — exactly as a DBMS's
-TABLESAMPLE decides pages before scanning them — and data movement is
-device-side: the kernels read only the sampled blocks (cost ∝ θ · bytes).
+Sampling *decisions* come before the scan — exactly as a DBMS's TABLESAMPLE
+decides pages before scanning them — and data movement is device-side: the
+kernels read only the sampled blocks (cost ∝ θ · bytes).
 
 The draws are the reference's bit for bit (``rng.random(N) < rate`` under
 ``np.random.default_rng(seed)``, over blocks for TABLESAMPLE SYSTEM and over
 every padded row for TABLESAMPLE BERNOULLI), so equal seeds give equal block
-ids and row masks in both packages.  The distributed sub-draw
-(``restrict_block_ids``) and the staged one (``subdraw_positions``) are
-restrictions of that one realization, so they draw the same blocks too.
+ids and row masks in both packages.  A compiled scan of a table on a CUDA
+card draws there (:func:`draw_block_ids_device`: the ``block_draw`` kernel
+makes the same PCG64 uniforms, and only the count comes back to the host
+before the scan); ``executor.draw_blocks`` picks by the table's device.
+The paths that need host
+ids keep the host draw: the distributed sub-draw (``restrict_block_ids``)
+and the staged one (``subdraw_positions``), restrictions of that one
+realization, the fused path's check, the eager executor and the row draws.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 
 from repro_torch.engine import syncs
 from repro_torch.engine.table import BlockTable
+from repro_torch.kernels.block_draw import block_draw, pcg64_state
 from repro_torch.obs import trace as _trace
 
 
@@ -32,10 +39,25 @@ class SampleInfo:
     seed: int
     n_sampled_blocks: Optional[int] = None
     n_total_blocks: Optional[int] = None
-    sampled_block_ids: Optional[np.ndarray] = None
+    sampled_block_ids: Optional[np.ndarray] = None  # on the host; see settle()
     scanned_bytes: int = 0
     n_sampled_rows: Optional[int] = None  # row-Bernoulli kept rows
     n_total_rows: Optional[int] = None
+    # a card's draw: its real ids on the card until settle() reads them
+    # (BlockDraw.sample_info)
+    pending_ids: Optional[torch.Tensor] = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    def settle(self) -> None:
+        """Read ``sampled_block_ids`` from ``pending_ids``, in a
+        ``host_read``.  The query's path calls this after the read of its
+        sums, which waited for the stream, so the read waits for no queued
+        work and the dispatch waited only for the draw's count."""
+        if self.pending_ids is None:
+            return
+        with syncs.host_read(self.pending_ids):
+            self.sampled_block_ids = self.pending_ids.cpu().numpy()
+        self.pending_ids = None
 
 
 def bucket_blocks(k: int) -> int:
@@ -52,8 +74,8 @@ def bucket_blocks(k: int) -> int:
 
 def draw_block_ids(num_blocks: int, rate: float, seed: int) -> np.ndarray:
     """The host-side Bernoulli block draw — the TABLESAMPLE SYSTEM decision —
-    in a ``draw`` span (every block draw of a query is one of these)."""
-    with _trace.span("draw", n_blocks=num_blocks, rate=rate) as sp:
+    in a ``draw`` span whose ``where`` is "host"."""
+    with _trace.span("draw", n_blocks=num_blocks, rate=rate, where="host") as sp:
         ids = _bernoulli_block_ids(num_blocks, rate, seed)
         sp.set(n_drawn=len(ids))
     return ids
@@ -65,6 +87,51 @@ def _bernoulli_block_ids(num_blocks: int, rate: float, seed: int) -> np.ndarray:
     rng = np.random.default_rng(seed)
     keep = rng.random(num_blocks) < rate
     return np.nonzero(keep)[0].astype(np.int32)
+
+
+@dataclasses.dataclass
+class BlockDraw:
+    """One scan's block draw, padded to its bucketed length ``n_phys``
+    (zeros past ``n_real``): the host's ``phys`` array with the ``ids`` it
+    padded, or the card's ``ids_dev`` tensor."""
+
+    n_real: int
+    n_phys: int
+    ids: Optional[np.ndarray] = None
+    phys: Optional[np.ndarray] = None
+    ids_dev: Optional[torch.Tensor] = None
+
+    def sample_info(self, rate: float, seed: int, num_blocks: int,
+                    scanned_bytes: int) -> SampleInfo:
+        """The draw's :class:`SampleInfo`, whose ids are on the host so
+        that what a caller keeps holds no memory of the card.  A card's
+        real ids wait on the card: :meth:`SampleInfo.settle` reads them
+        once the query's sums are read."""
+        info = SampleInfo("block", rate, seed, self.n_real, num_blocks,
+                          scanned_bytes=scanned_bytes)
+        if self.ids_dev is None:
+            info.sampled_block_ids = self.ids
+        else:
+            info.pending_ids = self.ids_dev[:self.n_real]
+        return info
+
+
+def draw_block_ids_device(num_blocks: int, rate: float, seed: int,
+                          device) -> BlockDraw:
+    """:func:`draw_block_ids` on the card, padded as :func:`pad_block_ids`
+    pads it, in a ``draw`` span whose ``where`` is "device": the
+    ``block_draw`` kernel, one 4-byte read of the count, and a copy of the
+    first ``n_phys`` ids into a tensor of their own.  The ids are in range
+    by construction, so no check of them is needed."""
+    with _trace.span("draw", n_blocks=num_blocks, rate=rate, where="device") as sp:
+        state, inc = pcg64_state(seed)
+        count, out = block_draw(num_blocks, rate, state, inc, device)
+        with syncs.host_read(count):
+            n_real = int(count)
+        n_phys = min(bucket_blocks(max(n_real, 1)), num_blocks)
+        ids = out[:n_phys].clone()
+        sp.set(n_drawn=n_real)
+    return BlockDraw(n_real, n_phys, ids_dev=ids)
 
 
 def restrict_block_ids(ids: np.ndarray, lo: int, hi: int) -> np.ndarray:

@@ -29,7 +29,8 @@ import torch
 HEADERS = {"filtered_agg": ("block_reduce.cuh",), "block_agg": ("block_reduce.cuh",),
            "flash_attn": ("float_io.cuh", "hopper.cuh", "tma_map.cuh"),
            "gla_chunk": ("float_io.cuh", "gla_tiles.cuh"),
-           "segment_sum": ("block_reduce.cuh",), "taqa_solve": (),
+           "segment_sum": ("block_reduce.cuh",), "taqa_solve": ("look_back.cuh",),
+           "block_draw": ("look_back.cuh",),
            "flash_attn_bwd": ("float_io.cuh", "hopper.cuh", "tma_map.cuh"),
            "gla_chunk_bwd": ("float_io.cuh", "gla_tiles.cuh")}
 KERNELS = tuple(HEADERS)
@@ -59,6 +60,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_int64
+_U = ctypes.c_uint64
+_D = ctypes.c_double
 # Every function each library exports, with its ctypes signature.  Each one
 # needs its argtypes set: without them ctypes passes a Python int as a 32-bit
 # C int, which cuts a device pointer and faults on the card.
@@ -98,6 +101,9 @@ _SIGNATURES = {
     "taqa_solve": {
         "taqa_solve_rate_launch": [_P, _L, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P],
         "taqa_draw_compact_launch": [_P, _L, _P, _P, _P, _P, _P],
+    },
+    "block_draw": {
+        "block_draw_launch": [_U, _U, _U, _U, _D, _L, _P, _I, _P, _P, _P],
     },
 }
 

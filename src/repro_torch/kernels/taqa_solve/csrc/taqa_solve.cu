@@ -54,23 +54,16 @@
 // one feasibility test (a divide and two square roots), a barrier and the
 // walk.
 //
-// The draw: a single-pass ordered compaction with a decoupled look-back.
-// Tile b holds indices [b T, (b + 1) T), T = 16 rows of 1,024: row k of the
-// tile is 1,024 consecutive indices, one per thread, so every load is
-// coalesced.  A CTA takes its tile from an integer ticket (atomicAdd), so
-// tiles start in index order and a tile waits only on tiles that are
-// already running: the look-back makes progress when the tiles outnumber
-// the resident CTAs.  A CTA loads its tile of u once, into registers,
-// writes zero to its own index range, counts its kept uniforms per (row,
-// warp) with ballots, and publishes its count as an aggregate status word.
-// Warp 0 then resolves the tile's exclusive prefix from its predecessors'
-// status words, 128 a window, newest first: the aggregates up to the first
-// inclusive prefix, whose value ends the sum (relaxed reads with a short
-// back-off while a status is missing, then one fence: the acquire).  It
-// publishes the inclusive prefix, and the CTA writes its kept ids at their
-// ranks (a ballot ranks an id among its warp's, the (row, warp) counts'
-// exclusive scan among the tile's).  The last tile writes nsel.  Integer
-// counts are exact in any order.
+// The draw: a single-pass ordered compaction with a decoupled look-back,
+// whose tickets, status words and scratch are csrc/look_back.cuh's.  Tile b
+// holds indices [b T, (b + 1) T), T = 16 rows of 1,024: row k of the tile is
+// 1,024 consecutive indices, one per thread, so every load is coalesced.  A
+// CTA loads its tile of u once, into registers, writes zero to its own
+// index range, counts its kept uniforms per (row, warp) with ballots, and
+// publishes its count; once warp 0 has its exclusive prefix, the CTA writes
+// its kept ids at their ranks (a ballot ranks an id among its warp's, the
+// (row, warp) counts' exclusive scan among the tile's).  The last tile
+// writes nsel.
 //
 // The zero fill past nsel needs no second pass.  Every tile zeroes its own
 // index range [bT, (b + 1)T) before it publishes its aggregate.  A kept id
@@ -81,22 +74,7 @@
 // prefixes (each released after its tile's look-back acquired the statuses
 // it summed), a status that tile b released after its zeroing, since tile
 // b's count is part of every prefix past b.  So every position ends as its
-// id or as 0, with no race.  Statuses are released with st.release.gpu by
-// one thread after a __syncthreads, the pattern of CUTLASS's semaphore.
-//
-// The draw's scratch lives in a buffer the wrapper keeps per (device,
-// stream): word 0 holds an epoch and the ticket, then one status word per
-// tile: epoch, inclusive flag, count.  A status of another epoch reads as
-// unpublished, so no launch clears the words of the last one.  The CTA
-// that takes a launch's last ticket sets the next epoch and ticket 0 (every
-// ticket is then taken); the epoch lives on the card, so a CUDA graph's
-// replays advance it too.  Before the 32-bit epoch repeats, the launch of
-// the last epoch counts its tiles past their look-backs (word 1), and the
-// tile that completes the count clears every status word, so no stale word
-// can carry a later launch's epoch.  Launches on one stream never overlap,
-// so each finds the ticket at zero; the drain's worker threads launch on
-// their own current streams, each with its own buffer, or share a stream
-// and so run one after the other.  No host sync, no fill launch.
+// id or as 0, with no race.
 //
 // Bounds on the H100.  The solve reads n_phys * n_solve f32 (a few KB at a
 // pilot) and runs 49 * n_solve feasibility tests: its floor is the 1-CTA
@@ -108,7 +86,13 @@
 #include <climits>
 #include <cuda_runtime.h>
 
+#include "../../csrc/look_back.cuh"
+
 namespace {
+
+using repro_torch::clear_statuses;
+using repro_torch::take_ticket;
+using repro_torch::tile_prefix;
 
 constexpr int kThreads = 256;  // the solve's row-sum group
 constexpr int kWarps = kThreads / 32;
@@ -123,11 +107,7 @@ constexpr int kDrawWarps = kDrawThreads / 32;
 constexpr int kTileRows = 16;
 constexpr int kTile = kDrawThreads * kTileRows;
 constexpr int kCountsPerLane = kTileRows * kDrawWarps / 32;  // (row, warp) counts per lane of warp 0
-constexpr int kLookWords = 4;  // status words per lane of a look-back window
 constexpr unsigned kFull = 0xffffffffu;
-constexpr unsigned long long kInclusive = 1ull << 31;  // status word: epoch | flag | count
-constexpr unsigned long long kCount = kInclusive - 1;
-constexpr unsigned kLastEpoch = 0xffffffffu;  // epochs run 1, ..., kLastEpoch, 1, ...
 constexpr int kMaxTiles = static_cast<int>((INT32_MAX + int64_t{kTile} - 1) / kTile);
 
 // torch.maximum(a, b) for a finite b: NaN in a propagates (fmaxf would drop it)
@@ -354,63 +334,10 @@ __global__ void __launch_bounds__(kMaxSolveThreads)
   flags_out[0] = (has_groups ? 0 : 1) + (L_ok ? 0 : 2) + (have_plan ? 0 : 4);
 }
 
-__device__ __forceinline__ unsigned long long load_relaxed(const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void store_release(unsigned long long* p, unsigned long long v) {
-  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
-}
-
-__device__ __forceinline__ void fence_acq_rel() { asm volatile("fence.acq_rel.gpu;" ::: "memory"); }
-
-// Warp 0 of tile `tile` > 0: the kept count of every earlier tile.  Lane l
-// reads word q of a window at tile end - (32 q + l); a window is summed up
-// to its first inclusive prefix, once every status up to it carries this
-// launch's epoch.  Relaxed reads, then one fence: the acquire.
-__device__ int look_back(const unsigned long long* status, int tile, unsigned epoch, int lane) {
-  const unsigned long long mine = static_cast<unsigned long long>(epoch) << 32;
-  int excl = 0;
-  for (int end = tile - 1;;) {
-    unsigned long long w[kLookWords];
-#pragma unroll
-    for (int q = 0; q < kLookWords; ++q) {
-      const int idx = end - (32 * q + lane);
-      w[q] = idx >= 0 ? load_relaxed(status + idx) : mine | kInclusive;
-    }
-    int first = 32 * kLookWords;  // the window's first inclusive slot, if any
-#pragma unroll
-    for (int q = kLookWords - 1; q >= 0; --q) {
-      const unsigned m = __ballot_sync(kFull, (w[q] & ~kCount) == (mine | kInclusive));
-      if (m) first = 32 * q + __ffs(m) - 1;
-    }
-    bool wait = false;
-    int sum = 0;
-#pragma unroll
-    for (int q = 0; q < kLookWords; ++q) {
-      if (32 * q + lane <= first) {
-        wait = wait || (w[q] >> 32) != epoch;
-        sum += static_cast<int>(w[q] & kCount);
-      }
-    }
-    if (__any_sync(kFull, wait)) {  // a status not yet published: back off, read again
-      __nanosleep(100);
-      continue;
-    }
-    excl += __reduce_add_sync(kFull, sum);
-    if (first < 32 * kLookWords) {
-      fence_acq_rel();
-      return excl;
-    }
-    end -= 32 * kLookWords;
-  }
-}
-
 // scratch (2 + kMaxTiles u64): [0] epoch << 32 | ticket, [1] the done count
 // of the wrap launch, [2, 2 + kMaxTiles) the status words, epoch << 32 |
-// inclusive << 31 | count; a word of another epoch reads as unpublished.
+// inclusive << 31 | count; a word of another epoch reads as unpublished
+// (csrc/look_back.cuh).
 __global__ void __launch_bounds__(kDrawThreads)
     draw_compact_kernel(const float* __restrict__ u, int64_t n,
                         const float* __restrict__ theta_eff,
@@ -419,26 +346,14 @@ __global__ void __launch_bounds__(kDrawThreads)
   __shared__ int row_warps[kTileRows * kDrawWarps];  // kept per (row, warp), then exclusive ranks
   __shared__ int s_tile, s_excl, s_clear;
   __shared__ unsigned s_epoch;
-  unsigned long long* status = scratch + 2;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int n_tiles = gridDim.x;
 
-  if (t == 0) {
-    const unsigned long long word = atomicAdd(scratch, 1ull);
-    const unsigned epoch = static_cast<unsigned>(word >> 32);
-    const int tile = static_cast<int>(word & 0xffffffffu);
-    if (tile == n_tiles - 1) {  // every ticket of this launch is taken
-      const unsigned next = epoch == kLastEpoch ? 1u : epoch + 1u;
-      scratch[0] = static_cast<unsigned long long>(next) << 32;
-    }
-    s_tile = tile;
-    s_epoch = epoch;
-  }
+  if (t == 0) take_ticket(scratch, n_tiles, &s_tile, &s_epoch);
   const float theta = *theta_eff;
   __syncthreads();
   const int tile = s_tile;
   const unsigned epoch = s_epoch;
-  const unsigned long long mine = static_cast<unsigned long long>(epoch) << 32;
   const int64_t base = static_cast<int64_t>(tile) * kTile;
   float v[kTileRows];
 #pragma unroll
@@ -483,26 +398,12 @@ __global__ void __launch_bounds__(kDrawThreads)
       run += c[q];
     }
     const int agg = __shfl_sync(kFull, incl, 31);
-    int excl = 0;
-    if (tile == 0) {
-      if (lane == 0) store_release(status, mine | kInclusive | static_cast<unsigned>(agg));
-    } else {
-      if (lane == 0) store_release(status + tile, mine | static_cast<unsigned>(agg));
-      excl = look_back(status, tile, epoch, lane);
-      if (lane == 0)
-        store_release(status + tile, mine | kInclusive | static_cast<unsigned>(excl + agg));
-    }
-    __syncwarp();  // every lane's look-back reads before the done count
+    bool clear;
+    const int excl = tile_prefix(scratch, tile, n_tiles, epoch, agg, lane, &clear);
     if (lane == 0) {
       s_excl = excl;
       if (tile == n_tiles - 1) *nsel_out = excl + agg;
-      s_clear = 0;
-      if (epoch == kLastEpoch) {  // the wrap launch: the last tile past its look-back clears
-        fence_acq_rel();
-        s_clear = atomicAdd(reinterpret_cast<unsigned*>(scratch + 1), 1u) ==
-                  static_cast<unsigned>(n_tiles - 1);
-        fence_acq_rel();
-      }
+      s_clear = clear;
     }
   }
   __syncthreads();
@@ -517,10 +418,7 @@ __global__ void __launch_bounds__(kDrawThreads)
       padded[excl + row_warps[k * kDrawWarps + warp] + __popc(ballot & lower)] =
           static_cast<int>(base + k * kDrawThreads + t);
   }
-  if (s_clear) {  // every look-back of the wrap launch is over: no stale tag survives
-    for (int j = t; j < kMaxTiles; j += kDrawThreads) status[j] = 0;
-    if (t == 0) scratch[1] = 0;
-  }
+  if (s_clear) clear_statuses(scratch, kMaxTiles, t, kDrawThreads);
 }
 
 int invalid() { return static_cast<int>(cudaErrorInvalidValue); }

@@ -21,6 +21,10 @@ from repro_torch.kernels.segment_sum import segment_sum, segment_sum_ref
 from repro_torch.kernels.taqa_solve import (taqa_draw_compact, taqa_draw_compact_ref,
                                             taqa_solve_rate, taqa_solve_rate_ref)
 from repro_torch.kernels.taqa_solve import ops as taqa_ops
+from repro_torch.kernels.block_draw import block_draw, block_draw_ref, pcg64_state
+from repro_torch.kernels.block_draw import ops as block_draw_ops
+from repro_torch.engine.sampling import (bucket_blocks, draw_block_ids, draw_block_ids_device,
+                                         pad_block_ids)
 from repro_torch.kernels.graph_nodes import captured_node_types
 from segment_sum_mirror import mirror_few, mirror_slab, slab_keys
 from taqa_solve_mirror import solve_mirror
@@ -993,6 +997,143 @@ def test_taqa_kernels_give_the_same_bits_launch_to_launch(cuda):
         n2, p2 = taqa_draw_compact(u, th)
         assert torch.equal(n2, nsel) and torch.equal(p2, padded)
     torch.cuda.synchronize()
+
+
+# -- the block draw on the card -------------------------------------------------
+
+# the pilot rate (ErrorSpec.theta_pilot), Q6's final rate at SF10 (~285 of
+# 1,875,000 blocks), larger finals up to the plan's cap (max_final_rate), more
+DRAW_RATES = (0.0005, 0.00015, 0.003, 0.1, 0.5, 1.0)
+
+
+@pytest.mark.parametrize("n", [1, 63, 4095, 4096, 4097, 100_003, 1_875_000, 9_375_000])
+def test_block_draw_is_the_host_draw_on_the_card(cuda, n):
+    """The device draw's ids, count and padded length bitwise
+    ``pad_block_ids(draw_block_ids(...))``, one launch a draw; at the
+    cells' sizes (SF10's and SF100's blocks) over 210 seeds, the rates
+    taken in turn."""
+    rng = np.random.default_rng(n)
+    seeds = [int(x) for x in rng.integers(0, 2 ** 63, 210 if n >= 1_875_000 else 12)]
+    for k, seed in enumerate(seeds):
+        rate = DRAW_RATES[k % len(DRAW_RATES)]
+        phys, n_real, n_phys = pad_block_ids(draw_block_ids(n, rate, seed), n)
+        launches = block_draw.launches
+        d = draw_block_ids_device(n, rate, seed, cuda)
+        assert block_draw.launches == launches + 1
+        assert (d.n_real, d.n_phys) == (n_real, n_phys), (seed, rate)
+        assert np.array_equal(d.ids_dev.cpu().numpy(), phys), (seed, rate)
+
+
+@pytest.mark.parametrize("n", [1, 4097, 100_003, 1_875_000])
+def test_block_draw_kernel_is_its_plain_version(cuda, n):
+    """The kernel's count and its output up to the padded length against
+    the plain version, each call one kernel node and nothing else."""
+    for seed in (0, 3_500_000_001):
+        state, inc = pcg64_state(seed)
+        for rate in DRAW_RATES:
+            count, ids = block_draw(n, rate, state, inc, cuda)
+            ref_count, ref_ids = block_draw_ref(n, rate, state, inc)
+            end = min(bucket_blocks(max(int(ref_count), 1)), n)  # pad_block_ids's n_phys
+            assert int(count) == int(ref_count)
+            assert torch.equal(ids[:end].cpu(), ref_ids[:end])
+    assert captured_node_types(lambda: block_draw(n, 0.003, state, inc, cuda)) == ["kernel"]
+
+
+def test_block_draw_on_one_scratch_across_sizes_and_the_epoch_wrap(cuda):
+    """Draws of shrinking and growing size on one stream's scratch, which
+    grows with the table; then across the epoch wrap: the launch of the
+    last epoch clears every status and the epochs start again at 1."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def check(n, rate, seed):
+        phys, n_real, n_phys = pad_block_ids(draw_block_ids(n, rate, seed), n)
+        d = draw_block_ids_device(n, rate, seed, dev)
+        assert (d.n_real, d.n_phys) == (n_real, n_phys)
+        assert np.array_equal(d.ids_dev.cpu().numpy(), phys)
+
+    for k, n in enumerate((1_875_000, 100_000, 9_375_000, 17, 1_875_000)):
+        check(n, DRAW_RATES[k], 40 + k)
+    scratch = block_draw_ops._scratch[(dev.index, stream)]
+    last = 2 ** 32 - 1
+    scratch[0] = ((last - 1) << 32) - 2 ** 64           # epoch last - 1, ticket 0 (as int64)
+    check(1_875_000, 0.3, 50)
+    check(2_000_000, 0.0005, 51)                        # the wrap launch
+    torch.cuda.synchronize()
+    assert int(scratch[0]) == 1 << 32 and int(scratch[1]) == 0
+    assert not scratch[2:].any()
+    for n in (9_375_000, 4097):
+        check(n, 0.003, 52)
+    assert int(scratch[0]) == 3 << 32
+
+
+def test_a_drawn_sample_outlives_the_next_draw(cuda):
+    """What a draw leaves, its padded ids on the card and its real ids on
+    the host, are its own: the next draws on the stream leave them as they
+    were.  Its SampleInfo waits for nothing until it is settled."""
+    first = draw_block_ids_device(1_875_000, 0.00015, 7, cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        info = first.sample_info(0.00015, 7, 1_875_000, 0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert info.sampled_block_ids is None and info.pending_ids is not None
+    kept = first.ids_dev.clone()
+    later = [draw_block_ids_device(1_875_000, 0.5, seed, cuda) for seed in range(8, 16)]
+    later_infos = [d.sample_info(0.5, 8 + k, 1_875_000, 0) for k, d in enumerate(later)]
+    info.settle()
+    host = info.sampled_block_ids.copy()
+    for k, i in enumerate(later_infos):
+        i.settle()
+        assert np.array_equal(i.sampled_block_ids, draw_block_ids(1_875_000, 0.5, 8 + k))
+    torch.cuda.synchronize()
+    assert torch.equal(first.ids_dev, kept) and np.array_equal(info.sampled_block_ids, host)
+    assert info.pending_ids is None
+    assert np.array_equal(host, draw_block_ids(1_875_000, 0.00015, 7))
+    assert first.ids_dev.untyped_storage().nbytes() == 4 * first.n_phys
+
+
+def test_session_q6_final_ids_are_the_host_draw(cuda):
+    """A Q6 through Session.sql on the card: its pilot and final draw on the
+    card, and the final's ids are ``draw_block_ids`` at the rate and seed
+    the final recorded.  Before its dispatch the final waits on the card
+    only for its draw's count; its ids are read after its sums and its
+    counts."""
+    cat = tpch_catalog(2_000_000, 32, seed=0, device="cuda")
+    s = Session(cat, seed=11, config=SessionConfig(result_cache_size=0, tracing=True))
+    seen = []
+    execute = s.executor.execute
+
+    def spy(plan):
+        res = execute(plan)
+        seen.extend(i for i in res.sample_infos.values() if i.method == "block")
+        return res
+
+    s.executor.execute = spy
+    launches = block_draw.launches
+    try:
+        h = s.sql("SELECT SUM(l_extendedprice * l_discount) AS revenue FROM lineitem "
+                  "WHERE l_shipdate BETWEEN 100 AND 1500 AND l_discount BETWEEN 0.02 "
+                  "AND 0.08 ERROR 5% CONFIDENCE 95%")
+        assert h.status == "done" and h.fallback is None, (h.error, h.fallback)
+    finally:
+        s.close()
+    assert block_draw.launches - launches >= 2  # the pilot's draws and the final's
+    info, = seen
+    want = draw_block_ids(info.n_total_blocks, info.rate, info.seed)
+    assert info.n_sampled_blocks == len(want) > 0
+    assert isinstance(info.sampled_block_ids, np.ndarray) and info.pending_ids is None
+    assert np.array_equal(info.sampled_block_ids, want)
+    final, = h._trace.find("final")
+    scan, = [c for c in final.children if c.name == "scan"]
+    draw, = [c for c in scan.children if c.name == "draw"]
+    dispatch, = [c for c in scan.children if c.name == "dispatch"]
+    assert draw.attrs["where"] == "device"
+    assert [c.attrs["bytes"] for c in draw.children if c.name == "host_read"] == [4]
+    reads = [c for c in scan.children if c.name == "host_read"]
+    assert len(reads) == 3 and all(dispatch.t1 <= r.t0 for r in reads)
+    assert reads[-1].attrs["bytes"] == 4 * info.n_sampled_blocks
 
 
 def test_fused_session_on_the_card_is_bitwise_two_stage(cuda):
