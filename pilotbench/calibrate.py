@@ -26,7 +26,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def control_checks(outcome, dtype):
     """The control's numbers: the reference in ``dtype`` in the program's
-    place, judged against the float64 reference."""
+    place, over every table of the catalog and, for an approximate answer,
+    over the blocks of every table its final sampled; judged against the
+    float64 reference."""
     from pilotbench import check
     ref = outcome.reference
     low = check.Reference(ref.tables, ref.block_rows, dtype=dtype)

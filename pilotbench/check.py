@@ -9,8 +9,10 @@ Three numbers, each beside its limit:
   inf.
 * ``sample_gap`` -- over every approximate answer: the largest relative gap
   of a value from the reference's estimate over the same block sample (the
-  final the program ran at the rate its plan chose, recorded as it ran;
-  every sum scaled by N / n).  An answer with no such final reads inf.
+  final the program ran at the rates its plan chose, recorded as it ran:
+  the drawn blocks of every table it sampled; every sum scaled by N / n
+  where it sampled one table, by 1 / (product of the rates) where it
+  sampled more).  An answer with no such final reads inf.
 * ``miss_share`` -- the share of distinct approximate answers in which some
   value lies further from the reference's exact value than the query's
   ERROR, or a group the exact answer has is missing.  The guarantee states
@@ -38,8 +40,8 @@ from pilotbench import reference
 
 @dataclasses.dataclass
 class Final:
-    """One sampled final scan the program ran: its table and its block
-    sample as the program reported them."""
+    """One table's sampled scan in a final the program ran: the table and
+    its block sample as the program reported them."""
 
     table: str
     rate: float
@@ -55,6 +57,18 @@ class Final:
 
 
 @dataclasses.dataclass
+class Sample:
+    """One sampled final of a result: the sampled scan of every table that
+    it block-sampled, kept together."""
+
+    finals: Tuple[Final, ...]
+
+    def of(self, table: str) -> Optional[Final]:
+        """The scan of ``table``, or None where the final did not sample it."""
+        return next((f for f in self.finals if f.table == table), None)
+
+
+@dataclasses.dataclass
 class Answer:
     """One answer of the window, as the program delivered it."""
 
@@ -62,20 +76,20 @@ class Answer:
     values: Optional[np.ndarray]
     present: Optional[np.ndarray]
     exact: bool              # no ERROR clause, or TAQA fell back to exact
-    finals: List[Final]      # candidates: finals at the plan's own rate
+    samples: List[Sample]    # candidates: finals at the plan's own rates
     error: Optional[str] = None
 
 
 class Reference:
-    """The reference's answers over the benchmark's own tables, cached per
-    query and per sample; ``dtype`` float64, or lower for the control, whose
-    float columns it stores in that dtype too."""
+    """The reference's answers over the benchmark's own catalog, ``{table:
+    {column: tensor}}``, cached per query and per sample; ``dtype`` float64,
+    or lower for the control, whose float columns it stores in that dtype
+    too."""
 
     def __init__(self, tables: Dict[str, Dict[str, torch.Tensor]],
                  block_rows: int, dtype=torch.float64):
         self.dtype = dtype
         self.block_rows = block_rows
-        self.rows = {t: int(next(iter(c.values())).shape[0]) for t, c in tables.items()}
         if dtype == torch.float64:
             self.tables = tables
         else:
@@ -87,7 +101,7 @@ class Reference:
 
     def prefetch(self, queries: Sequence) -> None:
         """Exact channel sums of every distinct (family, params), one pass
-        over each family's table."""
+        over each family's tables."""
         todo: Dict[str, List[tuple]] = {}
         for q in queries:
             k = (q.family, q.params)
@@ -95,28 +109,29 @@ class Reference:
                 todo.setdefault(q.family, []).append(k)
         for family, keys in todo.items():
             fam = reference.family(family)
-            sums = reference.exact_sums(self.tables[fam.TABLE], self.rows[fam.TABLE],
-                                        fam, [dict(p) for _, p in keys], self.dtype)
+            sums = reference.exact_sums(self.tables, fam, [dict(p) for _, p in keys],
+                                        self.dtype)
             self._exact.update(zip(keys, sums))
 
     def exact(self, q) -> Tuple[np.ndarray, np.ndarray]:
         self.prefetch([q])
         return reference.compose(reference.family(q.family), self._exact[(q.family, q.params)])
 
-    def sample(self, q, f: Final) -> Tuple[np.ndarray, np.ndarray]:
-        ids = f.id_array()
-        key = (q.family, q.params, f.n_total,
-               hashlib.blake2b(ids.tobytes(), digest_size=16).digest())
-        if key not in self._sample:
-            fam = reference.family(q.family)
-            self._sample[key] = reference.sample_sums(
-                self.tables[fam.TABLE], self.rows[fam.TABLE], self.block_rows,
-                fam, q.params_dict, ids, self.dtype)
+    def sample(self, q, s: Sample) -> Tuple[np.ndarray, np.ndarray]:
+        ids = [f.id_array() for f in s.finals]
+        key = (q.family, q.params) + tuple(
+            (f.table, f.n_total, hashlib.blake2b(i.tobytes(), digest_size=16).digest())
+            for f, i in zip(s.finals, ids))
         fam = reference.family(q.family)
-        return reference.sample_answer(fam, self._sample[key], f.n_total, len(ids))
+        if key not in self._sample:
+            self._sample[key] = reference.sample_sums(
+                self.tables, self.block_rows, fam, q.params_dict,
+                {f.table: i for f, i in zip(s.finals, ids)}, self.dtype)
+        return reference.sample_answer(
+            fam, self._sample[key], [(f.rate, f.n_total, len(i)) for f, i in zip(s.finals, ids)])
 
     def pass_rows(self, q) -> int:
-        """Rows of the table that pass the query's predicate."""
+        """Rows of the (joined) table that pass the query's predicate."""
         self.prefetch([q])
         fam = reference.family(q.family)
         return int(round(self._exact[(q.family, q.params)][fam.CHANNELS.index("count")].sum()))
@@ -188,7 +203,7 @@ def judge(answers: Sequence[Answer], ref: Reference,
             exact_gap = max(exact_gap, _gap(a.values, a.present, want, want_present))
             continue
         n_sample += 1
-        gaps = [_gap(a.values, a.present, *ref.sample(a.query, f)) for f in a.finals]
+        gaps = [_gap(a.values, a.present, *ref.sample(a.query, s)) for s in a.samples]
         sample_gap = max(sample_gap, min(gaps, default=float("inf")))
         err, conf = a.query.guarantee
         confidence = min(confidence, conf / 100.0)
@@ -214,15 +229,16 @@ def passed(checks: Dict[str, Dict[str, float]]) -> bool:
 def control_answers(answers: Sequence[Answer], control: Reference) -> List[Answer]:
     """The control: the reference in the control's dtype put in the
     program's place -- each exact answer its exact value, each approximate
-    answer its estimate over the program's own final sample."""
+    answer its estimate over the program's own final sample, every table
+    of it."""
     out = []
     for a in answers:
         if a.error is not None:
             out.append(a)
             continue
-        if a.exact or not a.finals:
+        if a.exact or not a.samples:
             v, p = control.exact(a.query)
         else:
-            v, p = control.sample(a.query, a.finals[0])
+            v, p = control.sample(a.query, a.samples[0])
         out.append(dataclasses.replace(a, values=v, present=p))
     return out

@@ -12,7 +12,8 @@ that returns a number, or None where the run holds nothing to read).
 From the program the harness takes its front door (``Session``,
 ``SessionConfig``, ``BlockTable``, ``Session.register_table``), what each answer reports
 (``TaqaReport``, ``DrainStats``), its span trees in a traced run, and the
-block sample of each final scan, recorded as the executor returns it.
+block sample of each final, every sampled table of it, recorded as the
+executor returns it.
 """
 
 from __future__ import annotations
@@ -79,12 +80,14 @@ def reader(name: str):
 
 
 class FinalRecorder:
-    """Records the block sample of every sampled scan the executor returns
-    (``execute`` and ``execute_batch``), as the program reported it."""
+    """Records the block sample of every sampled final the executor returns
+    (``execute`` and ``execute_batch``), as the program reported it: one
+    :class:`check.Sample` a result, with the scan of every table it
+    block-sampled."""
 
     def __init__(self, executor):
         self.ex = executor
-        self.finals: List[check.Final] = []
+        self.samples: List[check.Sample] = []
         self._seen: set = set()
         self._keep_alive: list = []
         self._execute, self._batch = executor.execute, executor.execute_batch
@@ -94,12 +97,14 @@ class FinalRecorder:
         infos = getattr(res, "sample_infos", None)
         if not infos or id(res) in self._seen:
             return
-        for table, i in infos.items():
-            if i.method == "block" and i.rate < 1.0:
-                self._seen.add(id(res))
-                self._keep_alive.append(res)
-                self.finals.append(check.Final(table, i.rate, i.sampled_block_ids,
-                                               i.n_total_blocks, i.n_sampled_blocks))
+        finals = tuple(check.Final(table, i.rate, i.sampled_block_ids,
+                                   i.n_total_blocks, i.n_sampled_blocks)
+                       for table, i in infos.items()
+                       if i.method == "block" and i.rate < 1.0)
+        if finals:
+            self._seen.add(id(res))
+            self._keep_alive.append(res)
+            self.samples.append(check.Sample(finals))
 
     def _on_execute(self, plan):
         res = self._execute(plan)
@@ -112,8 +117,8 @@ class FinalRecorder:
             self._keep(res)
         return out
 
-    def take(self) -> List[check.Final]:
-        out, self.finals = self.finals, []
+    def take(self) -> List[check.Sample]:
+        out, self.samples = self.samples, []
         self._seen.clear()
         self._keep_alive = []
         return out
@@ -139,14 +144,17 @@ class Record:
         return self.t1 - self.t0
 
 
-def _answer(q: Query, h, finals: List[check.Final]) -> check.Answer:
+def _answer(q: Query, h, samples: List[check.Sample]) -> check.Answer:
     if h.status != "done":
         return check.Answer(q, None, None, q.guarantee is None, [], error=h.error or h.status)
     a = h.result()
     rep = a.report
     exact = q.guarantee is None or rep.fallback is not None
-    chosen = {} if rep.plan is None else dict(rep.plan.rates)
-    mine = [f for f in finals if chosen.get(f.table) == f.rate] if not exact else []
+    # a sample is this answer's where it sampled the tables the plan
+    # samples, each at the rate the plan chose for it
+    chosen = {} if rep.plan is None else {t: r for t, r in rep.plan.rates.items() if r < 1.0}
+    mine = [s for s in samples
+            if {f.table: f.rate for f in s.finals} == chosen] if not exact else []
     return check.Answer(q, np.array(a.values, dtype=float), np.array(a.group_present, bool),
                         exact, mine)
 
@@ -241,13 +249,13 @@ def run_cell(workload: str, seed: int, seconds: float, trace_on: bool, *,
             hs = ask(queries)
             t1 = time.perf_counter()
             n_batches += 1
-            finals = recorder.take()
+            samples = recorder.take()
             stats = mode.stats(session)
             k = None if stats is None else len(refreshes)
             for q, h in zip(queries, hs):
                 # a mode that times its queries itself returns (handle, t0, t1)
                 h, q0, q1 = h if isinstance(h, tuple) else (h, t0, t1)
-                rec = Record(q, q0, q1, _answer(q, h, finals), _report(h), k)
+                rec = Record(q, q0, q1, _answer(q, h, samples), _report(h), k)
                 if trace_on:
                     rec.spans = trace.flatten_spans(h.trace(), h.t_submit)
                 records.append(rec)

@@ -4,7 +4,11 @@ Each family is a module of this package (``q6.py``, ``q1.py``, ...) that
 holds the SQL template the traffic fills in and the same query's meaning
 over the raw columns:
 
-* ``TABLE`` -- the one table it reads;
+* ``TABLE`` -- the table it reads, the fact table that the pilot samples;
+* ``JOINS`` -- optional: left-deep equi joins from ``TABLE``, each
+  ``(table, left key, right key)`` on a key that is unique in the right
+  table; ``COLUMNS`` may then name columns of any joined table, and a fact
+  row whose key finds no match drops out;
 * ``SQL`` -- the dialect text, with ``{placeholders}``;
 * ``placeholders(params)`` -- the template's values from the TPC-H
   substitution parameters a mix draws (``year``, ``discount``, ...);
@@ -18,16 +22,19 @@ over the raw columns:
 * ``values(cols, cast)`` -- each value channel of the rows, through
   ``cast``.
 
-:func:`exact_sums` evaluates a family over a whole table and
-:func:`sample_sums` over the rows of given blocks, in any dtype: float64 for
-the reference, bfloat16 for the control that the benchmark's comparison has
-to reject.  Nothing here
-imports the program under test.
+:func:`exact_sums` evaluates a family over a whole catalog,
+``{table: {column: tensor}}``, and :func:`sample_sums` over the rows whose
+every sampled table's block was drawn, in any dtype: float64 for the
+reference, bfloat16 for the control that the benchmark's comparison has to
+reject.  A joined table's columns are gathered at each fact row's key
+through a key-to-row map built by scatter (TPC-H keys are dense integers).
+Nothing here imports the program under test.
 """
 
 from __future__ import annotations
 
 import importlib
+import math
 import re
 from typing import Dict, List, Sequence, Tuple
 
@@ -92,13 +99,43 @@ def compose(fam, sums: np.ndarray, scale: float = 1.0):
     return out, present
 
 
-def exact_sums(cols: Dict[str, torch.Tensor], num_rows: int, fam,
+def joins(fam) -> Tuple[Tuple[str, str, str], ...]:
+    """The family's joins, ``()`` for a family of one table."""
+    return tuple(getattr(fam, "JOINS", ()))
+
+
+def tables_of(fam) -> Tuple[str, ...]:
+    """The tables a family reads: the fact table, then each joined table."""
+    return (fam.TABLE,) + tuple(t for t, _, _ in joins(fam))
+
+
+def _names(fam) -> set:
+    return set(fam.COLUMNS) | ({fam.GROUP_BY} if fam.GROUP_BY else set())
+
+
+def _num_rows(cols: Dict[str, torch.Tensor]) -> int:
+    return int(next(iter(cols.values())).shape[0])
+
+
+def _row_chunks(num_rows: int, device):
+    """A table's row indices, ``CHUNK_ROWS`` at a time."""
+    return (torch.arange(lo, min(lo + CHUNK_ROWS, num_rows), device=device)
+            for lo in range(0, num_rows, CHUNK_ROWS))
+
+
+def exact_sums(catalog: Dict[str, Dict[str, torch.Tensor]], fam,
                params_list: Sequence[Dict[str, object]],
                dtype=torch.float64) -> List[np.ndarray]:
-    """Channel sums (channels, groups) over every row of the table, one per
-    entry of ``params_list``, accumulated chunk by chunk in ``dtype``."""
-    names = set(fam.COLUMNS) | ({fam.GROUP_BY} if fam.GROUP_BY else set())
+    """Channel sums (channels, groups) over every row of the family's fact
+    table, joined through its ``JOINS``, one per entry of ``params_list``,
+    accumulated chunk by chunk in ``dtype``."""
+    cols = catalog[fam.TABLE]
+    num_rows = _num_rows(cols)
     phs = [fam.placeholders(p) for p in params_list]
+    if joins(fam):
+        dev = next(iter(cols.values())).device
+        return _joined_sums(catalog, fam, phs, _row_chunks(num_rows, dev), dtype)
+    names = _names(fam)
     acc = [None] * len(phs)
     for lo in range(0, num_rows, CHUNK_ROWS):
         chunk = {c: cols[c][lo:lo + CHUNK_ROWS] for c in names}
@@ -115,26 +152,120 @@ def block_rows_index(block_ids, block_rows: int, device) -> torch.Tensor:
             + torch.arange(block_rows, device=device)[None, :]).reshape(-1)
 
 
-def sample_sums(cols: Dict[str, torch.Tensor], num_rows: int, block_rows: int,
-                fam, params: Dict[str, object], block_ids,
+def sample_sums(catalog: Dict[str, Dict[str, torch.Tensor]], block_rows: int,
+                fam, params: Dict[str, object], block_ids: Dict[str, object],
                 dtype=torch.float64) -> np.ndarray:
-    """Channel sums (channels, groups) over the rows of the given blocks
-    (rows past ``num_rows`` are padding and count for nothing)."""
-    names = set(fam.COLUMNS) | ({fam.GROUP_BY} if fam.GROUP_BY else set())
+    """Channel sums (channels, groups) over the rows of the sample:
+    ``block_ids`` holds the drawn block ids of each sampled table, and a
+    (joined) row counts when the block it comes from in every sampled table
+    was drawn.  Rows past a table's end are padding and count for nothing."""
+    other = set(block_ids) - set(tables_of(fam))
+    if other:
+        raise ValueError(f"{fam.__name__} reads no table {sorted(other)}")
+    cols = catalog[fam.TABLE]
+    num_rows = _num_rows(cols)
     dev = next(iter(cols.values())).device
-    idx = block_rows_index(block_ids, block_rows, dev)
-    idx = idx[idx < num_rows]
-    chunk = {c: cols[c][idx] for c in names}
-    values = _channel_values(fam, chunk, dtype)
-    return _channel_sums(fam, chunk, values, fam.placeholders(params),
-                         dtype).double().cpu().numpy()
+    ph = fam.placeholders(params)
+    if fam.TABLE in block_ids:
+        idx = block_rows_index(block_ids[fam.TABLE], block_rows, dev)
+        idx = idx[idx < num_rows]
+    if not joins(fam):
+        chunk = {c: cols[c][idx] for c in _names(fam)}
+        values = _channel_values(fam, chunk, dtype)
+        return _channel_sums(fam, chunk, values, ph, dtype).double().cpu().numpy()
+    if fam.TABLE in block_ids:
+        chunks = (idx[lo:lo + CHUNK_ROWS] for lo in range(0, idx.numel(), CHUNK_ROWS))
+    else:
+        chunks = _row_chunks(num_rows, dev)
+    drawn = {}
+    for t, ids in block_ids.items():
+        if t != fam.TABLE:
+            drawn[t] = torch.zeros(-(-_num_rows(catalog[t]) // block_rows),
+                                   dtype=torch.bool, device=dev)
+            drawn[t][torch.as_tensor(np.asarray(ids, dtype=np.int64), device=dev)] = True
+    (sums,) = _joined_sums(catalog, fam, [ph], chunks, dtype, drawn, block_rows)
+    return sums
 
 
-def sample_answer(fam, sums: np.ndarray, n_total_blocks: int,
-                  n_sampled_blocks: int) -> Tuple[np.ndarray, np.ndarray]:
-    """The estimate from one block sample: each sum scaled by N / n (the
-    estimator of a single sampled table, conditional on the sample size)."""
-    return compose(fam, sums, n_total_blocks / n_sampled_blocks)
+def key_map(keys: torch.Tensor) -> torch.Tensor:
+    """The row that holds each key 0..max(keys) of a key column, -1 where
+    none does; raises where a key is negative or held by two rows."""
+    k = keys.long()
+    if int(k.min()) < 0:
+        raise ValueError("a join key is negative")
+    rows = torch.arange(k.numel(), device=k.device)
+    at = torch.full((int(k.max()) + 1,), -1, dtype=torch.int64, device=k.device)
+    at[k] = rows
+    if not torch.equal(at[k], rows):
+        raise ValueError("a join's right key is not unique")
+    return at
+
+
+def _lookup(at: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+    """``at`` read at each key, -1 where the key lies outside it."""
+    key = key.long()
+    inside = (key >= 0) & (key < at.numel())
+    return torch.where(inside, at[key.clamp(0, at.numel() - 1)], torch.full_like(key, -1))
+
+
+def _join(catalog, fam, idx: torch.Tensor, maps: Dict[str, torch.Tensor],
+          drawn: Dict[str, torch.Tensor], block_rows: int) -> Dict[str, torch.Tensor]:
+    """The family's columns at the fact rows ``idx``, each joined to its
+    match in every table of ``JOINS``: only the rows that find a match in
+    each, and whose block in each table of ``drawn`` was drawn."""
+    rows = {fam.TABLE: idx}
+
+    def holder(col):
+        return next(t for t in rows if col in catalog[t])
+
+    for table, left_key, right_key in joins(fam):
+        t = holder(left_key)
+        at = _lookup(maps[table], catalog[t][left_key][rows[t]])
+        keep = at >= 0
+        rows = {u: r[keep] for u, r in rows.items()}
+        rows[table] = at[keep]
+    for table, mask in drawn.items():
+        keep = mask[rows[table] // block_rows]
+        rows = {u: r[keep] for u, r in rows.items()}
+    return {c: catalog[holder(c)][c][rows[holder(c)]] for c in _names(fam)}
+
+
+def _joined_sums(catalog, fam, phs, chunks, dtype, drawn=None,
+                 block_rows: int = 1) -> List[np.ndarray]:
+    """Channel sums, one per placeholder set of ``phs``, over the joined
+    rows of each chunk of fact rows, accumulated in ``dtype``."""
+    maps = {t: key_map(catalog[t][right_key]) for t, _, right_key in joins(fam)}
+    acc = [None] * len(phs)
+    for idx in chunks:
+        chunk = _join(catalog, fam, idx, maps, drawn or {}, block_rows)
+        values = _channel_values(fam, chunk, dtype)
+        for i, ph in enumerate(phs):
+            s = _channel_sums(fam, chunk, values, ph, dtype)
+            acc[i] = s if acc[i] is None else acc[i] + s
+    return [a.double().cpu().numpy() for a in acc]
+
+
+def sample_scale(draws: Sequence[Tuple[float, int, int]]) -> float:
+    """The scale of a sample's sums, from each sampled table's ``(rate, N
+    blocks, n blocks drawn)``, as the paper's final rewriting (§3.3) scales
+    them.  Each table's blocks are drawn on their own, each kept with its
+    table's rate θ, so a joined row is in the sample with probability ∏θ:
+
+    * one sampled table: N / n, the estimator conditional on the sample's
+      size;
+    * two or more: Horvitz-Thompson, every row weighted by 1 / ∏θ, from the
+      sample's own rates.
+    """
+    if len(draws) == 1:
+        _, n_total, n_sampled = draws[0]
+        return n_total / n_sampled
+    return 1.0 / math.prod(rate for rate, _, _ in draws)
+
+
+def sample_answer(fam, sums: np.ndarray,
+                  draws: Sequence[Tuple[float, int, int]]) -> Tuple[np.ndarray, np.ndarray]:
+    """The estimate from one sample: each sum scaled by :func:`sample_scale`."""
+    return compose(fam, sums, sample_scale(draws))
 
 
 def relative_gap(got: np.ndarray, want: np.ndarray) -> float:

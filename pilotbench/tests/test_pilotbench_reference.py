@@ -127,7 +127,8 @@ def test_sample_estimate_matches_numpy(data, family, params):
     ids = np.sort(np.random.default_rng(3).choice(ROWS // BR, 400, replace=False))
     ref = check.Reference(data, BR)
     q = make_query(family, params, (5, 95))
-    got, _ = ref.sample(q, check.Final("lineitem", 0.2, ids, ROWS // BR, len(ids)))
+    got, _ = ref.sample(q, check.Sample((check.Final("lineitem", 0.2, ids, ROWS // BR,
+                                                     len(ids)),)))
     rows = (ids[:, None] * BR + np.arange(BR)).ravel()
     sub = {k: v[rows] for k, v in numpy_cols(data).items()}
     want = numpy_answer(sub, family, params)
